@@ -1,0 +1,514 @@
+"""Vectorized policy-pool simulator in torch: every (job, policy) pair of the
+pool simulated over the market slots at once.
+
+Port of the JAX package's ``core/fast_sim.py`` (single region). Semantics,
+rounding and feasibility rules are the reference's op for op; what changes
+is the batching. The reference vmaps a per-job scan over the jobs axis; here
+the state is one (K jobs, P lanes) batch, the scan is a Python loop over
+slots, and job fields ride as (K, 1) columns. The pool is partitioned by
+``kind``: the AHAP lanes of every job are flattened into ONE (K * P_ahap)
+row batch, so each slot issues exactly one ``solve_window_batch`` call —
+one K1 launch on the card. The other kinds (AHANP/OD/MSU/UP/RAND_DEADLINE)
+run a cheap loop that never touches the window DP, and the two parts are
+scattered back to pool order.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import JobConfig, ThroughputConfig
+from repro_torch.core.job import value_fn
+from repro_torch.core.policy_pool import (KIND_AHANP, KIND_AHAP, KIND_MSU,
+                                          KIND_OD, KIND_RAND, KIND_UP)
+from repro_torch.core.window_opt import solve_window_batch
+from repro_torch.device import resolve_device, to_device
+
+W1MAX = 6   # max omega + 1
+VMAX = 5    # max commitment level
+NTABLE = 16  # unit-table width (paper availability cap)
+
+_I32, _F32 = torch.int32, torch.float32
+
+
+class JobArrays(NamedTuple):
+    """Stacked (K,) job fields: numpy leaves on the host, tensors once an
+    entry point has moved them to its device (:func:`jobs_to`)."""
+    workload: object            # f32
+    deadline: object            # i32 (dynamic; the loop runs d_max slots)
+    n_min: object               # i32
+    n_max: object               # i32
+    value: object               # f32
+    gamma: object               # f32
+    p_o: object                 # f32
+
+
+_JOB_DTYPES = (_F32, _I32, _I32, _I32, _F32, _F32, _F32)
+_JOB_NP = (np.float32, np.int32, np.int32, np.int32, np.float32, np.float32,
+           np.float32)
+
+
+def jobs_to(jobs: JobArrays, device) -> JobArrays:
+    """JobArrays with every leaf a tensor of the reference's dtype on
+    ``device``."""
+    return JobArrays(*[to_device(f, dt, device)
+                       for f, dt in zip(jobs, _JOB_DTYPES)])
+
+
+def stack_jobs(jobs) -> JobArrays:
+    """A list of JobConfig -> stacked (K,) JobArrays with numpy leaves."""
+    cols = zip(*[(j.workload, j.deadline, j.n_min, j.n_max, j.value, j.gamma,
+                  j.on_demand_price) for j in jobs])
+    return JobArrays(*[np.asarray(c, dt) for c, dt in zip(cols, _JOB_NP)])
+
+
+def slice_jobs(jobs: JobArrays, start: int, stop: int) -> JobArrays:
+    """Job-axis slice — the unit of the engine's job-chunked mode."""
+    return JobArrays(*[f[start:stop] for f in jobs])
+
+
+def _job_cfg(j: JobArrays) -> JobConfig:
+    return JobConfig(
+        workload=j.workload, deadline=j.deadline, n_min=j.n_min,
+        n_max=j.n_max, value=j.value, gamma=j.gamma, on_demand_price=j.p_o,
+    )
+
+
+def _columns(jobs: JobArrays, nd: int = 1) -> JobArrays:
+    """(K,) leaves as (K, 1, ..) columns that broadcast over the lane axes."""
+    return JobArrays(*[f.reshape(f.shape + (1,) * nd) for f in jobs])
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip`` on integer tensors: minimum(maximum(x, lo), hi)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _feasible(n_o, n_s, price, avail, j: JobArrays):
+    """Mirror of BasePolicy._feasible."""
+    n_s = torch.minimum(torch.minimum(n_s, avail), j.n_max)
+    n_o = torch.clamp_min(n_o, 0)
+    total = n_o + n_s
+    need = torch.clamp_min(j.n_min - total, 0)
+    spot_room = (price <= j.p_o) & (avail - n_s >= need)
+    under = (total > 0) & (total < j.n_min)
+    n_s = torch.where(under & spot_room, n_s + need, n_s)
+    n_o = torch.where(under & ~spot_room, n_o + need, n_o)
+    over = torch.clamp_min(n_o + n_s - j.n_max, 0)
+    drop_od = torch.where(price <= j.p_o, torch.minimum(over, n_o), 0)
+    n_o = n_o - drop_od
+    n_s = n_s - (over - drop_od)
+    zero = total <= 0
+    return torch.where(zero, 0, n_o), torch.where(zero, 0, n_s)
+
+
+def _sim_clip(n_o, n_s, avail, j: JobArrays):
+    """Mirror of simulate()'s hard feasibility clip."""
+    n_s = torch.minimum(torch.clamp_min(n_s, 0), torch.minimum(avail, j.n_max))
+    n_o = torch.minimum(torch.clamp_min(n_o, 0), j.n_max - n_s)
+    n = n_o + n_s
+    n_o = torch.where((n > 0) & (n < j.n_min), n_o + (j.n_min - n), n_o)
+    return n_o, n_s
+
+
+# ---------------------------------------------------------------------------
+# Decision rules. State tensors are (K, P); ``j`` holds (K, 1) job columns,
+# ``price``/``av`` are this slot's (K, 1) market and ``t`` the slot index.
+# ---------------------------------------------------------------------------
+
+def _ahap_precompute(j3: JobArrays, omega, sigma, rho, t: int, pred_t):
+    """AHAP scaffolding for slot ``t``: omega/sigma/rho are (P,) lane
+    parameters, ``j3`` holds (K, 1, 1) job columns and pred_t is the
+    slot's (K, W1MAX, 2) forecast. Returns (pr (K, P, W1MAX, 2),
+    thr_s (K, P, W1MAX) i32, z_exp_end (K, P), eff_slots (K, P) i32).
+
+    Robust-AHAP discounts *predicted* availability (entries j >= 1 only)."""
+    k, p = pred_t.shape[0], omega.shape[0]
+    disc_av = torch.floor(rho[None, :, None] * pred_t[:, None, :, 1])
+    disc_av[..., 0] = pred_t[:, None, 0, 1]      # the present is observed
+    pr = torch.stack([pred_t[:, None, :, 0].expand(k, p, W1MAX), disc_av],
+                     dim=-1)
+    in_w = (torch.arange(W1MAX, device=omega.device)[None, None, :]
+            <= omega[None, :, None])
+    j2 = JobArrays(*[f[:, :, 0] for f in j3])
+    z_exp_end = j2.workload / j2.deadline * torch.minimum(
+        (t + 1 + omega[None, :]).to(_F32), j2.deadline.to(_F32)
+    )
+    thr_s = torch.where(
+        in_w
+        & (pr[..., 0] <= sigma[None, :, None] * j3.p_o)
+        & (pr[..., 1] >= j3.n_min),
+        torch.minimum(pr[..., 1].to(_I32), j3.n_max),
+        0,
+    )
+    eff_slots = torch.minimum(j2.deadline - t, omega[None, :] + 1)
+    return pr, thr_s, z_exp_end, eff_slots
+
+
+def _ahap_rule_batch(rows: JobConfig, j: JobArrays, tput, v, backend, device,
+                     z, t: int, price, av, plans, pr_t, thr_t, zee_t, eff_t):
+    """AHAP (Alg. 1) for every (job, AHAP lane): CHC window solve when
+    behind, threshold plan when ahead, v-step plan averaging. The window
+    solve is ONE ``solve_window_batch`` call over the flattened
+    (K * P) rows (``rows`` holds the per-row job fields). Returns
+    (n_o, n_s, new_plans)."""
+    k, p = z.shape
+    b = k * p
+    ahead = z >= zee_t
+    chc_o, chc_s, _ = solve_window_batch(
+        rows, tput, z.reshape(b), eff_t.reshape(b),
+        pr_t[..., 0].reshape(b, W1MAX),
+        pr_t[..., 1].to(_I32).reshape(b, W1MAX),
+        rows.on_demand_price, table_n=NTABLE, backend=backend, device=device,
+    )
+    plan = torch.where(
+        ahead[..., None, None],
+        torch.stack([torch.zeros_like(thr_t), thr_t], dim=-1),
+        torch.stack([chc_o, chc_s], dim=-1).reshape(k, p, W1MAX, 2),
+    ).to(_F32)                                          # (K, P, W1MAX, 2)
+    plans = torch.cat([plan[:, :, None], plans[:, :, :-1]], dim=2)
+    kk = torch.arange(VMAX, device=z.device)
+    # a plan only exists if it was actually made (k <= t)
+    valid = (kk[None, :] < v[:, None]) & (kk[None, :] <= t)
+    valid = valid[None, :, :, None].to(_F32)           # (1, P, VMAX, 1)
+    # plans[..., i, min(i, W1MAX - 1), :]: the i-th newest plan's decision
+    # for the current slot (the reference's advanced-index gather)
+    diag = plans[:, :, kk, torch.clamp_max(kk, W1MAX - 1)]  # (K, P, VMAX, 2)
+    cnt = torch.clamp_min(valid.sum(dim=(2, 3)), 1.0)  # (1, P)
+    avg = (diag * valid).sum(dim=2) / cnt[..., None]   # (K, P, 2)
+    # round-half-up, matching the python reference exactly
+    ah_o = torch.floor(avg[..., 0] + 0.5).to(_I32)
+    ah_s = torch.minimum(torch.floor(avg[..., 1] + 0.5).to(_I32), av)
+    ah_zero = (ah_o + ah_s) == 0
+    ah_o_f, ah_s_f = _feasible(ah_o, ah_s, price, av, j)
+    ah_o = torch.where(ah_zero, 0, ah_o_f)
+    ah_s = torch.where(ah_zero, 0, ah_s_f)
+    return ah_o, ah_s, plans
+
+
+def _ahanp_rule(j: JobArrays, sigma, z, t: int, price, av, n_prev,
+                prev_avail):
+    """AHANP (Alg. 3): reactive indicators z_hat / p_hat / n_hat."""
+    z_exp_prev = j.workload / j.deadline * float(t)
+    z_hat = torch.where(z_exp_prev > 0, z / z_exp_prev, 1.0)
+    p_hat = price / (sigma * j.p_o)
+    n_hat = torch.where(
+        av == 0, 0.0,
+        torch.where(prev_avail == 0, torch.inf,
+                    av / torch.clamp_min(prev_avail, 1).to(_F32)),
+    )
+    ahead1 = z_hat >= 1.0
+    n_an = torch.where(
+        ahead1,
+        torch.where(
+            av == 0,
+            0,
+            torch.where(
+                n_hat <= 0.5,
+                torch.maximum(n_prev // 2, j.n_min),
+                torch.where(
+                    n_hat <= 1.0,
+                    n_prev,
+                    torch.where(p_hat > 1.0, n_prev,
+                                torch.maximum(n_prev, av)),
+                ),
+            ),
+        ),
+        torch.maximum(2 * n_prev, j.n_min),
+    )
+    an_zero = n_an <= 0
+    n_an_c = _clip(n_an, j.n_min, j.n_max)
+    an_s = torch.minimum(av, n_an_c)
+    an_o_f, an_s_f = _feasible(n_an_c - an_s, an_s, price, av, j)
+    return torch.where(an_zero, 0, an_o_f), torch.where(an_zero, 0, an_s_f)
+
+
+def _od_need(j: JobArrays, tput, z, t: int):
+    """(remaining, slots_left, on-demand units to finish at the deadline)."""
+    remaining = torch.clamp_min(j.workload - z, 0.0)
+    slots_left = (j.deadline - t).to(_F32)
+    od_need = torch.ceil(
+        remaining / torch.clamp_min(slots_left, 1.0) / tput.alpha
+    ).to(_I32)
+    return remaining, slots_left, od_need
+
+
+def _od_rule(j: JobArrays, tput, z, t: int, price, av):
+    """OD-Only: constant on-demand sized to finish exactly at the deadline."""
+    remaining, slots_left, od_need = _od_need(j, tput, z, t)
+    od_zero = (remaining <= 0) | (slots_left <= 0)
+    n_o = _clip(od_need, j.n_min, j.n_max)
+    od_o_f, od_s_f = _feasible(n_o, torch.zeros_like(n_o), price, av, j)
+    return torch.where(od_zero, 0, od_o_f), torch.where(od_zero, 0, od_s_f)
+
+
+def _msu_rule(j: JobArrays, tput, z, t: int, price, av):
+    """MSU: all spot; on-demand only once N^max can no longer finish."""
+    remaining, slots_left, od_need = _od_need(j, tput, z, t)
+    ms_s = torch.minimum(av, j.n_max).expand_as(od_need)
+    h_max = tput.alpha * j.n_max.to(_F32) + tput.beta
+    panic = remaining > h_max * torch.clamp_min(slots_left - 1.0, 0.0)
+    ms_o = torch.where(
+        panic, torch.clamp_min(torch.minimum(od_need, j.n_max) - ms_s, 0), 0
+    )
+    ms_zero = (remaining <= 0) | ((ms_s + ms_o) == 0)
+    ms_o_f, ms_s_f = _feasible(ms_o, ms_s, price, av, j)
+    return torch.where(ms_zero, 0, ms_o_f), torch.where(ms_zero, 0, ms_s_f)
+
+
+def _up_rule(j: JobArrays, tput, z, t: int, price, av):
+    """UP (Wu et al. [16]): track the L/d line, spot-first."""
+    remaining = torch.clamp_min(j.workload - z, 0.0)
+    rate = j.workload / j.deadline.to(_F32)
+    deficit = torch.clamp_min(rate * float(t) - z, 0.0)
+    up_need = _clip(torch.ceil((rate + deficit) / tput.alpha).to(_I32),
+                    j.n_min, j.n_max)
+    up_s = torch.minimum(av, up_need)
+    up_o = torch.where(deficit > 0, up_need - up_s, 0)
+    up_zero = (remaining <= 0) | ((up_s + up_o) == 0)
+    up_o_f, up_s_f = _feasible(up_o, up_s, price, av, j)
+    return torch.where(up_zero, 0, up_o_f), torch.where(up_zero, 0, up_s_f)
+
+
+def _rand_rule(j: JobArrays, tput, cfrac, z, t: int, price, av):
+    """RAND_DEADLINE (arXiv:2601.14612): all-spot before the committed slot
+    tau = floor(cfrac * d); from tau on, on-demand sized to finish exactly
+    at the deadline."""
+    tau = torch.floor(cfrac * j.deadline.to(_F32))
+    committed = float(t) >= tau
+    remaining, slots_left, od_need = _od_need(j, tput, z, t)
+    rd_o = torch.where(committed, _clip(od_need, j.n_min, j.n_max), 0)
+    rd_s = torch.where(committed, 0, torch.minimum(av, j.n_max))
+    rd_zero = (remaining <= 0) | (slots_left <= 0) | ((rd_o + rd_s) == 0)
+    rd_o_f, rd_s_f = _feasible(rd_o, rd_s, price, av, j)
+    return torch.where(rd_zero, 0, rd_o_f), torch.where(rd_zero, 0, rd_s_f)
+
+
+def _execute(j: JobArrays, tput, z, n_prev, cost, done, T, t: int, n_o, n_s,
+             price, av):
+    """Mirror of simulate()'s slot execution: hard clip, mu, billing,
+    fractional completion. Returns the updated state + (n_o, n_s, active)."""
+    active = (t < j.deadline) & ~done
+    n_o, n_s = _sim_clip(n_o, n_s, av, j)
+    n_o = torch.where(active, n_o, 0)
+    n_s = torch.where(active, n_s, 0)
+    n = n_o + n_s
+
+    mu = torch.where(n > n_prev, tput.mu1,
+                     torch.where(n < n_prev, tput.mu2, 1.0))
+    mu = torch.where((n == 0) & (n_prev == 0), 1.0, mu)
+    work = mu * torch.where(n > 0, tput.alpha * n.to(_F32) + tput.beta, 0.0)
+    will_done = active & (work > 0) & (z + work >= j.workload)
+    frac = torch.where(
+        work > 0, (j.workload - z) / torch.clamp_min(work, 1e-9), 0.0
+    )
+    T = torch.where(will_done, float(t) + frac, T)
+    cost = cost + torch.where(
+        active, n_s.to(_F32) * price + n_o.to(_F32) * j.p_o, 0.0
+    )
+    z = torch.minimum(z + torch.where(active, work, 0.0), j.workload)
+    n_prev = torch.where(active, n, n_prev)
+    done = done | will_done
+    return z, n_prev, cost, done, T, n_o, n_s, active
+
+
+def _finalize(j: JobArrays, tput, z, cost, done, T, no_hist, ns_hist):
+    """Termination configuration (N^max on-demand past the deadline)."""
+    h_max = tput.alpha * j.n_max.to(_F32) + tput.beta
+    dt = torch.clamp_min(j.workload - z, 0.0) / h_max
+    T_final = torch.where(done, T, j.deadline.to(_F32) + dt)
+    cost_final = cost + torch.where(
+        done, 0.0, j.p_o * j.n_max.to(_F32) * dt
+    )
+    value = value_fn(_job_cfg(j), T_final)
+    return {
+        "utility": value - cost_final,
+        "value": value,
+        "cost": cost_final,
+        "completion_time": T_final,
+        "z_ddl": z,
+        "completed": done,
+        "n_od": torch.stack(no_hist, dim=2),
+        "n_spot": torch.stack(ns_hist, dim=2),
+    }
+
+
+def _init_state(k: int, p: int, device):
+    """(z, n_prev, cost, done, T) for a fresh (K, P) batch."""
+    return (torch.zeros((k, p), dtype=_F32, device=device),
+            torch.zeros((k, p), dtype=_I32, device=device),
+            torch.zeros((k, p), dtype=_F32, device=device),
+            torch.zeros((k, p), dtype=torch.bool, device=device),
+            torch.zeros((k, p), dtype=_F32, device=device))
+
+
+def _simulate_lanes_ahap(omega, v, sigma, rho, jobs: JobArrays, tput,
+                         prices, avail, pred, backend, device):
+    """Every (job, AHAP lane) pair over the market slots. Each slot issues
+    ONE window solve over the flattened (K * P) rows."""
+    k, dmax = prices.shape
+    p = omega.shape[0]
+    j, j3 = _columns(jobs), _columns(jobs, 2)
+    rows = _job_cfg(JobArrays(*[f[:, None].expand(k, p).reshape(k * p)
+                                for f in jobs]))
+    z, n_prev, cost, done, T = _init_state(k, p, device)
+    plans = torch.zeros((k, p, VMAX, W1MAX, 2), dtype=_F32, device=device)
+    no_hist, ns_hist = [], []
+    for t in range(dmax):
+        price, av = prices[:, t:t + 1], avail[:, t:t + 1]
+        pr_t, thr_t, zee_t, eff_t = _ahap_precompute(
+            j3, omega, sigma, rho, t, pred[:, t]
+        )
+        n_o, n_s, plans = _ahap_rule_batch(
+            rows, j, tput, v, backend, device, z, t, price, av, plans,
+            pr_t, thr_t, zee_t, eff_t,
+        )
+        z, n_prev, cost, done, T, n_o, n_s, _ = _execute(
+            j, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av
+        )
+        no_hist.append(n_o)
+        ns_hist.append(n_s)
+    return _finalize(j, tput, z, cost, done, T, no_hist, ns_hist)
+
+
+def _simulate_one_cheap(kind, sigma, cfrac, jobs: JobArrays, tput, prices,
+                        avail):
+    """Every (job, non-AHAP lane) pair (AHANP/OD/MSU/UP/RAND_DEADLINE): no
+    forecasts, no window DP. kind/sigma/cfrac are (P,) lane parameters."""
+    k, dmax = prices.shape
+    p = kind.shape[0]
+    j = _columns(jobs)
+    kind, sigma, cfrac = kind[None, :], sigma[None, :], cfrac[None, :]
+    z, n_prev, cost, done, T = _init_state(k, p, prices.device)
+    prev_avail = avail[:, :1].expand(k, p)
+    no_hist, ns_hist = [], []
+    for t in range(dmax):
+        price, av = prices[:, t:t + 1], avail[:, t:t + 1]
+        rules = (
+            (KIND_AHANP,
+             _ahanp_rule(j, sigma, z, t, price, av, n_prev, prev_avail)),
+            (KIND_OD, _od_rule(j, tput, z, t, price, av)),
+            (KIND_MSU, _msu_rule(j, tput, z, t, price, av)),
+            (KIND_UP, _up_rule(j, tput, z, t, price, av)),
+            (KIND_RAND, _rand_rule(j, tput, cfrac, z, t, price, av)),
+        )
+        n_o = torch.zeros((k, p), dtype=_I32, device=prices.device)
+        n_s = torch.zeros((k, p), dtype=_I32, device=prices.device)
+        for kind_id, (r_o, r_s) in rules:
+            n_o = torch.where(kind == kind_id, r_o, n_o)
+            n_s = torch.where(kind == kind_id, r_s, n_s)
+        z, n_prev, cost, done, T, n_o, n_s, active = _execute(
+            j, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av
+        )
+        prev_avail = torch.where(active, av, prev_avail)
+        no_hist.append(n_o)
+        ns_hist.append(n_s)
+    return _finalize(j, tput, z, cost, done, T, no_hist, ns_hist)
+
+
+# ---------------------------------------------------------------------------
+# Pool entry points: partition by kind, scatter back to pool order
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _partition_lane_args(pool_arrays: dict):
+    """(ahap_idx, other_idx, ahap_args, cheap_args) as numpy: the pool
+    encoding is data, so the kind split happens on the host."""
+    arr = {k: _host(v) for k, v in pool_arrays.items()}
+    kind = arr["kind"]
+    n = len(kind)
+    rho = arr.get("rho", np.ones(n, np.float32)).astype(np.float32)
+    cfrac = arr.get("cfrac", np.zeros(n, np.float32)).astype(np.float32)
+    ahap_idx = np.flatnonzero(kind == KIND_AHAP)
+    other_idx = np.flatnonzero(kind != KIND_AHAP)
+    ahap_args = (arr["omega"][ahap_idx], arr["v"][ahap_idx],
+                 arr["sigma"][ahap_idx], rho[ahap_idx])
+    cheap_args = (kind[other_idx], arr["sigma"][other_idx], cfrac[other_idx])
+    return ahap_idx, other_idx, ahap_args, cheap_args
+
+
+def _scatter_merge(parts, index_arrays, device):
+    """Stitch per-partition result dicts back into pool order (lane axis 1)."""
+    if len(parts) == 1:
+        return parts[0]
+    order = torch.as_tensor(
+        np.argsort(np.concatenate(index_arrays), kind="stable"), device=device
+    )
+    return {
+        k: torch.cat([p[k] for p in parts], dim=1)[:, order] for k in parts[0]
+    }
+
+
+def simulate_pool_jobs(pool_arrays: dict, jobs: JobArrays,
+                       tput: ThroughputConfig, prices, avail, pred,
+                       backend: Optional[str] = None, device=None) -> dict:
+    """Simulate every (job, policy) pair: a dict of (K, P, ...) tensors in
+    pool order (utility, value, cost, completion_time, z_ddl, completed,
+    n_od, n_spot).
+
+    ``pool_arrays`` from specs_to_arrays (numpy or tensors); ``jobs``
+    stacked (K,) JobArrays; prices/avail (K, d_max), pred
+    (K, d_max, W1MAX, 2). Inputs move to ``device`` (None: the card);
+    avail is cast to int32 at this boundary. ``backend`` picks the window
+    DP (None: "cuda" on the card, "torch" on the CPU)."""
+    dev = resolve_device(device)
+    jobs = jobs_to(jobs, dev)
+    prices = to_device(prices, _F32, dev)
+    avail = to_device(avail, _I32, dev)
+    pred = to_device(pred, _F32, dev)
+    ahap_idx, other_idx, ahap_args, cheap_args = _partition_lane_args(
+        pool_arrays
+    )
+    lane = lambda a, dt: to_device(a, dt, dev)
+    parts, idxs = [], []
+    if ahap_idx.size:
+        omega, v, sigma, rho = ahap_args
+        parts.append(_simulate_lanes_ahap(
+            lane(omega, _I32), lane(v, _I32), lane(sigma, _F32),
+            lane(rho, _F32), jobs, tput, prices, avail, pred, backend, dev,
+        ))
+        idxs.append(ahap_idx)
+    if other_idx.size:
+        kind, sigma, cfrac = cheap_args
+        parts.append(_simulate_one_cheap(
+            lane(kind, _I32), lane(sigma, _F32), lane(cfrac, _F32), jobs,
+            tput, prices, avail,
+        ))
+        idxs.append(other_idx)
+    return _scatter_merge(parts, idxs, dev)
+
+
+def simulate_pool(pool_arrays: dict, j: JobArrays, tput: ThroughputConfig,
+                  prices, avail, pred, backend: Optional[str] = None,
+                  device=None) -> dict:
+    """One job: ``j`` holds scalar leaves, prices/avail are (d_max,) and pred
+    (d_max, W1MAX, 2). Returns a dict of (P, ...) tensors in pool order."""
+    jobs = JobArrays(*[np.asarray(_host(f))[None] for f in j])
+    out = simulate_pool_jobs(
+        pool_arrays, jobs, tput, _host(prices)[None], _host(avail)[None],
+        _host(pred)[None], backend=backend, device=device,
+    )
+    return {k: v[0] for k, v in out.items()}
+
+
+def prepare_inputs(trace, pred_matrix, d_max: int):
+    """Pad/trim a trace + prediction matrix to (d_max, ...) numpy arrays:
+    prices f32, avail i32, pred (d_max, W1MAX, 2) f32 (None broadcasts the
+    observed present)."""
+    prices = np.asarray(trace.prices[:d_max], np.float32)
+    avail = np.asarray(trace.avail[:d_max], np.int32)
+    if pred_matrix is None:
+        pm = np.zeros((d_max, W1MAX, 2), np.float32)
+        pm[:, :, 0] = np.asarray(trace.prices[:d_max])[:, None]
+        pm[:, :, 1] = np.asarray(trace.avail[:d_max])[:, None]
+    else:
+        pm = np.asarray(pred_matrix[:d_max, :W1MAX], np.float32)
+        if pm.shape[1] < W1MAX:
+            pad = np.repeat(pm[:, -1:], W1MAX - pm.shape[1], axis=1)
+            pm = np.concatenate([pm, pad], axis=1)
+    return prices, avail, pm

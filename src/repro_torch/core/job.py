@@ -1,0 +1,72 @@
+"""Fine-tuning job model in torch: the deadline value function V(T) (Eq. 4)
+and its reformulation Ṽ(Z^ddl) (Eq. 9), plus the EG selector's per-job
+utility normalization. Port of the JAX package's ``core/job.py``.
+
+Ṽ absorbs the *termination configuration*: any workload left at the deadline
+is finished immediately with N^max on-demand instances, so the value and the
+post-deadline cost become functions of Z^ddl only (Sec. III-E.2).
+
+Job fields may be python scalars (one shared job) or tensors that broadcast
+against the progress argument (one job per row). Python-scalar
+subexpressions are evaluated in python, as the reference's weakly typed
+scalars are, and every tensor op runs in f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import JobConfig, ThroughputConfig
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as an f32 tensor on ``like``'s device (a no-op for tensors)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: minimum(maximum(x, lo), hi); lo/hi scalars or tensors."""
+    return torch.minimum(torch.maximum(x, _f32(lo, x)), _f32(hi, x))
+
+
+def value_fn(job: JobConfig, T):
+    """V(T), Eq. 4: full value v until d, linear decay to 0 at gamma*d."""
+    v, d, g = job.value, job.deadline, job.gamma
+    T = torch.as_tensor(T).to(torch.float32)
+    decay = v * (1.0 - (T - d) / ((g - 1.0) * d))
+    return torch.where(T <= d, _f32(v, T), _clip(decay, 0.0, v))
+
+
+def termination_time(job: JobConfig, tput: ThroughputConfig, z_ddl):
+    """Extra (fractional) slots past d to finish L - Z^ddl with N^max
+    on-demand."""
+    rate = tput.alpha * job.n_max + tput.beta
+    z = torch.as_tensor(z_ddl).to(torch.float32)
+    remaining = torch.clamp_min(job.workload - z, 0.0)
+    return remaining / rate
+
+
+def tilde_value(job: JobConfig, tput: ThroughputConfig, z_ddl):
+    """Ṽ(Z^ddl), Eq. 9: value at completion minus post-deadline on-demand
+    cost. Piecewise-linear in Z^ddl and NOT concave, which is why the
+    window solver evaluates every prefix length (see window_opt)."""
+    dt = termination_time(job, tput, z_ddl)
+    val = value_fn(job, job.deadline + dt)
+    post_cost = job.on_demand_price * job.n_max * dt
+    return val - post_cost
+
+
+def normalization_bounds_batch(jobs):
+    """Per-job (u_min, u_max) bounds of the EG selector's [0, 1] utility:
+    ``jobs`` carries stacked (K,) tensor leaves (fast_sim.JobArrays).
+    u_max = v; u_min = worst feasible spend with zero value."""
+    f = lambda x: x.to(torch.float32)
+    u_max = f(jobs.value)
+    u_min = -(f(jobs.p_o) * f(jobs.n_max) * f(jobs.gamma) * f(jobs.deadline))
+    return u_min, u_max
+
+
+def normalize_utility_batch(jobs, u: torch.Tensor) -> torch.Tensor:
+    """Map the (K, M) raw-utility matrix through the per-job [0, 1]
+    normalization (Thm. 2's precondition)."""
+    lo, hi = normalization_bounds_batch(jobs)
+    return torch.clamp((u - lo[:, None]) / (hi - lo)[:, None], 0.0, 1.0)

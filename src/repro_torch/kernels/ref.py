@@ -1,0 +1,62 @@
+"""Plain PyTorch versions of the port's kernels (the correctness references).
+
+Mirrors the JAX package's ``kernels/ref.py``. The CPU tests run these, and
+chip_smoke.py holds each CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+BIG = 1.0e9
+
+
+def window_dp_ref(slot_cost: torch.Tensor, gain: torch.Tensor):
+    """B independent CHC window min-plus DPs (Eq. 10) in torch ops.
+
+    slot_cost: (B, w1, tn+1) f32 — cheapest cost of buying k units in slot
+    tau (infeasible k priced at BIG); gain: (B, U+1) f32, U = w1*tn.
+    Returns (n_tot (B, w1) i32, obj (B,) f32).
+
+    A line-for-line port of the reference's lane-batched shifted-slice DP
+    (``window_opt._solve_xla_batch`` / ``_dp_step_shifted_batch``): slots
+    are a loop, each step takes tn+1 statically shifted slices of the
+    BIG-padded state, a running strict ``<`` keeps the smallest k on ties,
+    ``torch.argmax`` takes the first max u*, and the backtrack gathers
+    ``choices[tau, u]``. Choices are stored as int8 (tn <= 127): at the
+    main path's 105,000 rows an int64 buffer would take ~0.5 GB a slot."""
+    b, w1, kw = slot_cost.shape
+    tn = kw - 1
+    u1 = gain.shape[1]
+    if u1 != w1 * tn + 1:
+        raise ValueError(f"gain {tuple(gain.shape)} does not match "
+                         f"slot_cost {tuple(slot_cost.shape)}")
+    if not 1 <= tn <= 127:
+        raise ValueError(f"table width tn={tn} outside [1, 127]")
+    dev = slot_cost.device
+    C = torch.full((b, u1), BIG, dtype=torch.float32, device=dev)
+    C[:, 0] = 0.0
+    padded = torch.full((b, tn + u1), BIG, dtype=torch.float32, device=dev)
+    choices = torch.empty((w1, b, u1), dtype=torch.int8, device=dev)
+    for tau in range(w1):
+        row = slot_cost[:, tau]
+        padded[:, tn:] = C
+        best = C + row[:, 0:1]
+        bestk = torch.zeros((b, u1), dtype=torch.int8, device=dev)
+        for k in range(1, tn + 1):
+            # C[u-k] is the padded state shifted k to the right
+            cand = padded[:, tn - k: tn - k + u1] + row[:, k: k + 1]
+            take = cand < best
+            best = torch.where(take, cand, best)
+            bestk.masked_fill_(take, k)
+        choices[tau] = bestk
+        C = best
+
+    obj = torch.where(C < BIG / 2, gain - C, -torch.inf)
+    u_star = torch.argmax(obj, dim=1)          # first max on ties
+    n_tot = torch.empty((b, w1), dtype=torch.int32, device=dev)
+    u = u_star
+    for tau in range(w1 - 1, -1, -1):
+        k = choices[tau].gather(1, u[:, None])[:, 0].to(torch.int64)
+        n_tot[:, tau] = k.to(torch.int32)
+        u = u - k
+    return n_tot, obj.gather(1, u_star[:, None])[:, 0]

@@ -1,0 +1,102 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the JAX
+package, its kernel module imports without a CUDA compiler, and its entry
+points refuse to run quietly on the CPU when no card is present."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def _run(code: str, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("JAX_PLATFORMS", None)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_import_loads_neither_jax_nor_reference():
+    proc = _run(
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or"
+        " k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "print(len(names), bad)\n"
+        "assert not bad, bad\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 15, proc.stdout
+
+
+def test_kernel_module_imports_without_nvcc(tmp_path):
+    """Importing the kernel module builds nothing; without a compiler the
+    build raises (no fallback), while CPU tensors still take the plain
+    version."""
+    proc = _run(
+        "import torch\n"
+        "from repro_torch.kernels import window_dp as k\n"
+        "c = torch.zeros((2, 1, 3)); g = torch.zeros((2, 3))\n"
+        "n, o = k.window_dp(c, g)\n"
+        "assert n.shape == (2, 1) and k.window_dp.launches == 0\n"
+        "try:\n"
+        "    k.build()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'nvcc' in str(e), e\n"
+        "    print('raised')\n",
+        {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "raised"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.core import engine, fast_sim, selector, window_opt
+    from repro_torch.core.policy_pool import paper_pool, specs_to_arrays
+    from repro_torch.workload import PAPER_JOB, PAPER_TPUT, job_stream_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jobs = job_stream_arrays(np.random.default_rng(0), 2)
+    prices = np.full((2, 10), 0.5, np.float32)
+    avail = np.full((2, 10), 4, np.int64)
+    preds = np.zeros((2, 10, fast_sim.W1MAX, 2), np.float32)
+    pool = specs_to_arrays(paper_pool()[:3])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.simulate_and_select(pool, jobs, PAPER_TPUT, prices, avail,
+                                   preds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fast_sim.simulate_pool_jobs(pool, jobs, PAPER_TPUT, prices, avail,
+                                    preds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        window_opt.solve_window_batch(
+            PAPER_JOB, PAPER_TPUT, np.zeros(2, np.float32),
+            np.full(2, 3, np.int32), prices[:, :6], avail[:, :6], 1.0, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        selector.eg_init(4, 10)
+    # an explicit device still runs
+    res = engine.simulate_and_select(pool, jobs, PAPER_TPUT, prices, avail,
+                                     preds, device="cpu")
+    assert res.max_weight.shape == (2,)
+
+
+def test_kernel_wrapper_rejects_non_cuda_tensors():
+    """A tensor that is on neither the CPU nor a CUDA device is refused, not
+    routed to the plain version."""
+    from repro_torch.kernels.window_dp import window_dp
+
+    c = torch.zeros((2, 1, 3), device="meta")
+    g = torch.zeros((2, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        window_dp(c, g)
+    assert window_dp.launches == 0
