@@ -6,14 +6,25 @@ Run from the repo root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds K1 (``src/repro_torch/kernels/csrc/window_dp.cu``) with nvcc for
-sm_90a, holds it bit for bit against its plain PyTorch version on the card,
-drives the paper's online policy selection (Fig. 9: four noise settings,
-1000 jobs x ``paper_pool()``) through ``engine.simulate_and_select`` on the
-card, checks winners against the JAX reference and the plain-DP run, and
-times the kernel beside its bound. Any failed phase raises and the script
-exits nonzero. Without a CUDA device, or without the repo beside it, it
-exits nonzero and prints no result. Its last line is the device JSON.
+It builds the three kernels (``src/repro_torch/kernels/csrc/*.cu``: K1
+window_dp, K2 lora_matmul, K3 flash_attention), one nvcc for sm_90a each,
+all started together, and then drives two paths on the card:
+
+- the paper's online policy selection (Fig. 9: four noise settings, 1000
+  jobs x ``paper_pool()``) through ``engine.simulate_and_select``, with K1
+  held bit for bit against its plain version, winners checked against the
+  JAX reference and the plain-DP run;
+- dense-model serving: K2 and K3 held against their plain versions, the
+  llama2-7b smoke config served greedily and checked token for token against
+  the JAX ``ServingEngine``, then llama2-7b at full width and depth (bf16)
+  serving 8 prompts of 1024 tokens for 32 new tokens each through
+  ``ServingEngine``, with the launch counts checked and every forward's
+  logits held against the same model run on the plain versions.
+
+It times each kernel beside its bound, its plain version and a PyTorch
+yardstick. Any failed phase raises and the script exits nonzero. Without a
+CUDA device, or without the repo beside it, it exits nonzero and prints no
+result. Its last line is the device JSON.
 """
 from __future__ import annotations
 
@@ -27,10 +38,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): device memory rate
-# and f32 rate outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): device memory
+# rate, f32 rate outside the tensor cores, bf16 dense tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 SETTINGS = (("magdep_uniform", 0.1), ("fixed_uniform", 0.1),
             ("magdep_heavytail", 0.3), ("fixed_heavytail", 0.3))
@@ -63,6 +75,51 @@ JAX_REF_124 = (70, 1000, 0.03944089814469354, 41.01250076293945)
 # torch rounds them) to 1e-5 relative
 REGRET_RTOL = 0.02
 MEAN_U_RTOL = 1e-5
+
+# ---- dense-model serving ----
+# [serve-ref]: the llama2-7b smoke config (2 layers, d 256, f32) with
+# ``convert.random_model_params(cfg, SERVE_REF_SEED)`` (LoRA B non-zero),
+# serving the prompts of :func:`serve_ref_prompts` greedily for 8 new
+# tokens with max_len 64. SERVE_REF_TOKENS are the JAX package's
+# ``repro.serve.ServingEngine`` tokens on the same numpy weights, run on the
+# CPU with JAX_PLATFORMS=cpu (tests/test_torch_serve.py recomputes them).
+SERVE_REF_ARCH = "llama2-7b"
+SERVE_REF_SEED = 12
+SERVE_REF_NEW = 8
+SERVE_REF_MAX_LEN = 64
+SERVE_REF_TOKENS = (
+    (327, 498, 327, 284, 460, 56, 509, 18),
+    (211, 76, 93, 234, 76, 93, 290, 93),
+    (368, 197, 483, 422, 483, 101, 248, 248),
+    (140, 191, 320, 454, 225, 96, 495, 379),
+)
+# [serve]: llama2-7b at full width and depth, bf16, weights drawn on the
+# card (LoRA B ~ N(0, SERVE_LORA_B_STD), not the zero init)
+SERVE_ARCH = "llama2-7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 1024, 32, 2048
+SERVE_LORA_B_STD = 0.02
+# Every forward's last-position logits of the kernel run against the same
+# model on the plain versions, teacher-forced on the kernel run's tokens.
+# The two runs differ only in the order of f32 sums inside K2 and K3; each
+# difference surfaces as a one-ulp flip of a bf16 rounding, and the logits
+# are themselves a bf16 product (one ulp is 2^-5 = 0.031 for |logit| in
+# [4, 8)). Bound: 8 such ulps.
+SERVE_LOGIT_ATOL = 0.25
+
+# K2 / K3 against their plain versions on the card. Both kernels and both
+# plain versions compute in full f32, so at f32 only the order of the sums
+# differs (K2 1e-4, K3 2e-5); at bf16 each rounds one f32 result once, so an
+# output may differ by one bf16 ulp (at most 2^-7 relative) where the two
+# f32 results straddle a rounding boundary.
+K2_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
+K3_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-3)}
+TIME_REPS = 25
+
+
+def serve_ref_prompts(np, vocab: int):
+    """The [serve-ref] prompts: 4 x 16 tokens from a numpy seed."""
+    rng = np.random.default_rng(SERVE_REF_SEED + 1)
+    return rng.integers(0, vocab, (4, 16)).astype(np.int32)
 
 
 def _fail(msg: str) -> None:
@@ -163,6 +220,358 @@ def _check_result(name, res, ref, n_pol):
         _fail(f"{name}: best mean utility {got_u} vs JAX {mean_u}")
 
 
+# ---------------------------------------------------------------------------
+# Dense-model serving: K2, K3 and the serving path
+# ---------------------------------------------------------------------------
+
+def _randn(torch, gen, shape, std, dtype):
+    """A normal draw made on the card from ``gen``, scaled, then cast."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * std).to(
+        dtype)
+
+
+def _close(torch, what, got, want, rtol, atol) -> float:
+    """got against want in f32, elementwise |got - want| <= atol + rtol
+    |want|; returns the largest |got - want|."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        _fail(f"{what}: shape {tuple(g.shape)} vs {tuple(w.shape)} or "
+              "non-finite output")
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    if bool(bad.any()):
+        _fail(f"{what}: {int(bad.sum())} of {err.numel()} elements outside "
+              f"rtol {rtol} atol {atol} (max |err| {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def _lora_case(torch, gen, m, k, n, r, dtype):
+    return (_randn(torch, gen, (m, k), 1.0, dtype),
+            _randn(torch, gen, (k, n), 0.05, dtype),
+            _randn(torch, gen, (k, r), 0.05, dtype),
+            _randn(torch, gen, (r, n), 0.05, dtype))
+
+
+def _phase_k2(torch, gen, k2, lora_matmul_ref) -> float:
+    """K2 against its plain version on the card: the JAX package's kernel
+    test shapes at f32 and bf16, a ragged shape, and llama2-7b's prefill
+    (M = 8 x 1024) and decode (M = 8) q / v projections."""
+    cases = [((m, k, n, r), dt)
+             for m, k, n, r in ((128, 128, 128, 16), (256, 384, 128, 8),
+                                (128, 256, 256, 64))
+             for dt in ("float32", "bfloat16")]
+    cases += [((200, 4096, 4096, 16), "float32"),
+              ((200, 4096, 4096, 16), "bfloat16"),
+              ((SERVE_BATCH * SERVE_PROMPT, 4096, 4096, 16), "bfloat16"),
+              ((SERVE_BATCH, 4096, 4096, 16), "bfloat16")]
+    max_err = 0.0
+    for (m, k, n, r), dt in cases:
+        x, w, a, b = _lora_case(torch, gen, m, k, n, r, getattr(torch, dt))
+        launches = k2.lora_matmul.launches
+        y = k2.lora_matmul(x, w, a, b, 2.0)
+        torch.cuda.synchronize()
+        k2.lora_matmul.launches = launches  # comparison launches do not count
+        want = lora_matmul_ref(x, w, a, b, 2.0)
+        err = _close(torch, f"K2 {dt} {(m, k, n, r)}", y, want,
+                     *K2_TOL[dt])
+        max_err = max(max_err, err)
+        print(f"[k2] {dt} (M, K, N, r) = {(m, k, n, r)}: max |err| "
+              f"{err:.3e} within rtol/atol {K2_TOL[dt]}")
+    return max_err
+
+
+def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
+    """K3 against its plain version on the card: the JAX package's kernel
+    test shapes and masks, bf16, a ragged S, and llama2-7b's prefill."""
+    cases = [((bh, sq, sk, d), "float32", causal, window)
+             for bh, sq, sk, d in ((4, 256, 256, 64), (2, 128, 512, 128))
+             for causal, window in ((True, None), (False, None), (True, 100))]
+    cases += [((2, 128, 128, 64), "bfloat16", True, None),
+              ((3, 200, 200, 128), "bfloat16", True, None),
+              ((3, 200, 200, 128), "float32", True, 37),
+              ((SERVE_BATCH * 32, SERVE_PROMPT, SERVE_PROMPT, 128),
+               "bfloat16", True, None)]
+    max_err = 0.0
+    for (bh, sq, sk, d), dt, causal, window in cases:
+        dtype = getattr(torch, dt)
+        q = _randn(torch, gen, (bh, sq, d), 1.0, dtype)
+        k = _randn(torch, gen, (bh, sk, d), 1.0, dtype)
+        v = _randn(torch, gen, (bh, sk, d), 1.0, dtype)
+        launches = k3.flash_attention.launches
+        o = k3.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        k3.flash_attention.launches = launches
+        want = flash_attention_ref(q[None], k[None], v[None], causal=causal,
+                                   window=window)[0]
+        what = (f"{dt} (BH, Sq, Sk, D) = {(bh, sq, sk, d)} causal={causal} "
+                f"window={window}")
+        err = _close(torch, f"K3 {what}", o, want, *K3_TOL[dt])
+        max_err = max(max_err, err)
+        print(f"[k3] {what}: max |err| {err:.3e} within rtol/atol "
+              f"{K3_TOL[dt]}")
+    return max_err
+
+
+def _phase_serve_ref(torch, np, dev, k2, k3):
+    """The port's serving engine on the card against the JAX package's
+    tokens on the same numpy weights (llama2-7b smoke config, f32)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_smoke_config(SERVE_REF_ARCH)
+    params = convert.model_params(
+        convert.random_model_params(cfg, SERVE_REF_SEED), cfg, dev)
+    prompts = serve_ref_prompts(np, cfg.vocab_size)
+    eng = ServingEngine(cfg, params, max_len=SERVE_REF_MAX_LEN, device=dev)
+    k2.lora_matmul.launches = 0
+    k3.flash_attention.launches = 0
+    out = eng.generate_batch([Request(p, SERVE_REF_NEW) for p in prompts])
+    launches = (k2.lora_matmul.launches, k3.flash_attention.launches)
+    got = tuple(tuple(int(t) for t in o) for o in out)
+    if got != SERVE_REF_TOKENS:
+        _fail(f"[serve-ref] tokens {got} != JAX {SERVE_REF_TOKENS}")
+    want = (2 * cfg.num_layers * (1 + SERVE_REF_NEW), cfg.num_layers)
+    if launches != want:
+        _fail(f"[serve-ref] K2/K3 launches {launches}, expected {want}")
+    print(f"[serve-ref] {cfg.name}: {len(got)} requests x {SERVE_REF_NEW} "
+          f"greedy tokens equal the JAX ServingEngine's; K2 launched "
+          f"{launches[0]} times, K3 {launches[1]}")
+
+
+def _teacher_forced(torch, tf, cfg, params, prompts, tokens, kcfg):
+    """Prefill on the prompts, then one decode step per given token.
+    Returns (last-position logits of every forward (F, B, V) f32, prefill
+    seconds, decode seconds per step)."""
+    dev = params["embed"].device
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(cfg, params,
+                                   {"tokens": prompts.to(dev)},
+                                   SERVE_MAX_LEN, kcfg)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        outs = [logits[:, -1]]
+        t0 = time.perf_counter()
+        for i in range(tokens.shape[1]):
+            logits, cache = tf.decode_step(
+                cfg, params, {"tokens": tokens[:, i:i + 1]}, cache, kcfg)
+            outs.append(logits[:, -1])
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / tokens.shape[1]
+    return torch.stack(outs), t_pre, t_dec
+
+
+def _phase_serve(torch, np, dev, k2, k3):
+    """llama2-7b at full width and depth, bf16, on the card: 8 prompts of
+    1024 tokens, 32 greedy new tokens each, through ServingEngine.
+    Returns the launches of K2 at prefill, of K2 at decode and of K3."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg)
+    for lp in params["layers"]:
+        for pair in lp["attn"].get("lora", {}).values():
+            pair["b"].normal_(0.0, SERVE_LORA_B_STD, generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    eng = ServingEngine(cfg, params, max_len=SERVE_MAX_LEN, device=dev)
+    # warm-up (first-call costs stay out of the timings)
+    eng.generate_batch([Request(p[:16], 2) for p in prompts])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # K2's launches before the first decode step are the prefill's
+    at_decode = []
+    decode_step = tf.decode_step
+
+    def note_decode(*args, **kwargs):
+        if not at_decode:
+            at_decode.append(k2.lora_matmul.launches)
+        return decode_step(*args, **kwargs)
+
+    k2.lora_matmul.launches = 0
+    k3.flash_attention.launches = 0
+    tf.decode_step = note_decode
+    try:
+        t0 = time.perf_counter()
+        out = eng.generate_batch([Request(p, SERVE_NEW) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tf.decode_step = decode_step
+    launches = (at_decode[0], k2.lora_matmul.launches - at_decode[0],
+                k3.flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    per_forward = len(cfg.lora.targets) * cfg.num_layers
+    want = (per_forward, per_forward * SERVE_NEW, cfg.num_layers)
+    if launches != want:
+        _fail(f"[serve] K2 prefill / K2 decode / K3 launches {launches}, "
+              f"expected {want}")
+    tokens = np.stack(out)
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        _fail(f"[serve] tokens of shape {tokens.shape} out of range")
+    print(f"[serve] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{(cfg.param_count() + cfg.lora_param_count()) / 1e9:.3f} G "
+          f"parameters, bf16) drawn on the card in "
+          f"{init_s:.2f} s; {SERVE_BATCH} x {SERVE_PROMPT}-token prompts, "
+          f"{SERVE_NEW} greedy tokens each: {wall:.3f} s, "
+          f"{SERVE_BATCH * SERVE_NEW / wall:.1f} tokens/s; K2 launched "
+          f"{launches[0] + launches[1]} times ({launches[0]} at prefill), "
+          f"K3 {launches[2]}; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+
+    prompts_t = torch.from_numpy(prompts.astype(np.int64))
+    tokens_t = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    kern, pre_s, dec_s = _teacher_forced(torch, tf, cfg, params, prompts_t,
+                                         tokens_t, KernelConfig(True))
+    plain, pre_p, dec_p = _teacher_forced(torch, tf, cfg, params, prompts_t,
+                                          tokens_t, KernelConfig(False))
+    diff = (kern - plain).abs()
+    max_d = float(diff.max())
+    if not bool(torch.isfinite(kern).all()) or max_d > SERVE_LOGIT_ATOL:
+        _fail(f"[serve] logits of the kernel and plain runs differ by "
+              f"{max_d} > {SERVE_LOGIT_ATOL}")
+    same_engine = float((kern[:-1].argmax(-1).T == tokens_t).float().mean())
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"[serve] teacher-forced on the engine's tokens: kernel run "
+          f"prefill {pre_s:.3f} s, decode {dec_s * 1e3:.2f} ms/step; plain "
+          f"run prefill {pre_p:.3f} s, decode {dec_p * 1e3:.2f} ms/step")
+    print(f"[serve] last-position logits of {kern.shape[0]} forwards: max "
+          f"|kernel - plain| {max_d:.4f} (bound {SERVE_LOGIT_ATOL}), mean "
+          f"{float(diff.mean()):.2e}; greedy tokens agree on {agree:.1%}; "
+          f"the engine's tokens equal the kernel run's argmax on "
+          f"{same_engine:.1%}")
+    _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t)
+    return launches
+
+
+def _trace_line(torch, what, prof, wall_s):
+    """Device busy time of a traced window (the sum of the device-side
+    events' self time: one stream, so they do not overlap; the host-side ops
+    that launched them are left out, or each kernel would count twice)
+    beside its wall time, and the kernels that took most of it."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us == 0:
+        print(f"[trace] {what}: wall {wall_s * 1e3:.1f} ms; device time not "
+              "measured (the profiler recorded no device events)")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[trace] {what}: wall {wall_s * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / (wall_s * 1e3):.1%}); "
+          "top: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
+              f"({e.self_device_time_total / busy_us:.1%}, {e.count}x)"
+              for e in top))
+
+
+def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, steps=4):
+    """torch.profiler over one prefill and ``steps`` decode steps of the
+    kernel run (the profiler's own host cost is in the wall times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ops import KernelConfig
+
+    kcfg = KernelConfig(True)
+    steps = min(steps, tokens_t.shape[1])
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    dev = params["embed"].device
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _, cache = tf.prefill(cfg, params, {"tokens": prompts_t.to(dev)},
+                                  SERVE_MAX_LEN, kcfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _trace_line(torch, "prefill", prof, wall)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                _, cache = tf.decode_step(
+                    cfg, params, {"tokens": tokens_t[:, i:i + 1]}, cache,
+                    kcfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _trace_line(torch, f"{steps} decode steps", prof, wall)
+
+
+def _bound(n_bytes, n_ops, ops_per_s):
+    """(bound ms, bytes ms, operations ms)."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = n_ops / ops_per_s * 1e3
+    return max(b_ms, o_ms), b_ms, o_ms
+
+
+def _phase_time_k2(torch, gen, k2, lora_matmul_ref, launches_by_m):
+    """K2 at the serving path's two shapes: kernel, plain version and
+    ``torch.addmm(x @ W, x @ A, B, alpha=scale)`` (no single PyTorch call
+    computes the fused function), CUDA events, median of TIME_REPS after
+    warm-up. Returns one row per shape."""
+    rows = []
+    for m, n_launch in launches_by_m.items():
+        k = n = 4096
+        r = 16
+        x, w, a, b = _lora_case(torch, gen, m, k, n, r, torch.bfloat16)
+        for _ in range(3):
+            k2.lora_matmul(x, w, a, b, 2.0)
+        ms = _event_ms(torch, lambda: k2.lora_matmul(x, w, a, b, 2.0),
+                       TIME_REPS)
+        plain = _event_ms(torch, lambda: lora_matmul_ref(x, w, a, b, 2.0),
+                          TIME_REPS)
+        lib = _event_ms(torch, lambda: torch.addmm(x @ w, x @ a, b,
+                                                   alpha=2.0), TIME_REPS)
+        n_bytes = 2 * (m * k + k * n + k * r + r * n + m * n)
+        n_ops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
+        bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        rows.append({"M": m, "K": k, "N": n, "r": r, "launches": n_launch,
+                     "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound,
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+    return rows
+
+
+def _phase_time_k3(torch, gen, k3, flash_attention_ref):
+    """K3 at llama2-7b's prefill (BH = 8 x 32, S = 1024, D = 128, causal,
+    bf16) beside the plain version and F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    b, h, s, d = SERVE_BATCH, 32, SERVE_PROMPT, 128
+    q, k, v = (_randn(torch, gen, (b * h, s, d), 1.0, torch.bfloat16)
+               for _ in range(3))
+    for _ in range(3):
+        k3.flash_attention(q, k, v, causal=True)
+    ms = _event_ms(torch, lambda: k3.flash_attention(q, k, v, causal=True),
+                   TIME_REPS)
+    plain = _event_ms(torch, lambda: flash_attention_ref(
+        q[None], k[None], v[None], causal=True), TIME_REPS)
+    q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
+    lib = _event_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), TIME_REPS)
+    n_bytes = 2 * 4 * b * h * s * d
+    n_ops = 4 * d * b * h * s * (s + 1) // 2
+    bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"BH": b * h, "S": s, "D": d, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound,
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
 def main() -> int:
     import torch
 
@@ -181,8 +590,12 @@ def main() -> int:
     from repro_torch.core.policy_pool import (baseline_specs, paper_pool,
                                               rand_deadline_pool,
                                               specs_to_arrays)
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import lora_matmul as k2
     from repro_torch.kernels import window_dp as k1
-    from repro_torch.kernels.ref import window_dp_ref
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         lora_matmul_ref, window_dp_ref)
     from repro_torch import workload
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -197,13 +610,15 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    lib_path, log = k1.build()
-    k1.load_library()
+    built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE])
+    for mod in (k1, k2, k3):
+        mod.load_library()
     build_s = time.perf_counter() - t0
-    print(f"[id] K1 built in {build_s:.2f} s -> "
-          f"{lib_path.relative_to(ROOT)}")
-    for line in log.strip().splitlines():
-        print(f"[nvcc] {line}")
+    print(f"[id] K1, K2, K3 built in parallel in {build_s:.2f} s")
+    for source, (lib_path, log) in built.items():
+        print(f"[id] {source} -> {lib_path.relative_to(ROOT)}")
+        for line in log.strip().splitlines():
+            print(f"[nvcc] {line}")
 
     # ---- phase 2: K1 against its plain version on the card ----
     max_err = 0.0
@@ -354,6 +769,38 @@ def main() -> int:
         f"{N_JOBS * n_pol / wall[(k, lv)]:.0f} cells/s"
         for k, lv in SETTINGS))
 
+    # ---- phase 5: dense-model serving (K2, K3) ----
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    k2_err = _phase_k2(torch, gen, k2, lora_matmul_ref)
+    k3_err = _phase_k3(torch, gen, k3, flash_attention_ref)
+    _phase_serve_ref(torch, np, dev, k2, k3)
+    k2_prefill, k2_decode, k3_launches = _phase_serve(torch, np, dev, k2,
+                                                      k3)
+
+    # ---- phase 6: K2's and K3's time beside their bounds ----
+    k2_rows = _phase_time_k2(torch, gen, k2, lora_matmul_ref, {
+        SERVE_BATCH * SERVE_PROMPT: k2_prefill, SERVE_BATCH: k2_decode})
+    for row in k2_rows:
+        print(f"[time] card {card}: K2 at (M, K, N, r) = ({row['M']}, "
+              f"{row['K']}, {row['N']}, {row['r']}) bf16: "
+              f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
+              f"on the serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
+              f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
+              f"bound; plain {row['plain_ms'] * 1e3:.1f} us; torch.addmm(x @ "
+              f"W, x @ A, B) {row['library_ms'] * 1e3:.1f} us (no single "
+              "PyTorch call computes it)")
+    k3_row = _phase_time_k3(torch, gen, k3, flash_attention_ref)
+    k3_row["launches"] = k3_launches
+    print(f"[time] card {card}: K3 at (BH, S, D) = ({k3_row['BH']}, "
+          f"{k3_row['S']}, {k3_row['D']}) causal bf16: "
+          f"{k3_row['ms'] * 1e3:.1f} us/launch ({k3_launches} launches on the "
+          f"serving path); bound {k3_row['bound_ms'] * 1e3:.1f} us by "
+          f"{k3_row['bound_by']} = {k3_row['bound_ms'] / k3_row['ms']:.1%} "
+          f"of bound; plain {k3_row['plain_ms'] * 1e3:.1f} us; "
+          f"F.scaled_dot_product_attention "
+          f"{k3_row['library_ms'] * 1e3:.1f} us")
+
     print(json.dumps({"kernels": [{
         "name": "window_dp",
         "route": "cuda",
@@ -366,6 +813,33 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }] + [{
+        # K2 runs at two shapes on the serving path, each with its own
+        # entry: the prefill forward's launches at M = 8 x 1024, the 32
+        # decode forwards' at M = 8
+        "name": f"lora_matmul/{phase}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+        "replaces": "src/repro/kernels/lora_matmul.py:26",
+        "launches": row["launches"],
+        "max_abs_err": k2_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    } for phase, row in zip(("prefill", "decode"), k2_rows)] + [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_row["ms"],
+        "plain_ms": k3_row["plain_ms"],
+        "bound_ms": k3_row["bound_ms"],
+        "bound_by": k3_row["bound_by"],
+        "library_ms": k3_row["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

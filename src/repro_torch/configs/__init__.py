@@ -1,4 +1,38 @@
-"""Scheduling configs (the model configs are not ported yet)."""
-from repro_torch.configs.base import JobConfig, ThroughputConfig
+"""Config registry of the port: the dense model configs (copies of the
+reference's files) and the scheduling configs.
 
-__all__ = ["JobConfig", "ThroughputConfig"]
+The MoE, SSM, hybrid, VLM and audio configs join with their model slices
+(ROADMAP Queue 1 item 10)."""
+from repro_torch.configs.base import (JobConfig, LoRAConfig, ModelConfig,
+                                      MoEConfig, SSMConfig, ThroughputConfig)
+from repro_torch.configs import (command_r_plus_104b, granite_20b, llama2_7b,
+                                 olmo_1b, qwen1_5_110b, tiny_100m)
+
+_MODULES = {
+    "olmo-1b": olmo_1b,
+    "qwen1.5-110b": qwen1_5_110b,
+    "granite-20b": granite_20b,
+    "command-r-plus-104b": command_r_plus_104b,
+    "llama2-7b": llama2_7b,
+    "tiny-100m": tiny_100m,
+}
+
+
+def list_archs():
+    return list(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
+    return _MODULES[name].config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
+    return _MODULES[name].smoke_config()
+
+
+__all__ = ["JobConfig", "LoRAConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+           "ThroughputConfig", "get_config", "get_smoke_config", "list_archs"]

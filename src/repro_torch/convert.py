@@ -1,15 +1,20 @@
 """Carry state across from the JAX reference: its objects, read as numpy
 arrays, become the port's tensors on a given device, and a port selector
 state goes back to numpy so a stream begun in one package can continue in
-the other. Duck-typed on field names, so this module imports nothing of the
-reference."""
+the other. Model weights cross in the reference's parameter layout (nested
+dicts, layers stacked on a leading axis). Duck-typed on field and key names,
+so this module imports nothing of the reference."""
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core import fast_sim, selector
-from repro_torch.device import to_device
+from repro_torch.device import resolve_device, to_device
+from repro_torch.models import attention
+from repro_torch.models import transformer as tf
 
 _POOL_DTYPES = {"kind": torch.int32, "omega": torch.int32, "v": torch.int32,
                 "sigma": torch.float32, "rho": torch.float32,
@@ -48,3 +53,97 @@ def eg_state_to_numpy(state: selector.EGState) -> dict:
     it back as ``EGState(**fields)``."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in selector.EGState._fields}
+
+
+def _tree_map(fn, tree, in_lora: bool = False):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, in_lora or k == "lora")
+                for k, v in tree.items()}
+    return fn(tree, in_lora)
+
+
+def model_params(values: dict, cfg, device=None) -> dict:
+    """The reference's parameter values (``repro.models.init_model(...)[0]``
+    or :func:`random_model_params`, any array type numpy can read) -> the
+    port's model: base weights in the model dtype, adapters in f32, layers a
+    list of per-layer dicts."""
+    tf.require_dense(cfg)
+    dev = resolve_device(device)
+    dt = tf.model_dtype(cfg)
+
+    def leaf(x, in_lora):
+        return to_device(np.asarray(x, np.float32),
+                         torch.float32 if in_lora else dt, dev)
+
+    out = {k: _tree_map(leaf, v) for k, v in values.items() if k != "layers"}
+    stacked = _tree_map(lambda x, _: np.asarray(x, np.float32),
+                        values["layers"])
+    out["layers"] = [_tree_map(lambda x, in_lora: leaf(x[i], in_lora),
+                               stacked) for i in range(cfg.num_layers)]
+    return out
+
+
+def random_model_params(cfg, seed: int) -> dict:
+    """Random parameter values for a dense config, as f32 numpy arrays in the
+    reference's layout (layers stacked), drawn from a numpy seed. Unlike the
+    standard init, LoRA B, the norm parameters and the biases are non-zero
+    and non-trivial, so the low-rank path and every parameter is exercised."""
+    tf.require_dense(cfg)
+    rng = np.random.default_rng(seed)
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    f, r = cfg.d_ff, cfg.lora.rank
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32) * std).astype(
+            np.float32)
+
+    def norm():
+        if cfg.norm_type == "layernorm_np":
+            return {}
+        p = {"scale": 1.0 + normal((d,), 0.1)}
+        if cfg.norm_type == "layernorm":
+            p["bias"] = normal((d,), 0.1)
+        return p
+
+    def lora_pair(in_dim, out_shape):
+        return {"a": normal((in_dim, r), 1.0 / math.sqrt(in_dim)),
+                "b": normal((r,) + out_shape, 0.02)}
+
+    def layer():
+        att = {"wq": normal((d, h, hd), 1.0 / math.sqrt(d)),
+               "wk": normal((d, kv, hd), 1.0 / math.sqrt(d)),
+               "wv": normal((d, kv, hd), 1.0 / math.sqrt(d)),
+               "wo": normal((h, hd, d), 1.0 / math.sqrt(h * hd))}
+        if cfg.qkv_bias:
+            att.update(bq=normal((h, hd), 0.1), bk=normal((kv, hd), 0.1),
+                       bv=normal((kv, hd), 0.1))
+        if cfg.o_bias:
+            att["bo"] = normal((d,), 0.1)
+        lt = {t: lora_pair(*shape)
+              for t, shape in attention.lora_shapes(cfg).items()
+              if t in cfg.lora.targets}
+        if lt:
+            att["lora"] = lt
+        mlp = {"w1": normal((d, f), 1.0 / math.sqrt(d)),
+               "w2": normal((f, d), 1.0 / math.sqrt(f))}
+        if cfg.mlp_act == "silu":
+            mlp["w3"] = normal((d, f), 1.0 / math.sqrt(d))
+        if cfg.mlp_bias:
+            mlp.update(b1=normal((f,), 0.1), b2=normal((d,), 0.1))
+        if "mlp" in cfg.lora.targets:
+            mlp["lora"] = lora_pair(d, (f,))
+        return {"attn_norm": norm(), "attn": att, "mlp_norm": norm(),
+                "mlp": mlp}
+
+    vals = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        vals["head"] = normal((d, cfg.vocab_size), 0.02)
+    layers = [layer() for _ in range(cfg.num_layers)]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    vals["layers"] = stack(*layers)
+    return vals

@@ -1,0 +1,67 @@
+"""The model layer's entry points to the kernels (the reference's
+``kernels/ops.py``).
+
+``KernelConfig(use_cuda=True)`` routes each call to its kernel wrapper,
+which launches the CUDA kernel on a CUDA tensor and runs the plain version
+on a CPU tensor. ``use_cuda=False`` runs the plain PyTorch version on any
+device: it exists so that one model can run both ways on the card for
+comparison, not as a fallback. The SSD scan (K4) waits for its slice
+(ROADMAP Queue 2).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.lora_matmul import lora_matmul as _lora
+
+
+@dataclass(frozen=True)
+class KernelConfig:
+    use_cuda: bool = True
+
+
+DEFAULT = KernelConfig()
+
+
+def lora_matmul(x, w, a, b, scale: float,
+                kcfg: KernelConfig = DEFAULT) -> torch.Tensor:
+    """y = x @ W + scale * (x@A)@B. x (..., K) is flattened to 2-D; W may be
+    (K, N) or (K, h, hd) and B (r, N) or (r, h, hd). Returns (..., *W.shape[1:])
+    in x's dtype."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    w2 = w.reshape(w.shape[0], -1)
+    b2 = b.reshape(b.shape[0], -1)
+    if kcfg.use_cuda:
+        y = _lora(x2, w2, a, b2, scale)
+    else:
+        y = ref.lora_matmul_ref(x2, w2, a, b2, scale)
+    return y.reshape(*lead, *w.shape[1:])
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              kcfg: KernelConfig = DEFAULT) -> torch.Tensor:
+    """q (B, Sq, H, D), k / v (B, Sk, KV, D) with GQA -> (B, Sq, H, D).
+    Positions count from 0 for queries and keys."""
+    b, sq, h, d = q.shape
+    rep = h // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    sk = k.shape[1]
+    qt = q.transpose(1, 2).reshape(b * h, sq, d).contiguous()
+    kt = k.transpose(1, 2).reshape(b * h, sk, d).contiguous()
+    vt = v.transpose(1, 2).reshape(b * h, sk, d).contiguous()
+    if kcfg.use_cuda:
+        o = _flash(qt, kt, vt, causal=causal, window=window)
+    else:
+        o = ref.flash_attention_ref(
+            qt.reshape(b, h, sq, d), kt.reshape(b, h, sk, d),
+            vt.reshape(b, h, sk, d), causal=causal, window=window,
+        ).reshape(b * h, sq, d)
+    return o.reshape(b, h, sq, d).transpose(1, 2)

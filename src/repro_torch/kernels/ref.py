@@ -5,9 +5,42 @@ chip_smoke.py holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 BIG = 1.0e9
+MASK_FILL = -2.0e38     # f32-safe masked score, as the reference's kernels
+
+
+def lora_matmul_ref(x, w, a, b, scale: float):
+    """x:(M,K) @ w:(K,N) + scale * (x@a):(M,r) @ b:(r,N), f32 accumulation,
+    one rounding to x's dtype."""
+    xf = x.float()
+    base = xf @ w.float()
+    delta = (xf @ a.float()) @ b.float()
+    return (base + scale * delta).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """q:(B,H,Sq,D), k,v:(B,H,Sk,D) -> (B,H,Sq,D); f32 softmax, query and
+    key positions both counted from 0, masked scores at MASK_FILL."""
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    sq, sk = q.shape[2], k.shape[2]
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    s = s.masked_fill(~ok, MASK_FILL)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
 
 
 def window_dp_ref(slot_cost: torch.Tensor, gain: torch.Tensor):

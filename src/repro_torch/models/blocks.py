@@ -1,0 +1,49 @@
+"""Pre-norm dense transformer block, full-sequence and one-token decode
+variants (the reference's ``models/blocks.py``; the MoE and Mamba2 blocks
+wait for their slices, ROADMAP Queue 1 item 10)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models.common import apply_norm, init_norm
+from repro_torch.models.mlp import apply_mlp, init_mlp
+
+
+def init_transformer_block(generator: torch.Generator, cfg, dtype) -> dict:
+    return {
+        "attn_norm": init_norm(cfg, dtype, generator.device),
+        "attn": attn.init_attention(generator, cfg, dtype),
+        "mlp_norm": init_norm(cfg, dtype, generator.device),
+        "mlp": init_mlp(generator, cfg, dtype),
+    }
+
+
+def transformer_block_full(cfg, p, h, positions, want_cache: bool = False,
+                           kcfg: ops.KernelConfig = ops.DEFAULT):
+    """Full sequence (forward / prefill), positions from 0.
+
+    Returns h or, when ``want_cache``, (h, (k, v))."""
+    x = apply_norm(cfg, p["attn_norm"], h)
+    q, k, v = attn.qkv_project(cfg, p["attn"], x, positions, kcfg)
+    out = attn.attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                      kcfg=kcfg)
+    h = h + attn.out_project(cfg, p["attn"], out, kcfg)
+    x = apply_norm(cfg, p["mlp_norm"], h)
+    h = h + apply_mlp(cfg, p["mlp"], x, kcfg)
+    if want_cache:
+        return h, (k, v)
+    return h
+
+
+def transformer_block_decode(cfg, p, h1, cache_k, cache_v, index: int,
+                             positions, kcfg: ops.KernelConfig = ops.DEFAULT):
+    """One-token decode. h1:(B,1,d); writes this layer's cache in place."""
+    x = apply_norm(cfg, p["attn_norm"], h1)
+    q, k, v = attn.qkv_project(cfg, p["attn"], x, positions, kcfg)
+    attn.write_decode(cache_k, cache_v, k, v, index)
+    out = attn.decode_attend(cfg, q, cache_k, cache_v, index + 1)
+    h1 = h1 + attn.out_project(cfg, p["attn"], out, kcfg)
+    x = apply_norm(cfg, p["mlp_norm"], h1)
+    return h1 + apply_mlp(cfg, p["mlp"], x, kcfg)

@@ -1,5 +1,5 @@
-"""K1 and the port's entry points on a CUDA card, against the plain PyTorch
-path. Imports neither JAX nor the JAX package, so it also runs where JAX is
+"""K1, K2, K3 and the port's entry points on a CUDA card, against the plain
+PyTorch path. Imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -12,7 +12,10 @@ import torch
 from repro_torch.core import engine, window_opt
 from repro_torch.core.policy_pool import (baseline_specs, paper_pool,
                                           rand_deadline_pool, specs_to_arrays)
-from repro_torch.kernels.ref import window_dp_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.lora_matmul import lora_matmul
+from repro_torch.kernels.ref import (flash_attention_ref, lora_matmul_ref,
+                                     window_dp_ref)
 from repro_torch.kernels.window_dp import window_dp
 from repro_torch.workload import PAPER_TPUT, job_stream_arrays, paper_market
 
@@ -22,8 +25,8 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU "
-                    "mode (chip_smoke.py runs these checks on the H100)")
+        pytest.skip("needs a CUDA device: K1-K3 are CUDA kernels with no "
+                    "CPU mode (chip_smoke.py runs these checks on the H100)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -113,3 +116,161 @@ def test_engine_cuda_matches_cpu(cuda):
     assert got.best_policy() == want.best_policy()
     assert got.iters_to_half() == want.iters_to_half()
     np.testing.assert_allclose(got.max_weight, want.max_weight, atol=1e-6)
+
+
+# K2 tolerances: f32 accumulates in full f32 in both versions, so only the
+# order of the K-sums differs (1e-4); bf16 rounds one f32 sum once in both,
+# so an output may differ by one bf16 ulp (2^-7 relative at most) where the
+# two f32 sums straddle a rounding boundary.
+K2_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+          torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3)}
+
+
+def _lora_inputs(m, k, n, r, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k), np.float32)
+    w, a, b = (rng.standard_normal(s, np.float32) * 0.05
+               for s in ((k, n), (k, r), (r, n)))
+    return [torch.from_numpy(t).to(dtype) for t in (x, w, a, b)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,r", [(128, 128, 128, 16), (256, 384, 128, 8),
+                                     (128, 256, 256, 64), (200, 1000, 300, 16),
+                                     (8, 4096, 4096, 16), (3, 40, 24, 5)])
+def test_k2_matches_plain(cuda, m, k, n, r, dtype):
+    x, w, a, b = (t.to(cuda) for t in _lora_inputs(m, k, n, r, dtype, m + n))
+    before = lora_matmul.launches
+    y = lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert lora_matmul.launches == before + 1
+    assert y.dtype == dtype and y.shape == (m, n)
+    torch.testing.assert_close(y.float(), lora_matmul_ref(x, w, a, b,
+                                                          2.0).float(),
+                               **K2_TOL[dtype])
+
+
+def test_k2_rejects_what_it_does_not_take(cuda):
+    x, w, a, b = (t.to(cuda) for t in _lora_inputs(16, 32, 32, 8,
+                                                   torch.float32, 0))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lora_matmul(x.double(), w.double(), a.double(), b.double(), 1.0)
+    with pytest.raises(TypeError, match="one dtype"):
+        lora_matmul(x.bfloat16(), w, a, b, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        lora_matmul(x, w.t().contiguous().t(), a, b, 1.0)
+    with pytest.raises(ValueError, match="do not match"):
+        lora_matmul(x, w[:-1].contiguous(), a, b, 1.0)
+    with pytest.raises(ValueError, match="rank"):
+        big_a = torch.zeros((32, 65), device=cuda)
+        lora_matmul(x, w, big_a, torch.zeros((65, 32), device=cuda), 1.0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lora_matmul(x, w.cpu(), a, b, 1.0)
+
+
+# K3 tolerances: scores, softmax and both products are f32 in both versions,
+# so only the order of the sums differs (2e-5); bf16 rounds the f32 output
+# once in both, so an output may differ by one bf16 ulp (2^-7 relative at
+# most), as for K2.
+K3_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3)}
+
+
+def _qkv(bh, sq, sk, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to(dtype)
+            for s in ((bh, sq, d), (bh, sk, d), (bh, sk, d))]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 100), (False, 37)])
+@pytest.mark.parametrize("bh,sq,sk,d,dtype", [
+    (4, 256, 256, 64, torch.float32), (2, 128, 512, 128, torch.float32),
+    (2, 128, 128, 64, torch.bfloat16), (3, 200, 200, 128, torch.bfloat16),
+    (2, 100, 300, 64, torch.float32)])
+def test_k3_matches_plain(cuda, bh, sq, sk, d, dtype, causal, window):
+    q, k, v = (t.to(cuda) for t in _qkv(bh, sq, sk, d, dtype, bh * sq + sk))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q[None], k[None], v[None], causal=causal,
+                               window=window)[0]
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), want.float(), **K3_TOL[dtype])
+
+
+def test_k3_rejects_what_it_does_not_take(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(2, 64, 64, 64, torch.float32, 0))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(torch.cat([q, q, q], 1), k, v, window=8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention(q, k.cpu(), v)
+
+
+def test_serving_smoke_config_cuda_equals_cpu(cuda):
+    """The llama2-7b smoke config (f32) served greedily on the card (K2, K3)
+    gives the CPU plain path's tokens."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_smoke_config("llama2-7b")
+    vals = convert.random_model_params(cfg, 12)
+    prompts = np.random.default_rng(13).integers(0, cfg.vocab_size, (4, 16))
+    reqs = [Request(p.astype(np.int32), 8) for p in prompts]
+    before = (lora_matmul.launches, flash_attention.launches)
+    got = ServingEngine(cfg, convert.model_params(vals, cfg, cuda),
+                        max_len=64).generate_batch(reqs)
+    assert (lora_matmul.launches - before[0],
+            flash_attention.launches - before[1]) == (2 * 2 * 9, 2)
+    want = ServingEngine(cfg, convert.model_params(vals, cfg, "cpu"),
+                         max_len=64, device="cpu").generate_batch(reqs)
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+
+
+def test_full_width_two_layers_kernels_match_plain(cuda):
+    """llama2-7b at full width, 2 layers, bf16: every forward's last-position
+    logits with K2 / K3 against the same model on the plain versions,
+    teacher-forced on the kernel run's tokens, within chip_smoke.py's bound
+    (8 bf16 ulps of a logit in [4, 8))."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("llama2-7b").reduced(
+        num_layers=2, d_model=4096, num_heads=32, d_ff=11008,
+        vocab_size=32000, dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = tf.init_params(gen, cfg)
+    for lp in params["layers"]:
+        for pair in lp["attn"]["lora"].values():
+            pair["b"].normal_(0.0, 0.02, generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                            device=cuda)
+
+    def run(kcfg, tokens=None):
+        logits, cache = tf.prefill(cfg, params, {"tokens": prompts}, 256,
+                                   kcfg)
+        outs = [logits[:, -1]]
+        for i in range(4):
+            tok = (outs[-1].argmax(-1) if tokens is None else tokens[:, i])
+            logits, cache = tf.decode_step(cfg, params,
+                                           {"tokens": tok[:, None]}, cache,
+                                           kcfg)
+            outs.append(logits[:, -1])
+        return torch.stack(outs)
+
+    with torch.no_grad():
+        kern = run(KernelConfig(True))
+        tokens = kern[:-1].argmax(-1).T
+        plain = run(KernelConfig(False), tokens)
+    assert torch.isfinite(kern).all()
+    assert float((kern - plain).abs().max()) <= 0.25

@@ -100,3 +100,63 @@ def test_kernel_wrapper_rejects_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         window_dp(c, g)
     assert window_dp.launches == 0
+
+
+@pytest.mark.parametrize("name,call", [
+    ("lora_matmul", "k.lora_matmul(torch.ones((2, 3)), torch.ones((3, 4)), "
+                    "torch.ones((3, 1)), torch.ones((1, 4)), 2.0)"),
+    ("flash_attention", "k.flash_attention(torch.ones((1, 2, 64)), "
+                        "torch.ones((1, 2, 64)), torch.ones((1, 2, 64)))"),
+])
+def test_k2_k3_modules_import_without_nvcc(tmp_path, name, call):
+    """K2's and K3's modules import and run their plain version on CPU
+    tensors without a compiler; their build() raises naming nvcc."""
+    proc = _run(
+        "import torch\n"
+        f"from repro_torch.kernels import {name} as k\n"
+        f"y = {call}\n"
+        f"assert torch.isfinite(y).all() and k.{name}.launches == 0\n"
+        "try:\n"
+        "    k.build()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'nvcc' in str(e), e\n"
+        "    print('raised')\n",
+        {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "raised"
+
+
+def test_kernel_libraries_named_by_source_hash():
+    """One build helper serves K1-K3: each library sits in build/repro_torch/
+    under its source's stem and the hash of its bytes."""
+    import hashlib
+
+    from repro_torch.kernels import build, flash_attention, lora_matmul
+    from repro_torch.kernels import window_dp
+
+    paths = set()
+    for mod in (window_dp, lora_matmul, flash_attention):
+        path = build.library_path(mod.SOURCE)
+        digest = hashlib.sha256((build.CSRC / mod.SOURCE).read_bytes())
+        assert path.parent == build.BUILD_DIR
+        assert path.parent.parts[-2:] == ("build", "repro_torch")
+        assert path.name == (f"{mod.SOURCE[:-3]}_"
+                             f"{digest.hexdigest()[:16]}.so")
+        paths.add(path)
+    assert len(paths) == 3
+
+
+def test_k2_k3_wrappers_reject_non_cuda_tensors():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lora_matmul import lora_matmul
+
+    m = torch.zeros((4, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        lora_matmul(m, torch.zeros((64, 8), device="meta"),
+                    torch.zeros((64, 2), device="meta"),
+                    torch.zeros((2, 8), device="meta"), 1.0)
+    q = torch.zeros((1, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    assert lora_matmul.launches == 0 and flash_attention.launches == 0
