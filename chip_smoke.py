@@ -6,9 +6,9 @@ Run from the repo root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three kernels (``src/repro_torch/kernels/csrc/*.cu``: K1
-window_dp, K2 lora_matmul, K3 flash_attention), one nvcc for sm_90a each,
-all started together, and then drives two paths on the card:
+It builds the four kernels (``src/repro_torch/kernels/csrc/*.cu``: K1
+window_dp, K2 lora_matmul, K3 flash_attention, K4 ssd_scan), one nvcc for
+sm_90a each, all started together, and then drives four paths on the card:
 
 - the paper's online policy selection (Fig. 9: four noise settings, 1000
   jobs x ``paper_pool()``) through ``engine.simulate_and_select``, with K1
@@ -19,7 +19,13 @@ all started together, and then drives two paths on the card:
   the JAX ``ServingEngine``, then llama2-7b at full width and depth (bf16)
   serving 8 prompts of 1024 tokens for 32 new tokens each through
   ``ServingEngine``, with the launch counts checked and every forward's
-  logits held against the same model run on the plain versions.
+  logits held against the same model run on the plain versions;
+- SSM serving: K4 held against its plain version, the mamba2-370m smoke
+  config checked token for token against the JAX engine, then mamba2-370m
+  at full width and depth (bf16) serving 8 prompts of 2048 tokens for 32
+  new tokens, checked as the dense run;
+- hybrid serving: the same for zamba2-2.7b (8 prompts of 1024 tokens), whose
+  forward runs K2, K3 (head_dim 80) and K4 together.
 
 It times each kernel beside its bound, its plain version and a PyTorch
 yardstick. Any failed phase raises and the script exits nonzero. Without a
@@ -113,12 +119,62 @@ SERVE_LOGIT_ATOL = 0.25
 # f32 results straddle a rounding boundary.
 K2_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
 K3_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-3)}
+# K4 against its plain version (step by step, f32): K4 takes 64-step chunks
+# and a shuffle-scan cumsum, so the f32 sums run in another order; 3e-4 is
+# the JAX kernel test's own tolerance for the chunked kernel against the
+# sequential oracle. At bf16 y is one rounding of those f32 results, so it
+# may differ by one bf16 ulp (2^-7 relative) besides; the f32 state keeps
+# 3e-4.
+K4_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (2.0 ** -7, 1e-3)}
 TIME_REPS = 25
 
+# ---- SSM and hybrid serving ----
+# [serve-ssm-ref] / [serve-hybrid-ref]: the mamba2-370m and zamba2-2.7b smoke
+# configs (2 layers, d 256, f32; zamba2's as 2 super-blocks of one Mamba2
+# layer and the shared block), served as [serve-ref] with
+# ``convert.random_model_params(cfg, seed)`` and ``serve_ref_prompts(np,
+# vocab, seed)``. The tokens are the JAX ``ServingEngine``'s on the same
+# numpy weights, run on the CPU with JAX_PLATFORMS=cpu
+# (tests/test_torch_serve.py recomputes them).
+FAMILY_REFS = {
+    "serve-ssm-ref": ("mamba2-370m", 14, (
+        (338, 132, 122, 259, 73, 98, 439, 292),
+        (218, 394, 247, 264, 50, 249, 114, 237),
+        (433, 125, 326, 355, 361, 466, 465, 367),
+        (172, 136, 314, 218, 188, 222, 77, 500),
+    )),
+    "serve-hybrid-ref": ("zamba2-2.7b", 16, (
+        (338, 215, 43, 158, 361, 409, 325, 301),
+        (51, 90, 506, 238, 269, 20, 147, 162),
+        (49, 155, 99, 122, 281, 281, 394, 279),
+        (402, 421, 39, 383, 115, 306, 431, 102),
+    )),
+}
+# [serve-ssm] / [serve-hybrid]: full width and depth, bf16, weights drawn on
+# the card (LoRA B ~ N(0, SERVE_LORA_B_STD)): (arch, batch, prompt length,
+# new tokens, max_len). mamba2-370m reads prompts of its 2048-token training
+# context; zamba2-2.7b 1024-token prompts into a 2048-slot KV cache.
+#
+# Their logits are held to the plain run twice. (1) The same weights
+# widened to f32, kernel run against plain run: f32 throughout, only the
+# order of the sums inside K2, K3 and K4 differs, so within F32_LOGIT_ATOL.
+# (2) bf16, kernel run against plain run: each bf16 run drifts from the f32
+# model by its own rounding through 48-54 layers, so the bound is twice the
+# plain bf16 run's largest distance from the f32 plain run, measured in the
+# same call (the kernels may add no drift beyond bf16's own). A fixed bound
+# like SERVE_LOGIT_ATOL, set for 32 dense layers, does not carry over to
+# these depths.
+F32_LOGIT_ATOL = 1e-3
+FAMILY_RUNS = {
+    "serve-ssm": ("mamba2-370m", 8, 2048, 32, 2080),
+    "serve-hybrid": ("zamba2-2.7b", 8, 1024, 32, 2048),
+}
 
-def serve_ref_prompts(np, vocab: int):
-    """The [serve-ref] prompts: 4 x 16 tokens from a numpy seed."""
-    rng = np.random.default_rng(SERVE_REF_SEED + 1)
+
+def serve_ref_prompts(np, vocab: int, seed: int = SERVE_REF_SEED):
+    """The [serve-ref] (and [serve-ssm-ref], [serve-hybrid-ref]) prompts:
+    4 x 16 tokens from a numpy seed."""
+    rng = np.random.default_rng(seed + 1)
     return rng.integers(0, vocab, (4, 16)).astype(np.int32)
 
 
@@ -282,7 +338,8 @@ def _phase_k2(torch, gen, k2, lora_matmul_ref) -> float:
 
 def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
     """K3 against its plain version on the card: the JAX package's kernel
-    test shapes and masks, bf16, a ragged S, and llama2-7b's prefill."""
+    test shapes and masks, bf16, a ragged S, llama2-7b's prefill, and head
+    dim 80 up to zamba2-2.7b's prefill."""
     cases = [((bh, sq, sk, d), "float32", causal, window)
              for bh, sq, sk, d in ((4, 256, 256, 64), (2, 128, 512, 128))
              for causal, window in ((True, None), (False, None), (True, 100))]
@@ -291,6 +348,11 @@ def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
               ((3, 200, 200, 128), "float32", True, 37),
               ((SERVE_BATCH * 32, SERVE_PROMPT, SERVE_PROMPT, 128),
                "bfloat16", True, None)]
+    # head_dim 80 (zamba2-2.7b's shared block), up to its prefill shape
+    cases += [((4, 256, 256, 80), "float32", True, None),
+              ((2, 128, 300, 80), "float32", False, None),
+              ((3, 200, 200, 80), "bfloat16", True, 37),
+              ((SERVE_BATCH * 32, 1024, 1024, 80), "bfloat16", True, None)]
     max_err = 0.0
     for (bh, sq, sk, d), dt, causal, window in cases:
         dtype = getattr(torch, dt)
@@ -312,34 +374,104 @@ def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
     return max_err
 
 
-def _phase_serve_ref(torch, np, dev, k2, k3):
+def _ssd_case(torch, gen, bh, s, p, n, dtype):
+    """K4 inputs drawn as the JAX kernel test draws them: x ~ N(0, 1),
+    dt = softplus(N(0, 1)) / 2, A = -exp(N(0, 1)) / 2, B, C ~ 0.3 N(0, 1);
+    dt and A f32."""
+    dt = torch.nn.functional.softplus(
+        torch.randn((bh, s), generator=gen, device=gen.device)) * 0.5
+    a = -torch.exp(torch.randn((bh,), generator=gen, device=gen.device)) * 0.5
+    return (_randn(torch, gen, (bh, s, p), 1.0, dtype), dt, a,
+            _randn(torch, gen, (bh, s, n), 0.3, dtype),
+            _randn(torch, gen, (bh, s, n), 0.3, dtype))
+
+
+def _ssd_shapes():
+    """(BH, S, P, N) of K4 on the two full-width prefills."""
+    from repro_torch.configs import get_config
+
+    shapes = {}
+    for tag, (arch, batch, prompt, _, _) in FAMILY_RUNS.items():
+        cfg = get_config(arch)
+        shapes[tag] = (batch * cfg.ssm.heads(cfg.d_model), prompt,
+                       cfg.ssm.head_dim, cfg.ssm.state_size)
+    return shapes
+
+
+def _phase_k4(torch, gen, k4, ssd_scan_ref) -> float:
+    """K4 against its plain version on the card, f32 and bf16: the JAX
+    package's kernel test shapes, two ragged S, and mamba2-370m's and
+    zamba2-2.7b's prefill shapes."""
+    shapes = [(4, 256, 64, 32), (2, 256, 32, 128), (3, 200, 64, 16),
+              (2, 37, 32, 64)] + list(_ssd_shapes().values())
+    max_err = 0.0
+    for bh, s, p, n in shapes:
+        for dt in ("float32", "bfloat16"):
+            ins = _ssd_case(torch, gen, bh, s, p, n, getattr(torch, dt))
+            launches = k4.ssd_scan.launches
+            y, h = k4.ssd_scan(*ins)
+            torch.cuda.synchronize()
+            k4.ssd_scan.launches = launches
+            want_y, want_h = ssd_scan_ref(*ins)
+            what = f"{dt} (BH, S, P, N) = {(bh, s, p, n)}"
+            err = _close(torch, f"K4 y {what}", y, want_y, *K4_TOL[dt])
+            err_h = _close(torch, f"K4 state {what}", h, want_h,
+                           *K4_TOL["float32"])
+            if y.dtype != ins[0].dtype or h.dtype != torch.float32:
+                _fail(f"K4 {what}: y {y.dtype}, state {h.dtype}")
+            max_err = max(max_err, err, err_h)
+            print(f"[k4] {what}: max |err| y {err:.3e} within rtol/atol "
+                  f"{K4_TOL[dt]}, state {err_h:.3e} within "
+                  f"{K4_TOL['float32']}")
+    return max_err
+
+
+def _launches_per_forward(cfg):
+    """(K2 launches of one forward, K3 and K4 launches of one prefill)."""
+    attn_k2 = len(cfg.lora.targets)
+    if cfg.arch_type == "dense":
+        return attn_k2 * cfg.num_layers, cfg.num_layers, 0
+    if cfg.arch_type == "ssm":
+        return 2 * cfg.num_layers, 0, cfg.num_layers
+    shared = cfg.num_layers // cfg.hybrid_period
+    return 2 * cfg.num_layers + attn_k2 * shared, shared, cfg.num_layers
+
+
+def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
+                     arch=SERVE_REF_ARCH, seed=SERVE_REF_SEED,
+                     tokens=SERVE_REF_TOKENS):
     """The port's serving engine on the card against the JAX package's
-    tokens on the same numpy weights (llama2-7b smoke config, f32)."""
+    tokens on the same numpy weights (a smoke config, f32)."""
     from repro_torch import convert
     from repro_torch.configs import get_smoke_config
     from repro_torch.serve import Request, ServingEngine
 
-    cfg = get_smoke_config(SERVE_REF_ARCH)
+    k2, k3, k4 = kernels
+    cfg = get_smoke_config(arch)
     params = convert.model_params(
-        convert.random_model_params(cfg, SERVE_REF_SEED), cfg, dev)
-    prompts = serve_ref_prompts(np, cfg.vocab_size)
+        convert.random_model_params(cfg, seed), cfg, dev)
+    prompts = serve_ref_prompts(np, cfg.vocab_size, seed)
     eng = ServingEngine(cfg, params, max_len=SERVE_REF_MAX_LEN, device=dev)
     k2.lora_matmul.launches = 0
     k3.flash_attention.launches = 0
+    k4.ssd_scan.launches = 0
     out = eng.generate_batch([Request(p, SERVE_REF_NEW) for p in prompts])
-    launches = (k2.lora_matmul.launches, k3.flash_attention.launches)
+    launches = (k2.lora_matmul.launches, k3.flash_attention.launches,
+                k4.ssd_scan.launches)
     got = tuple(tuple(int(t) for t in o) for o in out)
-    if got != SERVE_REF_TOKENS:
-        _fail(f"[serve-ref] tokens {got} != JAX {SERVE_REF_TOKENS}")
-    want = (2 * cfg.num_layers * (1 + SERVE_REF_NEW), cfg.num_layers)
+    if got != tokens:
+        _fail(f"[{tag}] tokens {got} != JAX {tokens}")
+    per_fwd, n_k3, n_k4 = _launches_per_forward(cfg)
+    want = (per_fwd * (1 + SERVE_REF_NEW), n_k3, n_k4)
     if launches != want:
-        _fail(f"[serve-ref] K2/K3 launches {launches}, expected {want}")
-    print(f"[serve-ref] {cfg.name}: {len(got)} requests x {SERVE_REF_NEW} "
+        _fail(f"[{tag}] K2/K3/K4 launches {launches}, expected {want}")
+    print(f"[{tag}] {cfg.name}: {len(got)} requests x {SERVE_REF_NEW} "
           f"greedy tokens equal the JAX ServingEngine's; K2 launched "
-          f"{launches[0]} times, K3 {launches[1]}")
+          f"{launches[0]} times, K3 {launches[1]}, K4 {launches[2]}")
 
 
-def _teacher_forced(torch, tf, cfg, params, prompts, tokens, kcfg):
+def _teacher_forced(torch, tf, cfg, params, prompts, tokens, max_len,
+                    kcfg):
     """Prefill on the prompts, then one decode step per given token.
     Returns (last-position logits of every forward (F, B, V) f32, prefill
     seconds, decode seconds per step)."""
@@ -349,7 +481,7 @@ def _teacher_forced(torch, tf, cfg, params, prompts, tokens, kcfg):
         t0 = time.perf_counter()
         logits, cache = tf.prefill(cfg, params,
                                    {"tokens": prompts.to(dev)},
-                                   SERVE_MAX_LEN, kcfg)
+                                   max_len, kcfg)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
         outs = [logits[:, -1]]
@@ -363,29 +495,45 @@ def _teacher_forced(torch, tf, cfg, params, prompts, tokens, kcfg):
     return torch.stack(outs), t_pre, t_dec
 
 
-def _phase_serve(torch, np, dev, k2, k3):
-    """llama2-7b at full width and depth, bf16, on the card: 8 prompts of
-    1024 tokens, 32 greedy new tokens each, through ServingEngine.
-    Returns the launches of K2 at prefill, of K2 at decode and of K3."""
+def _lora_pairs(tree):
+    """Every LoRA {a, b} pair of a port parameter tree."""
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _lora_pairs(v)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "lora":
+                yield from v.values()
+            else:
+                yield from _lora_pairs(v)
+
+
+def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
+                 batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=SERVE_NEW,
+                 max_len=SERVE_MAX_LEN):
+    """A config at full width and depth, bf16, on the card: ``batch``
+    prompts of ``prompt`` tokens, ``new`` greedy new tokens each, through
+    ServingEngine. Returns the launches of K2 at prefill, of K2 at decode,
+    of K3 and of K4."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import KernelConfig
     from repro_torch.models import transformer as tf
     from repro_torch.serve import Request, ServingEngine
 
-    cfg = get_config(SERVE_ARCH)
+    k2, k3, k4 = kernels
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = tf.init_params(gen, cfg)
-    for lp in params["layers"]:
-        for pair in lp["attn"].get("lora", {}).values():
-            pair["b"].normal_(0.0, SERVE_LORA_B_STD, generator=gen)
+    for pair in _lora_pairs(params):
+        pair["b"].normal_(0.0, SERVE_LORA_B_STD, generator=gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
-    eng = ServingEngine(cfg, params, max_len=SERVE_MAX_LEN, device=dev)
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    eng = ServingEngine(cfg, params, max_len=max_len, device=dev)
     # warm-up (first-call costs stay out of the timings)
     eng.generate_batch([Request(p[:16], 2) for p in prompts])
     torch.cuda.synchronize()
@@ -402,86 +550,144 @@ def _phase_serve(torch, np, dev, k2, k3):
 
     k2.lora_matmul.launches = 0
     k3.flash_attention.launches = 0
+    k4.ssd_scan.launches = 0
     tf.decode_step = note_decode
     try:
         t0 = time.perf_counter()
-        out = eng.generate_batch([Request(p, SERVE_NEW) for p in prompts])
+        out = eng.generate_batch([Request(p, new) for p in prompts])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         tf.decode_step = decode_step
     launches = (at_decode[0], k2.lora_matmul.launches - at_decode[0],
-                k3.flash_attention.launches)
+                k3.flash_attention.launches, k4.ssd_scan.launches)
     peak = torch.cuda.max_memory_allocated()
-    per_forward = len(cfg.lora.targets) * cfg.num_layers
-    want = (per_forward, per_forward * SERVE_NEW, cfg.num_layers)
+    per_forward, n_k3, n_k4 = _launches_per_forward(cfg)
+    want = (per_forward, per_forward * new, n_k3, n_k4)
     if launches != want:
-        _fail(f"[serve] K2 prefill / K2 decode / K3 launches {launches}, "
-              f"expected {want}")
+        _fail(f"[{tag}] K2 prefill / K2 decode / K3 / K4 launches "
+              f"{launches}, expected {want}")
     tokens = np.stack(out)
-    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
+    if tokens.shape != (batch, new) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
-        _fail(f"[serve] tokens of shape {tokens.shape} out of range")
-    print(f"[serve] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        _fail(f"[{tag}] tokens of shape {tokens.shape} out of range")
+    print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
           f"{(cfg.param_count() + cfg.lora_param_count()) / 1e9:.3f} G "
           f"parameters, bf16) drawn on the card in "
-          f"{init_s:.2f} s; {SERVE_BATCH} x {SERVE_PROMPT}-token prompts, "
-          f"{SERVE_NEW} greedy tokens each: {wall:.3f} s, "
-          f"{SERVE_BATCH * SERVE_NEW / wall:.1f} tokens/s; K2 launched "
+          f"{init_s:.2f} s; {batch} x {prompt}-token prompts, "
+          f"{new} greedy tokens each: {wall:.3f} s, "
+          f"{batch * new / wall:.1f} tokens/s; K2 launched "
           f"{launches[0] + launches[1]} times ({launches[0]} at prefill), "
-          f"K3 {launches[2]}; peak memory "
+          f"K3 {launches[2]}, K4 {launches[3]}; peak memory "
           f"{peak / 2**30:.2f} GiB")
 
     prompts_t = torch.from_numpy(prompts.astype(np.int64))
     tokens_t = torch.from_numpy(tokens.astype(np.int64)).to(dev)
     kern, pre_s, dec_s = _teacher_forced(torch, tf, cfg, params, prompts_t,
-                                         tokens_t, KernelConfig(True))
+                                         tokens_t, max_len,
+                                         KernelConfig(True))
     plain, pre_p, dec_p = _teacher_forced(torch, tf, cfg, params, prompts_t,
-                                          tokens_t, KernelConfig(False))
-    diff = (kern - plain).abs()
-    max_d = float(diff.max())
-    if not bool(torch.isfinite(kern).all()) or max_d > SERVE_LOGIT_ATOL:
-        _fail(f"[serve] logits of the kernel and plain runs differ by "
-              f"{max_d} > {SERVE_LOGIT_ATOL}")
-    same_engine = float((kern[:-1].argmax(-1).T == tokens_t).float().mean())
-    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-    print(f"[serve] teacher-forced on the engine's tokens: kernel run "
+                                          tokens_t, max_len,
+                                          KernelConfig(False))
+    if not bool(torch.isfinite(kern).all()):
+        _fail(f"[{tag}] non-finite logits in the kernel run")
+    print(f"[{tag}] teacher-forced on the engine's tokens: kernel run "
           f"prefill {pre_s:.3f} s, decode {dec_s * 1e3:.2f} ms/step; plain "
           f"run prefill {pre_p:.3f} s, decode {dec_p * 1e3:.2f} ms/step")
-    print(f"[serve] last-position logits of {kern.shape[0]} forwards: max "
-          f"|kernel - plain| {max_d:.4f} (bound {SERVE_LOGIT_ATOL}), mean "
-          f"{float(diff.mean()):.2e}; greedy tokens agree on {agree:.1%}; "
-          f"the engine's tokens equal the kernel run's argmax on "
-          f"{same_engine:.1%}")
-    _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t)
+    if tag in ("serve", "serve-ssm"):
+        _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, max_len,
+                     cfg.name)
+    if tag == "serve":
+        bound = SERVE_LOGIT_ATOL
+    else:
+        k32, p32 = _f32_logits(torch, tf, cfg, params, prompts_t, tokens_t,
+                               max_len)
+        d32 = float((k32 - p32).abs().max())
+        floor = float((plain - p32).abs().max())
+        kern_off = float((kern - p32).abs().max())
+        print(f"[{tag}] the same weights widened to f32: max |kernel - "
+              f"plain| {d32:.3e} (bound {F32_LOGIT_ATOL}); bf16 drift from "
+              f"the f32 plain run: plain run {floor:.4f}, kernel run "
+              f"{kern_off:.4f}")
+        if not d32 <= F32_LOGIT_ATOL:
+            _fail(f"[{tag}] f32 logits of the kernel and plain runs differ "
+                  f"by {d32} > {F32_LOGIT_ATOL}")
+        bound = 2.0 * floor
+    diff = (kern - plain).abs()
+    max_d = float(diff.max())
+    if max_d > bound:
+        _fail(f"[{tag}] logits of the kernel and plain runs differ by "
+              f"{max_d} > {bound}")
+    same_engine = float((kern[:-1].argmax(-1).T == tokens_t).float().mean())
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"[{tag}] last-position logits of {kern.shape[0]} forwards: max "
+          f"|kernel - plain| {max_d:.4f} (bound {bound:.4f}), mean "
+          f"{float(diff.mean()):.2e}, max |logit| {float(kern.abs().max()):.3f}"
+          f"; greedy tokens agree on {agree:.1%}; the engine's tokens equal "
+          f"the kernel run's argmax on {same_engine:.1%}")
     return launches
+
+
+def _f32_logits(torch, tf, cfg, params, prompts_t, tokens_t, max_len):
+    """The model with its weights widened to f32, teacher-forced on the same
+    tokens: (kernel run's logits, plain run's logits)."""
+    import dataclasses
+
+    from repro_torch.kernels.ops import KernelConfig
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: widen(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [widen(v) for v in tree]
+        return tree.float()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = widen(params)
+    return tuple(_teacher_forced(torch, tf, cfg32, p32, prompts_t, tokens_t,
+                                 max_len, KernelConfig(use_cuda))[0]
+                 for use_cuda in (True, False))
 
 
 def _trace_line(torch, what, prof, wall_s):
     """Device busy time of a traced window (the sum of the device-side
     events' self time: one stream, so they do not overlap; the host-side ops
     that launched them are left out, or each kernel would count twice)
-    beside its wall time, and the kernels that took most of it."""
+    beside its wall time, the kernels that took most of it, and the device
+    time under ops.ssd's named range (its copies of x, dt, B and C into
+    K4's (B*H, ...) layout, B and C repeated from groups to heads)."""
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.key_averages()
+    from repro_torch.kernels.ops import SSD_COPIES
+
+    averages = prof.key_averages()
+    # a named range may also appear as a device-side annotation spanning
+    # its kernels: not a kernel, so not counted
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0
+              and e.key != SSD_COPIES]
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us == 0:
         print(f"[trace] {what}: wall {wall_s * 1e3:.1f} ms; device time not "
               "measured (the profiler recorded no device events)")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     print(f"[trace] {what}: wall {wall_s * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / (wall_s * 1e3):.1%}); "
           "top: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
               f"({e.self_device_time_total / busy_us:.1%}, {e.count}x)"
               for e in top))
+    for e in averages:
+        if e.key == SSD_COPIES and e.device_type == DeviceType.CPU:
+            print(f"[trace] {what}: kernels under '{e.key}' ({e.count}x): "
+                  f"{e.device_time_total / 1e3:.1f} ms of device time "
+                  f"({e.device_time_total / busy_us:.1%} of busy)")
 
 
-def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, steps=4):
+def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, max_len, name,
+                 steps=4):
     """torch.profiler over one prefill and ``steps`` decode steps of the
     kernel run (the profiler's own host cost is in the wall times)."""
     from torch.profiler import ProfilerActivity, profile
@@ -497,10 +703,10 @@ def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, steps=4):
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             _, cache = tf.prefill(cfg, params, {"tokens": prompts_t.to(dev)},
-                                  SERVE_MAX_LEN, kcfg)
+                                  max_len, kcfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _trace_line(torch, "prefill", prof, wall)
+        _trace_line(torch, f"{name} prefill", prof, wall)
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
@@ -509,7 +715,7 @@ def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, steps=4):
                     kcfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _trace_line(torch, f"{steps} decode steps", prof, wall)
+        _trace_line(torch, f"{name} {steps} decode steps", prof, wall)
 
 
 def _bound(n_bytes, n_ops, ops_per_s):
@@ -519,14 +725,17 @@ def _bound(n_bytes, n_ops, ops_per_s):
     return max(b_ms, o_ms), b_ms, o_ms
 
 
-def _phase_time_k2(torch, gen, k2, lora_matmul_ref, launches_by_m):
-    """K2 at the serving path's two shapes: kernel, plain version and
-    ``torch.addmm(x @ W, x @ A, B, alpha=scale)`` (no single PyTorch call
-    computes the fused function), CUDA events, median of TIME_REPS after
-    warm-up. Returns one row per shape."""
+def _bound_by(b_ms, o_ms) -> str:
+    return "bytes" if b_ms >= o_ms else "operations"
+
+
+def _phase_time_k2(torch, gen, k2, lora_matmul_ref, shapes):
+    """K2 at the serving paths' shapes ((M, K, N, launches), r 16, bf16):
+    kernel, plain version and ``torch.addmm(x @ W, x @ A, B, alpha=scale)``
+    (no single PyTorch call computes the fused function), CUDA events,
+    median of TIME_REPS after warm-up. Returns one row per shape."""
     rows = []
-    for m, n_launch in launches_by_m.items():
-        k = n = 4096
+    for m, k, n, n_launch in shapes:
         r = 16
         x, w, a, b = _lora_case(torch, gen, m, k, n, r, torch.bfloat16)
         for _ in range(3):
@@ -542,17 +751,15 @@ def _phase_time_k2(torch, gen, k2, lora_matmul_ref, launches_by_m):
         bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
         rows.append({"M": m, "K": k, "N": n, "r": r, "launches": n_launch,
                      "ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound,
-                     "bound_by": "bytes" if b_ms >= o_ms else "operations"})
+                     "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms)})
     return rows
 
 
-def _phase_time_k3(torch, gen, k3, flash_attention_ref):
-    """K3 at llama2-7b's prefill (BH = 8 x 32, S = 1024, D = 128, causal,
-    bf16) beside the plain version and F.scaled_dot_product_attention."""
+def _phase_time_k3(torch, gen, k3, flash_attention_ref, b, h, s, d):
+    """K3 at a serving prefill (BH = b x h, S, D, causal, bf16) beside the
+    plain version and F.scaled_dot_product_attention."""
     import torch.nn.functional as F
 
-    b, h, s, d = SERVE_BATCH, 32, SERVE_PROMPT, 128
     q, k, v = (_randn(torch, gen, (b * h, s, d), 1.0, torch.bfloat16)
                for _ in range(3))
     for _ in range(3):
@@ -569,7 +776,63 @@ def _phase_time_k3(torch, gen, k3, flash_attention_ref):
     bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
     return {"BH": b * h, "S": s, "D": d, "ms": ms, "plain_ms": plain,
             "library_ms": lib, "bound_ms": bound,
-            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+            "bound_by": _bound_by(b_ms, o_ms)}
+
+
+def _phase_time_k4(torch, gen, k4, ssd_scan_ref, bh, s, p, n):
+    """K4 at a prefill shape (bf16 x, B, C; f32 dt, A) beside its plain
+    version (step by step; fewer repetitions, it takes S steps). No PyTorch
+    call computes the SSD scan, so there is no library time. The bound
+    counts each input and output once (x, y, B, C at 2 bytes, dt, A and the
+    state at 4) and the operations of K4's 64-step chunks (the score tile,
+    its product with x, C against the state and the state update, full
+    64 x 64 tiles) at the bf16 tensor-core rate."""
+    ins = _ssd_case(torch, gen, bh, s, p, n, torch.bfloat16)
+    for _ in range(3):
+        k4.ssd_scan(*ins)
+    ms = _event_ms(torch, lambda: k4.ssd_scan(*ins), TIME_REPS)
+    plain = _event_ms(torch, lambda: ssd_scan_ref(*ins), 3)
+    n_bytes = 2 * (2 * bh * s * p + 2 * bh * s * n) + 4 * (
+        bh * s + bh + bh * n * p)
+    chunk = 64
+    n_chunks = -(-s // chunk)
+    n_ops = bh * n_chunks * 2 * (chunk * chunk * n + chunk * chunk * p
+                                 + 2 * chunk * n * p)
+    bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"BH": bh, "S": s, "P": p, "N": n, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": bound,
+            "bound_by": _bound_by(b_ms, o_ms), "bytes": n_bytes,
+            "ops": n_ops}
+
+
+def _k2_shapes(launches):
+    """K2's timed shapes and launch counts on each serving path: llama2-7b's
+    q / v projection (K = N = 4096) at prefill (M = 8 x 1024) and decode
+    (M = 8); mamba2-370m's and zamba2-2.7b's wx projection (K = d, N =
+    d_inner; out_proj moves the same bytes and operations transposed) at
+    prefill and decode, with every K2 launch of the path's phase."""
+    from repro_torch.configs import get_config
+
+    rows = {"prefill": (SERVE_BATCH * SERVE_PROMPT, 4096, 4096,
+                        launches["serve"][0]),
+            "decode": (SERVE_BATCH, 4096, 4096, launches["serve"][1])}
+    for tag, (arch, batch, prompt, _, _) in FAMILY_RUNS.items():
+        cfg = get_config(arch)
+        d, di = cfg.d_model, cfg.ssm.d_inner(cfg.d_model)
+        name = arch.split("-")[0]
+        rows[f"{name}-prefill"] = (batch * prompt, d, di, launches[tag][0])
+        rows[f"{name}-decode"] = (batch, d, di, launches[tag][1])
+    return rows
+
+
+def _entry(name, source, replaces, launches, err, row):
+    """One kernel of the ``kernels`` JSON line."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -593,9 +856,11 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import lora_matmul as k2
+    from repro_torch.kernels import ssd_scan as k4
     from repro_torch.kernels import window_dp as k1
     from repro_torch.kernels.ref import (flash_attention_ref,
-                                         lora_matmul_ref, window_dp_ref)
+                                         lora_matmul_ref, ssd_scan_ref,
+                                         window_dp_ref)
     from repro_torch import workload
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -610,11 +875,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE])
-    for mod in (k1, k2, k3):
+    built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE, k4.SOURCE])
+    for mod in (k1, k2, k3, k4):
         mod.load_library()
     build_s = time.perf_counter() - t0
-    print(f"[id] K1, K2, K3 built in parallel in {build_s:.2f} s")
+    print(f"[id] K1, K2, K3, K4 built in parallel in {build_s:.2f} s")
     for source, (lib_path, log) in built.items():
         print(f"[id] {source} -> {lib_path.relative_to(ROOT)}")
         for line in log.strip().splitlines():
@@ -770,77 +1035,92 @@ def main() -> int:
         for k, lv in SETTINGS))
 
     # ---- phase 5: dense-model serving (K2, K3) ----
+    kernels = (k2, k3, k4)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     k2_err = _phase_k2(torch, gen, k2, lora_matmul_ref)
     k3_err = _phase_k3(torch, gen, k3, flash_attention_ref)
-    _phase_serve_ref(torch, np, dev, k2, k3)
-    k2_prefill, k2_decode, k3_launches = _phase_serve(torch, np, dev, k2,
-                                                      k3)
+    _phase_serve_ref(torch, np, dev, kernels)
+    launches = {"serve": _phase_serve(torch, np, dev, kernels)}
+    torch.cuda.empty_cache()
 
-    # ---- phase 6: K2's and K3's time beside their bounds ----
-    k2_rows = _phase_time_k2(torch, gen, k2, lora_matmul_ref, {
-        SERVE_BATCH * SERVE_PROMPT: k2_prefill, SERVE_BATCH: k2_decode})
-    for row in k2_rows:
-        print(f"[time] card {card}: K2 at (M, K, N, r) = ({row['M']}, "
-              f"{row['K']}, {row['N']}, {row['r']}) bf16: "
+    # ---- phase 6: SSM and hybrid serving (K2, K3, K4) ----
+    k4_err = _phase_k4(torch, gen, k4, ssd_scan_ref)
+    for tag, (arch, seed, tokens) in FAMILY_REFS.items():
+        _phase_serve_ref(torch, np, dev, kernels, tag, arch, seed, tokens)
+    for tag, (arch, batch, prompt, new, max_len) in FAMILY_RUNS.items():
+        launches[tag] = _phase_serve(torch, np, dev, kernels, tag, arch,
+                                     batch, prompt, new, max_len)
+        torch.cuda.empty_cache()
+
+    # ---- phase 7: K2's, K3's and K4's time beside their bounds ----
+    k2_shapes = _k2_shapes(launches)
+    k2_rows = dict(zip(k2_shapes, _phase_time_k2(
+        torch, gen, k2, lora_matmul_ref, k2_shapes.values())))
+    for phase, row in k2_rows.items():
+        print(f"[time] card {card}: K2 {phase} at (M, K, N, r) = "
+              f"({row['M']}, {row['K']}, {row['N']}, {row['r']}) bf16: "
               f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
               f"on the serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
               f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
               f"bound; plain {row['plain_ms'] * 1e3:.1f} us; torch.addmm(x @ "
               f"W, x @ A, B) {row['library_ms'] * 1e3:.1f} us (no single "
               "PyTorch call computes it)")
-    k3_row = _phase_time_k3(torch, gen, k3, flash_attention_ref)
-    k3_row["launches"] = k3_launches
-    print(f"[time] card {card}: K3 at (BH, S, D) = ({k3_row['BH']}, "
-          f"{k3_row['S']}, {k3_row['D']}) causal bf16: "
-          f"{k3_row['ms'] * 1e3:.1f} us/launch ({k3_launches} launches on the "
-          f"serving path); bound {k3_row['bound_ms'] * 1e3:.1f} us by "
-          f"{k3_row['bound_by']} = {k3_row['bound_ms'] / k3_row['ms']:.1%} "
-          f"of bound; plain {k3_row['plain_ms'] * 1e3:.1f} us; "
-          f"F.scaled_dot_product_attention "
-          f"{k3_row['library_ms'] * 1e3:.1f} us")
+    from repro_torch.configs import get_config
+    zamba = get_config(FAMILY_RUNS["serve-hybrid"][0])
+    k3_rows = {
+        "flash_attention": _phase_time_k3(
+            torch, gen, k3, flash_attention_ref, SERVE_BATCH, 32,
+            SERVE_PROMPT, 128),
+        "flash_attention/zamba2": _phase_time_k3(
+            torch, gen, k3, flash_attention_ref, FAMILY_RUNS["serve-hybrid"][1],
+            zamba.num_heads, FAMILY_RUNS["serve-hybrid"][2], zamba.head_dim),
+    }
+    k3_rows["flash_attention"]["launches"] = launches["serve"][2]
+    k3_rows["flash_attention/zamba2"]["launches"] = \
+        launches["serve-hybrid"][2]
+    for name, row in k3_rows.items():
+        print(f"[time] card {card}: K3 ({name}) at (BH, S, D) = "
+              f"({row['BH']}, {row['S']}, {row['D']}) causal bf16: "
+              f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
+              f"on its serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
+              f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
+              f"bound; plain {row['plain_ms'] * 1e3:.1f} us; "
+              f"F.scaled_dot_product_attention "
+              f"{row['library_ms'] * 1e3:.1f} us")
+    k4_rows = {}
+    for tag, shape in _ssd_shapes().items():
+        name = "ssd_scan/" + FAMILY_RUNS[tag][0].split("-")[0]
+        k4_rows[name] = _phase_time_k4(torch, gen, k4, ssd_scan_ref, *shape)
+        k4_rows[name]["launches"] = launches[tag][3]
+    for name, row in k4_rows.items():
+        print(f"[time] card {card}: K4 ({name}) at (BH, S, P, N) = "
+              f"({row['BH']}, {row['S']}, {row['P']}, {row['N']}) bf16: "
+              f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
+              f"on its serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
+              f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB, "
+              f"{row['ops'] / 1e9:.1f} G operations) = "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound; plain (step by "
+              f"step) {row['plain_ms'] * 1e3:.1f} us; no library call (no "
+              "PyTorch call computes the SSD scan)")
 
-    print(json.dumps({"kernels": [{
-        "name": "window_dp",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/window_dp.cu",
-        "replaces": "src/repro/kernels/window_dp.py:36",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }] + [{
-        # K2 runs at two shapes on the serving path, each with its own
-        # entry: the prefill forward's launches at M = 8 x 1024, the 32
-        # decode forwards' at M = 8
-        "name": f"lora_matmul/{phase}",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lora_matmul.cu",
-        "replaces": "src/repro/kernels/lora_matmul.py:26",
-        "launches": row["launches"],
-        "max_abs_err": k2_err,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-    } for phase, row in zip(("prefill", "decode"), k2_rows)] + [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": k3_launches,
-        "max_abs_err": k3_err,
-        "ms": k3_row["ms"],
-        "plain_ms": k3_row["plain_ms"],
-        "bound_ms": k3_row["bound_ms"],
-        "bound_by": k3_row["bound_by"],
-        "library_ms": k3_row["library_ms"],
-    }]}))
+    k1_row = {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None}
+    print(json.dumps({"kernels": [
+        _entry("window_dp", "window_dp.cu",
+               "src/repro/kernels/window_dp.py:36", main_launches, max_err,
+               k1_row)] + [
+        # K2 runs at two shapes on each serving path, each with its own
+        # entry: the prefill forward's launches and the 32 decode forwards'
+        _entry(f"lora_matmul/{phase}", "lora_matmul.cu",
+               "src/repro/kernels/lora_matmul.py:26", row["launches"],
+               k2_err, row) for phase, row in k2_rows.items()] + [
+        _entry(name, "flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:28", row["launches"],
+               k3_err, row) for name, row in k3_rows.items()] + [
+        _entry(name, "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:23",
+               row["launches"], k4_err, row)
+        for name, row in k4_rows.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-"""Config registry of the port: the dense model configs (copies of the
-reference's files) and the scheduling configs.
+"""Config registry of the port: the dense, SSM and hybrid model configs
+(copies of the reference's files) and the scheduling configs.
 
-The MoE, SSM, hybrid, VLM and audio configs join with their model slices
-(ROADMAP Queue 1 item 10)."""
+The MoE, VLM and audio configs join with their model slices (ROADMAP
+Queue 1 items 10a, 10d and 10e)."""
 from repro_torch.configs.base import (JobConfig, LoRAConfig, ModelConfig,
                                       MoEConfig, SSMConfig, ThroughputConfig)
 from repro_torch.configs import (command_r_plus_104b, granite_20b, llama2_7b,
-                                 olmo_1b, qwen1_5_110b, tiny_100m)
+                                 mamba2_370m, olmo_1b, qwen1_5_110b, tiny_100m,
+                                 zamba2_2_7b)
 
 _MODULES = {
     "olmo-1b": olmo_1b,
@@ -15,6 +16,8 @@ _MODULES = {
     "command-r-plus-104b": command_r_plus_104b,
     "llama2-7b": llama2_7b,
     "tiny-100m": tiny_100m,
+    "mamba2-370m": mamba2_370m,
+    "zamba2-2.7b": zamba2_2_7b,
 }
 
 

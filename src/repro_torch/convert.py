@@ -55,40 +55,56 @@ def eg_state_to_numpy(state: selector.EGState) -> dict:
             for f in selector.EGState._fields}
 
 
-def _tree_map(fn, tree, in_lora: bool = False):
+# leaves the reference keeps in f32 whatever the model dtype: LoRA adapters
+# and the SSM's per-head decay, skip and step-size bias
+_F32_KEYS = ("lora", "A_log", "D", "dt_bias")
+
+
+def _tree_map(fn, tree, keep_f32: bool = False):
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, in_lora or k == "lora")
+        return {k: _tree_map(fn, v, keep_f32 or k in _F32_KEYS)
                 for k, v in tree.items()}
-    return fn(tree, in_lora)
+    return fn(tree, keep_f32)
 
 
 def model_params(values: dict, cfg, device=None) -> dict:
     """The reference's parameter values (``repro.models.init_model(...)[0]``
     or :func:`random_model_params`, any array type numpy can read) -> the
-    port's model: base weights in the model dtype, adapters in f32, layers a
-    list of per-layer dicts."""
-    tf.require_dense(cfg)
+    port's model: base weights in the model dtype, adapters and the SSM's
+    ``A_log``, ``D`` and ``dt_bias`` in f32, layers a list of per-layer dicts
+    (a list of super-blocks, each a list of layers, for hybrid)."""
+    tf.require_ported(cfg)
     dev = resolve_device(device)
     dt = tf.model_dtype(cfg)
 
-    def leaf(x, in_lora):
+    def leaf(x, keep_f32):
         return to_device(np.asarray(x, np.float32),
-                         torch.float32 if in_lora else dt, dev)
+                         torch.float32 if keep_f32 else dt, dev)
 
-    out = {k: _tree_map(leaf, v) for k, v in values.items() if k != "layers"}
     stacked = _tree_map(lambda x, _: np.asarray(x, np.float32),
                         values["layers"])
-    out["layers"] = [_tree_map(lambda x, in_lora: leaf(x[i], in_lora),
-                               stacked) for i in range(cfg.num_layers)]
+
+    def layer(at):
+        return _tree_map(lambda x, keep_f32: leaf(x[at], keep_f32), stacked)
+
+    out = {k: _tree_map(leaf, v) for k, v in values.items() if k != "layers"}
+    if cfg.arch_type == "hybrid":
+        ns, per = tf.super_blocks(cfg)
+        out["layers"] = [[layer((si, j)) for j in range(per)]
+                         for si in range(ns)]
+    else:
+        out["layers"] = [layer(i) for i in range(cfg.num_layers)]
     return out
 
 
 def random_model_params(cfg, seed: int) -> dict:
-    """Random parameter values for a dense config, as f32 numpy arrays in the
-    reference's layout (layers stacked), drawn from a numpy seed. Unlike the
-    standard init, LoRA B, the norm parameters and the biases are non-zero
-    and non-trivial, so the low-rank path and every parameter is exercised."""
-    tf.require_dense(cfg)
+    """Random parameter values for a dense, SSM or hybrid config, as f32
+    numpy arrays in the reference's layout (layers stacked; (super-blocks,
+    layers) for hybrid), drawn from a numpy seed. Unlike the standard init,
+    LoRA B, the norm parameters and the biases are non-zero and
+    non-trivial, so the low-rank path and every parameter is exercised; the
+    SSM's A_log and dt_bias are drawn near the reference's init."""
+    tf.require_ported(cfg)
     rng = np.random.default_rng(seed)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     f, r = cfg.d_ff, cfg.lora.rank
@@ -135,15 +151,44 @@ def random_model_params(cfg, seed: int) -> dict:
         return {"attn_norm": norm(), "attn": att, "mlp_norm": norm(),
                 "mlp": mlp}
 
-    vals = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": norm()}
-    if not cfg.tie_embeddings:
-        vals["head"] = normal((d, cfg.vocab_size), 0.02)
-    layers = [layer() for _ in range(cfg.num_layers)]
+    def mamba_layer():
+        ssm = cfg.ssm
+        di, hh = ssm.d_inner(d), ssm.heads(d)
+        g, n, wc = ssm.n_groups, ssm.state_size, ssm.conv_width
+        conv = di + 2 * g * n
+        m = {"wz": normal((d, di), 1.0 / math.sqrt(d)),
+             "wx": normal((d, di), 1.0 / math.sqrt(d)),
+             "wB": normal((d, g, n), 1.0 / math.sqrt(d)),
+             "wC": normal((d, g, n), 1.0 / math.sqrt(d)),
+             "wdt": normal((d, hh), 1.0 / math.sqrt(d)),
+             "conv_w": normal((conv, wc), 0.3),
+             "conv_b": normal((conv,), 0.1),
+             "A_log": (np.log(np.linspace(1.0, np.e, hh))
+                       + normal((hh,), 0.1)).astype(np.float32),
+             "D": 1.0 + normal((hh,), 0.1),
+             "dt_bias": (np.log(np.expm1(0.01))
+                         + normal((hh,), 0.1)).astype(np.float32),
+             "norm_scale": 1.0 + normal((di,), 0.1),
+             "out_proj": normal((di, d), 1.0 / math.sqrt(di)),
+             "lora": {"in": lora_pair(d, (di,)), "out": lora_pair(di, (d,))}}
+        return {"norm": norm(), "mamba": m}
 
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
         return np.stack(xs)
 
-    vals["layers"] = stack(*layers)
+    vals = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        vals["head"] = normal((d, cfg.vocab_size), 0.02)
+    if cfg.arch_type == "dense":
+        vals["layers"] = stack(*[layer() for _ in range(cfg.num_layers)])
+    elif cfg.arch_type == "ssm":
+        vals["layers"] = stack(*[mamba_layer()
+                                 for _ in range(cfg.num_layers)])
+    else:
+        ns, per = tf.super_blocks(cfg)
+        vals["layers"] = stack(*[stack(*[mamba_layer() for _ in range(per)])
+                                 for _ in range(ns)])
+        vals["shared"] = layer()
     return vals

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_kernel (the
 // Pallas `flash_attention`). q (BH, Sq, D), k and v (BH, Sk, D), heads
 // folded into the batch (GQA repetition is the caller's, as on the TPU),
-// D in {64, 128}, float32 or bfloat16; o (BH, Sq, D) in q's dtype. The
+// D in {64, 80, 128}, float32 or bfloat16; o (BH, Sq, D) in q's dtype. The
 // function and its constants are the TPU kernel's: q is scaled by
 // sm_scale = 1/sqrt(D) before q k^T, query and key positions both count
 // from 0 (also when Sq != Sk), a masked score is -2e38 (causal: k_pos <=
@@ -251,10 +251,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && d == 64)
     return launch<float, 64>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
+  if (dtype == 0 && d == 80)
+    return launch<float, 80>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
   if (dtype == 0 && d == 128)
     return launch<float, 128>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
   if (dtype == 1 && d == 64)
     return launch<bf16, 64>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
+  if (dtype == 1 && d == 80)
+    return launch<bf16, 80>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
   if (dtype == 1 && d == 128)
     return launch<bf16, 128>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
   return (int)cudaErrorInvalidValue;

@@ -24,7 +24,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -5,8 +5,7 @@
 which launches the CUDA kernel on a CUDA tensor and runs the plain version
 on a CPU tensor. ``use_cuda=False`` runs the plain PyTorch version on any
 device: it exists so that one model can run both ways on the card for
-comparison, not as a fallback. The SSD scan (K4) waits for its slice
-(ROADMAP Queue 2).
+comparison, not as a fallback.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.lora_matmul import lora_matmul as _lora
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 
 @dataclass(frozen=True)
@@ -26,6 +26,7 @@ class KernelConfig:
 
 
 DEFAULT = KernelConfig()
+SSD_COPIES = "ops.ssd repeat and flatten"
 
 
 def lora_matmul(x, w, a, b, scale: float,
@@ -65,3 +66,32 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
             vt.reshape(b, h, sk, d), causal=causal, window=window,
         ).reshape(b * h, sq, d)
     return o.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def ssd(x, dt, A, B, C, *, kcfg: KernelConfig = DEFAULT):
+    """Grouped-head SSD: x (B, S, H, P), dt (B, S, H) f32, A (H,) f32,
+    B / C (B, S, G, N). Returns (y (B, S, H, P) in x's dtype, state
+    (B, H, N, P) f32).
+
+    B and C are repeated from groups to heads and every operand is
+    flattened to (B*H, ...) copies, as the reference does. The reference's
+    ``chunk`` argument is the TPU kernel's tile: K4 picks its own and the
+    plain version is step by step, so there is none here."""
+    bsz, s, hh, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = hh // g
+    # named so that a profiler trace shows what these copies cost
+    with torch.profiler.record_function(SSD_COPIES):
+        if rep > 1:
+            B = B.repeat_interleave(rep, dim=2)
+            C = C.repeat_interleave(rep, dim=2)
+        xf = x.transpose(1, 2).reshape(bsz * hh, s, p).contiguous()
+        dtf = dt.transpose(1, 2).reshape(bsz * hh, s).contiguous()
+        Af = A.repeat(bsz).contiguous()
+        Bf = B.transpose(1, 2).reshape(bsz * hh, s, n).contiguous()
+        Cf = C.transpose(1, 2).reshape(bsz * hh, s, n).contiguous()
+    if kcfg.use_cuda:
+        y, hf = _ssd(xf, dtf, Af, Bf, Cf)
+    else:
+        y, hf = ref.ssd_scan_ref(xf, dtf, Af, Bf, Cf)
+    return y.reshape(bsz, hh, s, p).transpose(1, 2), hf.reshape(bsz, hh, n, p)

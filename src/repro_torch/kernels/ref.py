@@ -93,3 +93,24 @@ def window_dp_ref(slot_cost: torch.Tensor, gain: torch.Tensor):
         n_tot[:, tau] = k.to(torch.int32)
         u = u - k
     return n_tot, obj.gather(1, u_star[:, None])[:, 0]
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """Step-by-step SSD recurrence (the reference's ``ssd_scan_ref``, from a
+    zero state).
+
+    x:(BH, S, P), dt:(BH, S), A:(BH,), B,C:(BH, S, N).
+    h_t = exp(dt_t A) h_{t-1} + dt_t * outer(B_t, x_t);  y_t = C_t @ h_t,
+    in f32 with an (BH, N, P) f32 state, one step a loop iteration, batched
+    over BH. Returns (y:(BH,S,P) in x's dtype, h_final:(BH,N,P) f32)."""
+    bh, s, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Af, Bf, Cf = (t.float() for t in (x, dt, A, B, C))
+    h = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device)
+    ys = torch.empty((bh, s, p), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * Af)[:, None, None]
+        outer = Bf[:, t, :, None] * xf[:, t, None, :]
+        h = decay * h + dtf[:, t, None, None] * outer
+        ys[:, t] = torch.bmm(Cf[:, t, None, :], h)[:, 0]
+    return ys.to(x.dtype), h

@@ -1,4 +1,5 @@
-"""The dense model layer of the port (the reference's ``repro.models``)."""
+"""The model layer of the port, dense, SSM and hybrid families (the
+reference's ``repro.models``)."""
 from repro_torch.models.transformer import (decode_step, forward, init_cache,
                                             init_params, prefill)
 

@@ -1,12 +1,14 @@
-"""Pre-norm dense transformer block, full-sequence and one-token decode
-variants (the reference's ``models/blocks.py``; the MoE and Mamba2 blocks
-wait for their slices, ROADMAP Queue 1 item 10)."""
+"""Decoder blocks: the pre-norm dense transformer block and the Mamba2
+residual block, full-sequence and one-token decode variants (the
+reference's ``models/blocks.py``; the MoE block joins with its slice,
+ROADMAP Queue 1 item 10a)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
 
@@ -47,3 +49,32 @@ def transformer_block_decode(cfg, p, h1, cache_k, cache_v, index: int,
     h1 = h1 + attn.out_project(cfg, p["attn"], out, kcfg)
     x = apply_norm(cfg, p["mlp_norm"], h1)
     return h1 + apply_mlp(cfg, p["mlp"], x, kcfg)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+def init_mamba_block(generator: torch.Generator, cfg, dtype) -> dict:
+    return {
+        "norm": init_norm(cfg, dtype, generator.device),
+        "mamba": ssm_lib.init_mamba(generator, cfg, dtype),
+    }
+
+
+def mamba_block_full(cfg, p, h, return_cache: bool = False,
+                     kcfg: ops.KernelConfig = ops.DEFAULT):
+    """Full sequence. Returns h or, when ``return_cache``, (h, mamba cache)."""
+    x = apply_norm(cfg, p["norm"], h)
+    if return_cache:
+        y, cache = ssm_lib.apply_mamba(cfg, p["mamba"], x, return_cache=True,
+                                       kcfg=kcfg)
+        return h + y, cache
+    return h + ssm_lib.apply_mamba(cfg, p["mamba"], x, kcfg=kcfg)
+
+
+def mamba_block_decode(cfg, p, h1, cache, kcfg: ops.KernelConfig = ops.DEFAULT):
+    """One-token decode. h1:(B,1,d) -> (h1, new mamba cache)."""
+    x = apply_norm(cfg, p["norm"], h1)
+    y, new_cache = ssm_lib.apply_mamba_decode(cfg, p["mamba"], x, cache, kcfg)
+    return h1 + y, new_cache

@@ -1,10 +1,15 @@
-"""Model assembly for the dense family: init / forward / prefill / decode
-(the reference's ``models/transformer.py``, dense branches).
+"""Model assembly for the dense, SSM and hybrid families: init / forward /
+prefill / decode (the reference's ``models/transformer.py``).
 
 Layers are a Python list of per-layer parameter dicts, not a stacked scan.
-The KV cache is ``{"index": int, "k": (L, B, W, kv, hd), "v": ...}`` and is
-updated in place by prefill and decode. The other architecture families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Hybrid (zamba2) layers are a list of super-blocks, each a list of
+``hybrid_period`` Mamba2 layers followed by the one *shared* transformer
+block (``params["shared"]``), whose every application keeps its own KV-cache
+slot. The cache is a flat dict updated in place by prefill and decode:
+``index`` (an int), ``k`` / ``v`` (applications, B, W, kv, hd) for
+attention, ``conv`` / ``ssd`` (layers..., B, ...) for Mamba2. The MoE, VLM
+and audio families raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm, normal_param
 from repro_torch.models.rope import default_positions
 
@@ -21,8 +27,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # where each family not ported yet is queued (ROADMAP Queue 1, item 10)
 NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 10a (MoE)",
-    "ssm": "ROADMAP Queue 1 item 10b (SSM and K4)",
-    "hybrid": "ROADMAP Queue 1 item 10c (hybrid)",
     "vlm": "ROADMAP Queue 1 item 10d (VLM and M-RoPE)",
     "audio": "ROADMAP Queue 1 item 10e (audio)",
 }
@@ -32,11 +36,17 @@ def model_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def require_dense(cfg) -> None:
-    if cfg.arch_type != "dense":
+def require_ported(cfg) -> None:
+    if cfg.arch_type in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
             f"{NOT_PORTED[cfg.arch_type]} ports it")
+
+
+def super_blocks(cfg) -> tuple:
+    """(super-blocks, Mamba2 layers in each) of a hybrid config."""
+    per = cfg.hybrid_period
+    return cfg.num_layers // per, per
 
 
 # ---------------------------------------------------------------------------
@@ -45,9 +55,9 @@ def require_dense(cfg) -> None:
 
 def init_params(generator: torch.Generator, cfg) -> dict:
     """Random parameters drawn on the generator's device (each tensor in f32,
-    then cast to the model dtype; adapters stay f32). LoRA B is zero, as the
-    standard init."""
-    require_dense(cfg)
+    then cast to the model dtype; adapters and the SSM's A_log, D and
+    dt_bias stay f32). LoRA B is zero, as the standard init."""
+    require_ported(cfg)
     dt = model_dtype(cfg)
     p = {
         "embed": normal_param(generator, (cfg.vocab_size, cfg.d_model), dt,
@@ -57,8 +67,17 @@ def init_params(generator: torch.Generator, cfg) -> dict:
     if not cfg.tie_embeddings:
         p["head"] = normal_param(generator, (cfg.d_model, cfg.vocab_size), dt,
                                  stddev=0.02)
-    p["layers"] = [blk.init_transformer_block(generator, cfg, dt)
-                   for _ in range(cfg.num_layers)]
+    if cfg.arch_type == "dense":
+        p["layers"] = [blk.init_transformer_block(generator, cfg, dt)
+                       for _ in range(cfg.num_layers)]
+    elif cfg.arch_type == "ssm":
+        p["layers"] = [blk.init_mamba_block(generator, cfg, dt)
+                       for _ in range(cfg.num_layers)]
+    else:
+        ns, per = super_blocks(cfg)
+        p["layers"] = [[blk.init_mamba_block(generator, cfg, dt)
+                        for _ in range(per)] for _ in range(ns)]
+        p["shared"] = blk.init_transformer_block(generator, cfg, dt)
     return p
 
 
@@ -94,42 +113,91 @@ def _positions(batch, seq: int, device, offset: int = 0) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT):
-    """-> (logits (B,S,V) f32, aux_loss scalar, always 0 for dense)."""
-    require_dense(cfg)
+    """-> (logits (B,S,V) f32, aux_loss scalar, always 0 for these
+    families)."""
+    require_ported(cfg)
     h = embed_inputs(cfg, params, batch)
-    positions = _positions(batch, h.shape[1], h.device)
-    for lp in params["layers"]:
-        h = blk.transformer_block_full(cfg, lp, h, positions, kcfg=kcfg)
+    if cfg.arch_type == "dense":
+        positions = _positions(batch, h.shape[1], h.device)
+        for lp in params["layers"]:
+            h = blk.transformer_block_full(cfg, lp, h, positions, kcfg=kcfg)
+    elif cfg.arch_type == "ssm":
+        for lp in params["layers"]:
+            h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
+    else:
+        positions = _positions(batch, h.shape[1], h.device)
+        for mp in params["layers"]:
+            for lp in mp:
+                h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
+            h = blk.transformer_block_full(cfg, params["shared"], h,
+                                           positions, kcfg=kcfg)
     h = apply_norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h), torch.zeros((), device=h.device)
 
 
 # ---------------------------------------------------------------------------
-# KV cache, prefill, decode
+# Cache, prefill, decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    require_dense(cfg)
-    c = attn.init_kv_cache(cfg, batch, max_len, model_dtype(cfg),
-                           cfg.num_layers, device)
+    require_ported(cfg)
+    dt = model_dtype(cfg)
+    if cfg.arch_type == "dense":
+        c = attn.init_kv_cache(cfg, batch, max_len, dt, cfg.num_layers,
+                               device)
+    else:
+        hybrid = cfg.arch_type == "hybrid"
+        lead = super_blocks(cfg) if hybrid else (cfg.num_layers,)
+        one = ssm_lib.init_mamba_cache(cfg, batch, dt, device)
+        c = {k: v.new_zeros(lead + tuple(v.shape)) for k, v in one.items()}
+        if hybrid:
+            c.update(attn.init_kv_cache(cfg, batch, max_len, dt, lead[0],
+                                        device))
     c["index"] = 0
     return c
+
+
+def _write_mamba(cache, at, mc) -> None:
+    """One Mamba2 layer's new cache into the stacked cache slot ``at``."""
+    cache["conv"][at].copy_(mc["conv"])
+    cache["ssd"][at].copy_(mc["ssd"])
+
+
+def _read_mamba(cache, at) -> dict:
+    return {"conv": cache["conv"][at], "ssd": cache["ssd"][at]}
 
 
 def prefill(cfg, params, batch, max_len: int,
             kcfg: ops.KernelConfig = ops.DEFAULT):
     """Full-prefix pass building the cache.
     -> (last-token logits (B,1,V) f32, cache)."""
-    require_dense(cfg)
+    require_ported(cfg)
     h = embed_inputs(cfg, params, batch)
     bsz, seq = h.shape[0], h.shape[1]
-    positions = _positions(batch, seq, h.device)
     cache = init_cache(cfg, bsz, max_len, h.device)
     cache["index"] = seq
-    for i, lp in enumerate(params["layers"]):
-        h, (k, v) = blk.transformer_block_full(cfg, lp, h, positions,
-                                               want_cache=True, kcfg=kcfg)
-        attn.write_prefill(cfg, cache["k"][i], cache["v"][i], k, v)
+    if cfg.arch_type == "dense":
+        positions = _positions(batch, seq, h.device)
+        for i, lp in enumerate(params["layers"]):
+            h, (k, v) = blk.transformer_block_full(cfg, lp, h, positions,
+                                                   want_cache=True, kcfg=kcfg)
+            attn.write_prefill(cfg, cache["k"][i], cache["v"][i], k, v)
+    elif cfg.arch_type == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            h, mc = blk.mamba_block_full(cfg, lp, h, return_cache=True,
+                                         kcfg=kcfg)
+            _write_mamba(cache, i, mc)
+    else:
+        positions = _positions(batch, seq, h.device)
+        for si, mp in enumerate(params["layers"]):
+            for j, lp in enumerate(mp):
+                h, mc = blk.mamba_block_full(cfg, lp, h, return_cache=True,
+                                             kcfg=kcfg)
+                _write_mamba(cache, (si, j), mc)
+            h, (k, v) = blk.transformer_block_full(
+                cfg, params["shared"], h, positions, want_cache=True,
+                kcfg=kcfg)
+            attn.write_prefill(cfg, cache["k"][si], cache["v"][si], k, v)
     h = apply_norm(cfg, params["final_norm"], h[:, -1:])
     return unembed(cfg, params, h), cache
 
@@ -138,14 +206,30 @@ def decode_step(cfg, params, batch, cache,
                 kcfg: ops.KernelConfig = ops.DEFAULT):
     """One-token step. batch: tokens (B,1). Updates the cache in place.
     -> (logits (B,1,V) f32, cache)."""
-    require_dense(cfg)
+    require_ported(cfg)
     h = embed_inputs(cfg, params, batch)
     index = cache["index"]
-    positions = _positions(batch, 1, h.device, offset=index)
-    for i, lp in enumerate(params["layers"]):
-        h = blk.transformer_block_decode(cfg, lp, h, cache["k"][i],
-                                         cache["v"][i], index, positions,
-                                         kcfg=kcfg)
+    if cfg.arch_type == "dense":
+        positions = _positions(batch, 1, h.device, offset=index)
+        for i, lp in enumerate(params["layers"]):
+            h = blk.transformer_block_decode(cfg, lp, h, cache["k"][i],
+                                             cache["v"][i], index, positions,
+                                             kcfg=kcfg)
+    elif cfg.arch_type == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            h, mc = blk.mamba_block_decode(cfg, lp, h, _read_mamba(cache, i),
+                                           kcfg)
+            _write_mamba(cache, i, mc)
+    else:
+        positions = _positions(batch, 1, h.device, offset=index)
+        for si, mp in enumerate(params["layers"]):
+            for j, lp in enumerate(mp):
+                h, mc = blk.mamba_block_decode(
+                    cfg, lp, h, _read_mamba(cache, (si, j)), kcfg)
+                _write_mamba(cache, (si, j), mc)
+            h = blk.transformer_block_decode(
+                cfg, params["shared"], h, cache["k"][si], cache["v"][si],
+                index, positions, kcfg=kcfg)
     cache["index"] = index + 1
     h = apply_norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h), cache

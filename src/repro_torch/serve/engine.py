@@ -1,8 +1,9 @@
 """Minimal batched serving engine: prefill + greedy / temperature decode
 (the reference's ``serve/engine.py``).
 
-Requests are batched to a fixed width, length-bucketed; the KV cache is the
-model's ring-buffer cache. Temperature sampling draws from a
+Requests are batched to a fixed width, length-bucketed; the cache is the
+model's (the ring-buffer KV cache, the Mamba2 conv and SSD state, or both for
+hybrid). Temperature sampling draws from a
 ``torch.Generator``, so it cannot match the reference's
 ``jax.random.categorical`` bit for bit; greedy decoding matches exactly.
 """
@@ -31,7 +32,7 @@ class ServingEngine:
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name}: encoder-only arch cannot serve "
                              "decode")
-        tf.require_dense(cfg)
+        tf.require_ported(cfg)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len

@@ -1,5 +1,5 @@
-"""K1, K2, K3 and the port's entry points on a CUDA card, against the plain
-PyTorch path. Imports neither JAX nor the JAX package, so it also runs where JAX is
+"""K1, K2, K3, K4 and the port's entry points on a CUDA card, against the
+plain PyTorch path. Imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -15,7 +15,8 @@ from repro_torch.core.policy_pool import (baseline_specs, paper_pool,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lora_matmul import lora_matmul
 from repro_torch.kernels.ref import (flash_attention_ref, lora_matmul_ref,
-                                     window_dp_ref)
+                                     ssd_scan_ref, window_dp_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.window_dp import window_dp
 from repro_torch.workload import PAPER_TPUT, job_stream_arrays, paper_market
 
@@ -25,7 +26,7 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1-K3 are CUDA kernels with no "
+        pytest.skip("needs a CUDA device: K1-K4 are CUDA kernels with no "
                     "CPU mode (chip_smoke.py runs these checks on the H100)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -187,7 +188,8 @@ def _qkv(bh, sq, sk, d, dtype, seed):
 @pytest.mark.parametrize("bh,sq,sk,d,dtype", [
     (4, 256, 256, 64, torch.float32), (2, 128, 512, 128, torch.float32),
     (2, 128, 128, 64, torch.bfloat16), (3, 200, 200, 128, torch.bfloat16),
-    (2, 100, 300, 64, torch.float32)])
+    (2, 100, 300, 64, torch.float32), (3, 200, 200, 80, torch.float32),
+    (4, 256, 256, 80, torch.bfloat16)])
 def test_k3_matches_plain(cuda, bh, sq, sk, d, dtype, causal, window):
     q, k, v = (t.to(cuda) for t in _qkv(bh, sq, sk, d, dtype, bh * sq + sk))
     before = flash_attention.launches
@@ -213,6 +215,95 @@ def test_k3_rejects_what_it_does_not_take(cuda):
         flash_attention(torch.cat([q, q, q], 1), k, v, window=8)
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention(q, k.cpu(), v)
+
+
+# K4 tolerances: both versions compute in f32, K4 in 64-step chunks and the
+# plain version step by step, so the sums run in another order: 3e-4, the
+# JAX kernel test's own for chunked against sequential. At bf16 y is one
+# rounding of those f32 results, so one bf16 ulp (2^-7 relative) besides;
+# the f32 state keeps 3e-4.
+K4_TOL = {torch.float32: dict(rtol=3e-4, atol=3e-4),
+          torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3)}
+
+
+def _ssd_inputs(bh, s, p, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bh, s, p), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((bh, s)))) * 0.5
+    a = -np.exp(rng.standard_normal(bh)) * 0.5
+    b, c = (rng.standard_normal((bh, s, n)) * 0.3 for _ in "bc")
+    return (torch.from_numpy(x).to(dtype), torch.tensor(dt, dtype=torch.float32),
+            torch.tensor(a, dtype=torch.float32),
+            torch.tensor(b, dtype=torch.float32).to(dtype),
+            torch.tensor(c, dtype=torch.float32).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,n", [(4, 256, 64, 32), (2, 256, 32, 128),
+                                      (3, 200, 64, 16), (2, 37, 32, 64),
+                                      (5, 1, 64, 128), (64, 1024, 64, 64)])
+def test_k4_matches_plain(cuda, bh, s, p, n, dtype):
+    """The JAX kernel test's shapes, ragged S (200, 37, 1) and a
+    zamba2-sized head count."""
+    ins = [t.to(cuda) for t in _ssd_inputs(bh, s, p, n, dtype, bh * s + n)]
+    before = ssd_scan.launches
+    y, h = ssd_scan(*ins)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_h = ssd_scan_ref(*ins)
+    assert y.dtype == dtype and y.shape == (bh, s, p)
+    assert h.dtype == torch.float32 and h.shape == (bh, n, p)
+    torch.testing.assert_close(y.float(), want_y.float(), **K4_TOL[dtype])
+    torch.testing.assert_close(h, want_h, **K4_TOL[torch.float32])
+
+
+def test_k4_rejects_what_it_does_not_take(cuda):
+    x, dt, a, b, c = (t.to(cuda) for t in _ssd_inputs(2, 64, 32, 16,
+                                                      torch.float32, 0))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_scan(x.double(), dt, a, b.double(), c.double())
+    with pytest.raises(TypeError, match="dt, A in float32"):
+        ssd_scan(x, dt.bfloat16(), a, b, c)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_scan(x.bfloat16(), dt, a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt, a, b, c)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_scan(x, dt[:, :-1].contiguous(), a, b, c)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan(torch.cat([x, x[..., :16]], -1), dt, a, b, c)
+    with pytest.raises(ValueError, match="state N"):
+        big = torch.zeros((2, 64, 129), device=cuda)
+        ssd_scan(x, dt, a, big, big)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_scan(x, dt.cpu(), a, b, c)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_hybrid_serving_smoke_config_cuda_equals_cpu(cuda, arch):
+    """The mamba2-370m and zamba2-2.7b smoke configs (f32) served greedily
+    on the card (K2, K4, and K3 for zamba2) give the CPU plain path's
+    tokens."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_smoke_config(arch)
+    vals = convert.random_model_params(cfg, 14)
+    prompts = np.random.default_rng(15).integers(0, cfg.vocab_size, (4, 16))
+    reqs = [Request(p.astype(np.int32), 8) for p in prompts]
+    before = (lora_matmul.launches, flash_attention.launches,
+              ssd_scan.launches)
+    got = ServingEngine(cfg, convert.model_params(vals, cfg, cuda),
+                        max_len=64).generate_batch(reqs)
+    hybrid = cfg.arch_type == "hybrid"
+    assert (lora_matmul.launches - before[0],
+            flash_attention.launches - before[1],
+            ssd_scan.launches - before[2]) == (
+        (8 if hybrid else 4) * 9, 2 if hybrid else 0, 2)
+    want = ServingEngine(cfg, convert.model_params(vals, cfg, "cpu"),
+                         max_len=64, device="cpu").generate_batch(reqs)
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
 
 
 def test_serving_smoke_config_cuda_equals_cpu(cuda):

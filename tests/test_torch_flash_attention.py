@@ -1,8 +1,8 @@
 """K3 (flash_attention) of the port against the JAX package on the CPU: the
-wrapper's plain path against the Pallas kernel run in interpret mode, the
-plain versions against each other on ragged shapes, and ``ops.attention``
-(GQA) and ``attention.attend`` against the reference's. Inputs come from
-numpy seeds."""
+wrapper's plain path against the Pallas kernel run in interpret mode (head
+dims 64, 80 and 128), the plain versions against each other on ragged
+shapes, and ``ops.attention`` (GQA) and ``attention.attend`` against the
+reference's. Inputs come from numpy seeds."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +27,8 @@ def _qkv(shapes, seed):
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 100)])
-@pytest.mark.parametrize("bh,sq,sk,d", [(4, 256, 256, 64), (2, 128, 512, 128)])
+@pytest.mark.parametrize("bh,sq,sk,d", [(4, 256, 256, 64), (2, 128, 512, 128),
+                                        (3, 128, 256, 80)])
 def test_plain_matches_pallas_kernel(bh, sq, sk, d, causal, window):
     """f32 at the JAX kernel test's tolerance (2e-5: sums and exp in
     another order)."""

@@ -127,16 +127,38 @@ def test_k2_k3_modules_import_without_nvcc(tmp_path, name, call):
     assert proc.stdout.strip() == "raised"
 
 
+def test_k4_module_imports_without_nvcc(tmp_path):
+    """K4's module imports and runs its plain version on CPU tensors without
+    a compiler; its build() raises naming nvcc."""
+    proc = _run(
+        "import torch\n"
+        "from repro_torch.kernels import ssd_scan as k\n"
+        "y, h = k.ssd_scan(torch.ones((2, 5, 32)), torch.ones((2, 5)),\n"
+        "                  -torch.ones(2), torch.ones((2, 5, 16)),\n"
+        "                  torch.ones((2, 5, 16)))\n"
+        "assert y.shape == (2, 5, 32) and h.shape == (2, 16, 32)\n"
+        "assert torch.isfinite(y).all() and k.ssd_scan.launches == 0\n"
+        "try:\n"
+        "    k.build()\n"
+        "except RuntimeError as e:\n"
+        "    assert 'nvcc' in str(e), e\n"
+        "    print('raised')\n",
+        {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "raised"
+
+
 def test_kernel_libraries_named_by_source_hash():
-    """One build helper serves K1-K3: each library sits in build/repro_torch/
+    """One build helper serves K1-K4: each library sits in build/repro_torch/
     under its source's stem and the hash of its bytes."""
     import hashlib
 
     from repro_torch.kernels import build, flash_attention, lora_matmul
-    from repro_torch.kernels import window_dp
+    from repro_torch.kernels import ssd_scan, window_dp
 
     paths = set()
-    for mod in (window_dp, lora_matmul, flash_attention):
+    for mod in (window_dp, lora_matmul, flash_attention, ssd_scan):
         path = build.library_path(mod.SOURCE)
         digest = hashlib.sha256((build.CSRC / mod.SOURCE).read_bytes())
         assert path.parent == build.BUILD_DIR
@@ -144,7 +166,7 @@ def test_kernel_libraries_named_by_source_hash():
         assert path.name == (f"{mod.SOURCE[:-3]}_"
                              f"{digest.hexdigest()[:16]}.so")
         paths.add(path)
-    assert len(paths) == 3
+    assert len(paths) == 4
 
 
 def test_k2_k3_wrappers_reject_non_cuda_tensors():
@@ -160,3 +182,14 @@ def test_k2_k3_wrappers_reject_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
     assert lora_matmul.launches == 0 and flash_attention.launches == 0
+
+
+def test_k4_wrapper_rejects_non_cuda_tensors():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    x = torch.zeros((2, 8, 32), device="meta")
+    b = torch.zeros((2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x, torch.zeros((2, 8), device="meta"),
+                 torch.zeros((2,), device="meta"), b, b)
+    assert ssd_scan.launches == 0

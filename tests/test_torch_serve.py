@@ -1,7 +1,8 @@
 """The port's ServingEngine against the JAX package's on the CPU: greedy
-tokens equal exactly on the dense smoke configs, temperature sampling is
-reproducible from its seed, and chip_smoke.py's recorded [serve-ref] tokens
-are what the JAX engine gives today."""
+tokens equal exactly on the dense, SSM and hybrid smoke configs,
+temperature sampling is reproducible from its seed, and chip_smoke.py's
+recorded [serve-ref], [serve-ssm-ref] and [serve-hybrid-ref] tokens are what
+the JAX engine gives today."""
 import sys
 from pathlib import Path
 
@@ -18,6 +19,7 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lora_matmul import lora_matmul
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.serve import Request, ServingEngine
 
 torch.set_num_threads(1)
@@ -33,7 +35,9 @@ def _prompts(vocab, n=3, s=12, seed=0):
 @pytest.mark.parametrize("arch,over", [("llama2-7b", {}), ("olmo-1b", {}),
                                        ("granite-20b", {}),
                                        ("qwen1.5-110b", {}),
-                                       ("tiny-100m", {"sliding_window": 8})])
+                                       ("tiny-100m", {"sliding_window": 8}),
+                                       ("mamba2-370m", {}),
+                                       ("zamba2-2.7b", {})])
 def test_greedy_tokens_equal_reference(arch, over):
     cfg, jcfg = get_smoke_config(arch), jsmoke(arch)
     if over:
@@ -49,6 +53,7 @@ def test_greedy_tokens_equal_reference(arch, over):
     got = eng.generate_batch([Request(p, n) for p, n in zip(prompts, new)])
     assert [g.tolist() for g in got] == [w.tolist() for w in want]
     assert lora_matmul.launches == 0 and flash_attention.launches == 0
+    assert ssd_scan.launches == 0
 
 
 def test_temperature_sampling_is_seeded():
@@ -82,14 +87,19 @@ def test_engine_refuses_unbucketed_batches_and_missing_card(monkeypatch):
         ServingEngine(cfg, params)
 
 
-def test_chip_smoke_serve_ref_tokens_are_current():
-    """chip_smoke.py holds the port on the card to tokens recorded from the
-    JAX ServingEngine; recompute them so the constant cannot go stale."""
+def _chip_smoke():
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def test_chip_smoke_serve_ref_tokens_are_current():
+    """chip_smoke.py holds the port on the card to tokens recorded from the
+    JAX ServingEngine; recompute them so the constant cannot go stale."""
+    chip_smoke = _chip_smoke()
     cfg = jsmoke(chip_smoke.SERVE_REF_ARCH)
     vals = convert.random_model_params(
         get_smoke_config(chip_smoke.SERVE_REF_ARCH), chip_smoke.SERVE_REF_SEED)
@@ -99,3 +109,16 @@ def test_chip_smoke_serve_ref_tokens_are_current():
         [JRequest(p, chip_smoke.SERVE_REF_NEW) for p in prompts])
     got = tuple(tuple(int(t) for t in o) for o in out)
     assert got == chip_smoke.SERVE_REF_TOKENS
+
+
+@pytest.mark.parametrize("phase", ["serve-ssm-ref", "serve-hybrid-ref"])
+def test_chip_smoke_ssm_hybrid_ref_tokens_are_current(phase):
+    """The same for the mamba2-370m and zamba2-2.7b smoke configs."""
+    chip_smoke = _chip_smoke()
+    arch, seed, tokens = chip_smoke.FAMILY_REFS[phase]
+    vals = convert.random_model_params(get_smoke_config(arch), seed)
+    prompts = chip_smoke.serve_ref_prompts(np, jsmoke(arch).vocab_size, seed)
+    out = JServingEngine(jsmoke(arch), jax.tree.map(jnp.asarray, vals),
+                         max_len=chip_smoke.SERVE_REF_MAX_LEN).generate_batch(
+        [JRequest(p, chip_smoke.SERVE_REF_NEW) for p in prompts])
+    assert tuple(tuple(int(t) for t in o) for o in out) == tokens
