@@ -127,6 +127,17 @@ K3_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-3)}
 # 3e-4.
 K4_TOL = {"float32": (3e-4, 3e-4), "bfloat16": (2.0 ** -7, 1e-3)}
 TIME_REPS = 25
+# K2's decode rows are timed cold: each round of launches rotates through
+# copies of the inputs larger than twice the H100's 50 MB L2
+COLD_BYTES = 100_000_000
+# K2's and K3's times before their tensor-core redesign (us a launch, NVIDIA
+# H100 80GB HBM3 at 700 W; event pairs around single launches, so host
+# enqueue included, and the K2 decode rows L2-warm), printed beside this
+# run's
+BEFORE_US = {"prefill": 6895.6, "decode": 245.6, "mamba2-prefill": 1690.2,
+           "mamba2-decode": 76.7, "zamba2-prefill": 5338.6,
+           "zamba2-decode": 156.2, "flash_attention": 2915.6,
+           "flash_attention/zamba2": 1945.5}
 
 # ---- SSM and hybrid serving ----
 # [serve-ssm-ref] / [serve-hybrid-ref]: the mamba2-370m and zamba2-2.7b smoke
@@ -242,6 +253,36 @@ def _event_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(torch, fn, reps: int = TIME_REPS, rounds: int = 5) -> float:
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
+    CUDA graph, so no host enqueue separates them, replayed ``rounds`` times
+    between CUDA events; the median replay over ``reps``. (Event pairs
+    around single calls, as ``_event_ms`` takes them, also time the host's
+    enqueue, which is most of a short launch.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times)
+
+
 def _engine_inputs(kind, level, engine, workload, np):
     """Fig. 9's inputs exactly as benchmarks/fig9_convergence.py builds
     them (seed 7: jobs, then window starts, per-job predictor seeds)."""
@@ -310,16 +351,22 @@ def _lora_case(torch, gen, m, k, n, r, dtype):
 
 def _phase_k2(torch, gen, k2, lora_matmul_ref) -> float:
     """K2 against its plain version on the card: the JAX package's kernel
-    test shapes at f32 and bf16, a ragged shape, and llama2-7b's prefill
-    (M = 8 x 1024) and decode (M = 8) q / v projections."""
+    test shapes at f32 and bf16, a ragged shape, the edges of the bf16
+    tiles, and the six serving shapes (prefill and decode of llama2-7b's
+    q / v, mamba2-370m's and zamba2-2.7b's wx)."""
     cases = [((m, k, n, r), dt)
              for m, k, n, r in ((128, 128, 128, 16), (256, 384, 128, 8),
                                 (128, 256, 256, 64))
              for dt in ("float32", "bfloat16")]
     cases += [((200, 4096, 4096, 16), "float32"),
-              ((200, 4096, 4096, 16), "bfloat16"),
-              ((SERVE_BATCH * SERVE_PROMPT, 4096, 4096, 16), "bfloat16"),
-              ((SERVE_BATCH, 4096, 4096, 16), "bfloat16")]
+              ((200, 4096, 4096, 16), "bfloat16")]
+    # the edges of the bf16 tiles: decode (M <= 64) and prefill (128 x 256,
+    # BK 64), K and N off the tile, N 4100 with a ragged row pitch
+    cases += [((m, 4104, 4100, r), "bfloat16") for m in (1, 8, 17, 64, 65, 200)
+              for r in (8, 16, 64)]
+    # the six serving shapes (M, K, N) of the three paths
+    cases += [((m, k, n, 16), "bfloat16")
+              for m, k, n, _ in _k2_shapes(None).values()]
     max_err = 0.0
     for (m, k, n, r), dt in cases:
         x, w, a, b = _lora_case(torch, gen, m, k, n, r, getattr(torch, dt))
@@ -338,8 +385,8 @@ def _phase_k2(torch, gen, k2, lora_matmul_ref) -> float:
 
 def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
     """K3 against its plain version on the card: the JAX package's kernel
-    test shapes and masks, bf16, a ragged S, llama2-7b's prefill, and head
-    dim 80 up to zamba2-2.7b's prefill."""
+    test shapes and masks, bf16, a ragged S, llama2-7b's prefill, head dim
+    80 up to zamba2-2.7b's prefill, and the edges of the bf16 tiles."""
     cases = [((bh, sq, sk, d), "float32", causal, window)
              for bh, sq, sk, d in ((4, 256, 256, 64), (2, 128, 512, 128))
              for causal, window in ((True, None), (False, None), (True, 100))]
@@ -353,6 +400,11 @@ def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
               ((2, 128, 300, 80), "float32", False, None),
               ((3, 200, 200, 80), "bfloat16", True, 37),
               ((SERVE_BATCH * 32, 1024, 1024, 80), "bfloat16", True, None)]
+    # the edges of the bf16 tiles (64 query rows, 64 keys): S around a tile,
+    # Sq = Sk and Sq < Sk, each head dim, causal, with and without a window
+    cases += [((2, s, s + extra, d), "bfloat16", True, window)
+              for s in (1, 63, 65, 127, 129, 200) for extra in (0, 50)
+              for d in (64, 80, 128) for window in (None, 37)]
     max_err = 0.0
     for (bh, sq, sk, d), dt, causal, window in cases:
         dtype = getattr(torch, dt)
@@ -649,6 +701,10 @@ def _f32_logits(torch, tf, cfg, params, prompts_t, tokens_t, max_len):
                  for use_cuda in (True, False))
 
 
+# the port's kernels by the names of their CUDA functions
+KERNEL_NAMES = {"K2": "lora_", "K3": "flash_fwd_", "K4": "ssd_scan_kernel"}
+
+
 def _trace_line(torch, what, prof, wall_s):
     """Device busy time of a traced window (the sum of the device-side
     events' self time: one stream, so they do not overlap; the host-side ops
@@ -679,6 +735,12 @@ def _trace_line(torch, what, prof, wall_s):
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
               f"({e.self_device_time_total / busy_us:.1%}, {e.count}x)"
               for e in top))
+    shares = {name: sum(e.self_device_time_total for e in events
+                        if part in e.key)
+              for name, part in KERNEL_NAMES.items()}
+    print(f"[trace] {what}: " + "; ".join(
+        f"{name} {us / 1e3:.1f} ms ({us / busy_us:.1%} of busy)"
+        for name, us in shares.items()))
     for e in averages:
         if e.key == SSD_COPIES and e.device_type == DeviceType.CPU:
             print(f"[trace] {what}: kernels under '{e.key}' ({e.count}x): "
@@ -732,45 +794,62 @@ def _bound_by(b_ms, o_ms) -> str:
 def _phase_time_k2(torch, gen, k2, lora_matmul_ref, shapes):
     """K2 at the serving paths' shapes ((M, K, N, launches), r 16, bf16):
     kernel, plain version and ``torch.addmm(x @ W, x @ A, B, alpha=scale)``
-    (no single PyTorch call computes the fused function), CUDA events,
-    median of TIME_REPS after warm-up. Returns one row per shape."""
+    (no single PyTorch call computes the fused function), each timed by
+    ``_graph_ms``. Returns one row per shape.
+
+    At decode (M <= 64) W is read once a launch and fits the 50 MB L2, but on
+    the serving path each launch finds its W cold (the step's other 63
+    projections come between). So decode rows rotate through copies of
+    (x, W, A, B) of more than COLD_BYTES together, kernel, plain version
+    and addmm alike: every launch reads inputs last touched a round ago."""
     rows = []
     for m, k, n, n_launch in shapes:
         r = 16
-        x, w, a, b = _lora_case(torch, gen, m, k, n, r, torch.bfloat16)
-        for _ in range(3):
-            k2.lora_matmul(x, w, a, b, 2.0)
-        ms = _event_ms(torch, lambda: k2.lora_matmul(x, w, a, b, 2.0),
-                       TIME_REPS)
-        plain = _event_ms(torch, lambda: lora_matmul_ref(x, w, a, b, 2.0),
-                          TIME_REPS)
-        lib = _event_ms(torch, lambda: torch.addmm(x @ w, x @ a, b,
-                                                   alpha=2.0), TIME_REPS)
         n_bytes = 2 * (m * k + k * n + k * r + r * n + m * n)
+        copies = 1 if m > 64 else COLD_BYTES // n_bytes + 1
+        cases = [_lora_case(torch, gen, m, k, n, r, torch.bfloat16)
+                 for _ in range(copies)]
+        turn = [0]
+
+        def rotate(fn):
+            def call():
+                turn[0] = (turn[0] + 1) % copies
+                return fn(*cases[turn[0]])
+            return call
+
+        ms = _graph_ms(torch, rotate(
+            lambda x, w, a, b: k2.lora_matmul(x, w, a, b, 2.0)))
+        plain = _graph_ms(torch, rotate(
+            lambda x, w, a, b: lora_matmul_ref(x, w, a, b, 2.0)))
+        lib = _graph_ms(torch, rotate(
+            lambda x, w, a, b: torch.addmm(x @ w, x @ a, b, alpha=2.0)))
         n_ops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
         bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
         rows.append({"M": m, "K": k, "N": n, "r": r, "launches": n_launch,
                      "ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms)})
+                     "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
+                     "footprint": copies * n_bytes})
+        del cases
     return rows
 
 
 def _phase_time_k3(torch, gen, k3, flash_attention_ref, b, h, s, d):
     """K3 at a serving prefill (BH = b x h, S, D, causal, bf16) beside the
-    plain version and F.scaled_dot_product_attention."""
+    plain version and F.scaled_dot_product_attention: kernel and SDPA by
+    ``_graph_ms``, the plain version (its (BH, S, S) f32 scores too large to
+    capture 25 times) by ``_event_ms``."""
     import torch.nn.functional as F
 
     q, k, v = (_randn(torch, gen, (b * h, s, d), 1.0, torch.bfloat16)
                for _ in range(3))
+    ms = _graph_ms(torch, lambda: k3.flash_attention(q, k, v, causal=True))
     for _ in range(3):
-        k3.flash_attention(q, k, v, causal=True)
-    ms = _event_ms(torch, lambda: k3.flash_attention(q, k, v, causal=True),
-                   TIME_REPS)
+        flash_attention_ref(q[None], k[None], v[None], causal=True)
     plain = _event_ms(torch, lambda: flash_attention_ref(
         q[None], k[None], v[None], causal=True), TIME_REPS)
     q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
-    lib = _event_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), TIME_REPS)
+    lib = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
     n_bytes = 2 * 4 * b * h * s * d
     n_ops = 4 * d * b * h * s * (s + 1) // 2
     bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
@@ -805,23 +884,27 @@ def _phase_time_k4(torch, gen, k4, ssd_scan_ref, bh, s, p, n):
             "ops": n_ops}
 
 
-def _k2_shapes(launches):
+def _k2_shapes(launches=None):
     """K2's timed shapes and launch counts on each serving path: llama2-7b's
     q / v projection (K = N = 4096) at prefill (M = 8 x 1024) and decode
     (M = 8); mamba2-370m's and zamba2-2.7b's wx projection (K = d, N =
     d_inner; out_proj moves the same bytes and operations transposed) at
-    prefill and decode, with every K2 launch of the path's phase."""
+    prefill and decode, with every K2 launch of the path's phase (None
+    before the serving runs)."""
     from repro_torch.configs import get_config
 
+    def count(tag, i):
+        return None if launches is None else launches[tag][i]
+
     rows = {"prefill": (SERVE_BATCH * SERVE_PROMPT, 4096, 4096,
-                        launches["serve"][0]),
-            "decode": (SERVE_BATCH, 4096, 4096, launches["serve"][1])}
+                        count("serve", 0)),
+            "decode": (SERVE_BATCH, 4096, 4096, count("serve", 1))}
     for tag, (arch, batch, prompt, _, _) in FAMILY_RUNS.items():
         cfg = get_config(arch)
         d, di = cfg.d_model, cfg.ssm.d_inner(cfg.d_model)
         name = arch.split("-")[0]
-        rows[f"{name}-prefill"] = (batch * prompt, d, di, launches[tag][0])
-        rows[f"{name}-decode"] = (batch, d, di, launches[tag][1])
+        rows[f"{name}-prefill"] = (batch * prompt, d, di, count(tag, 0))
+        rows[f"{name}-decode"] = (batch, d, di, count(tag, 1))
     return rows
 
 
@@ -1058,14 +1141,19 @@ def main() -> int:
     k2_rows = dict(zip(k2_shapes, _phase_time_k2(
         torch, gen, k2, lora_matmul_ref, k2_shapes.values())))
     for phase, row in k2_rows.items():
+        cold = (f"cold, rotating through {row['footprint'] / 1e6:.1f} MB of "
+                "inputs" if row["M"] <= 64 else "warm")
         print(f"[time] card {card}: K2 {phase} at (M, K, N, r) = "
-              f"({row['M']}, {row['K']}, {row['N']}, {row['r']}) bf16: "
-              f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
-              f"on the serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
-              f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
-              f"bound; plain {row['plain_ms'] * 1e3:.1f} us; torch.addmm(x @ "
-              f"W, x @ A, B) {row['library_ms'] * 1e3:.1f} us (no single "
-              "PyTorch call computes it)")
+              f"({row['M']}, {row['K']}, {row['N']}, {row['r']}) bf16 "
+              f"({cold}): {row['ms'] * 1e3:.1f} us/launch "
+              f"({row['launches']} launches on the serving path; before "
+              f"the redesign {BEFORE_US[phase]:,.1f} us); bound "
+              f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} = "
+              f"{row['bound_ms'] / row['ms']:.1%} "
+              f"of bound; plain {row['plain_ms'] * 1e3:.1f} us; "
+              f"torch.addmm(x @ W, x @ A, B) {row['library_ms'] * 1e3:.1f} us "
+              f"(kernel / addmm {row['ms'] / row['library_ms']:.2f}x; no "
+              "single PyTorch call computes it)")
     from repro_torch.configs import get_config
     zamba = get_config(FAMILY_RUNS["serve-hybrid"][0])
     k3_rows = {
@@ -1085,9 +1173,11 @@ def main() -> int:
               f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
               f"on its serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
               f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
-              f"bound; plain {row['plain_ms'] * 1e3:.1f} us; "
+              f"bound; before the redesign {BEFORE_US[name]:,.1f} us; plain "
+              f"{row['plain_ms'] * 1e3:.1f} us; "
               f"F.scaled_dot_product_attention "
-              f"{row['library_ms'] * 1e3:.1f} us")
+              f"{row['library_ms'] * 1e3:.1f} us (kernel / SDPA "
+              f"{row['ms'] / row['library_ms']:.2f}x)")
     k4_rows = {}
     for tag, shape in _ssd_shapes().items():
         name = "ssd_scan/" + FAMILY_RUNS[tag][0].split("-")[0]

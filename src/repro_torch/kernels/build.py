@@ -4,7 +4,8 @@ Each kernel is one CUDA C++ source under ``csrc/`` with a plain C interface.
 It is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/repro_torch/`` at the repo root (listed in .gitignore) and loaded
 through ``ctypes``. The library is named by the source's stem and a hash of
-its bytes, so an edited kernel is rebuilt and an unchanged one is reused.
+its bytes and of the headers it shares (``csrc/*.cuh``), so an edited
+kernel is rebuilt and an unchanged one is reused.
 Nothing here runs when a module is imported; without ``nvcc`` a build
 raises.
 """
@@ -38,9 +39,13 @@ def _nvcc(what: str) -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` is built: its stem and a hash of its bytes."""
+    """Where ``csrc/<source>`` is built: its stem and a hash of its bytes
+    and of the headers beside it."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 
 

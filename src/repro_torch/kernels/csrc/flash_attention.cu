@@ -12,31 +12,65 @@
 // sum and the output accumulator are f32; the output is acc / max(l, 1e-30).
 // The plain version is repro_torch/kernels/ref.py:flash_attention_ref.
 //
-// Design. One block of 256 threads per (bh, 64-row query tile). The query
-// tile (pre-scaled, f32) stays in shared memory while 64-row K and V tiles
-// stream through it, widened to f32. Scores, the softmax and both products
-// are f32 on the CUDA cores: thread (ty, tx) of a 16 x 16 grid holds a
-// 4 x 4 slice of the score tile (rows ty + 16 i, columns tx + 16 j) and
-// rows ty + 16 i, columns tx + 16 j of the output accumulator; row max and
-// row sum are 16-lane shuffle reductions. Key tiles wholly past the
-// diagonal (causal) or wholly before the window are skipped: in the TPU
-// kernel they contribute exp(-2e38 - m) = 0 or are wiped by the correction
-// factor exp(-2e38 - m) = 0 once a real score arrives, so skipping them
-// gives the same result for every row that keeps a key. (A row whose keys
-// are all masked, which only a window with Sq >= Sk + window leaves, would
-// differ: the wrapper refuses that case.) Keys past Sk are -inf (they do
-// not exist), query rows past Sq are not stored. No tensor cores, TMA or pipelining yet:
-// simple and right first.
+// Two variants behind the one entry point:
+//
+// - bfloat16 (the serving path): FlashAttention-2 on the tensor cores. One
+//   block of 4 warps per (bh, 64-row query tile); each warp owns 16 query
+//   rows, whose q fragments stay in registers for the whole key loop. K and
+//   V tiles of 64 keys stay bf16 in shared memory (rows padded to D + 8
+//   elements, an odd number of 16-byte chunks, so ldmatrix is free of bank
+//   conflicts at D 64, 80 and 128 alike; D 80's 160-byte rows admit no
+//   power-of-two swizzle) and arrive by cp.async, double-buffered: tile j + 1
+//   is in flight while tile j computes, one __syncthreads a tile. Keys past
+//   Sk are zero-filled by the copy's source size. q k^T is mma.sync
+//   m16n8k16 on the unscaled bf16 q and k (exact products, f32 sums), then
+//   multiplied by sm_scale in f32: against the TPU kernel's (q sm_scale) k
+//   this is f32 reassociation only. Scores stay in the mma accumulator
+//   layout; row max and row sum are quad shuffles. p is f32 after expf;
+//   since one bf16 p would round every probability to 8 bits, p v is
+//   p_hi v + p_lo v with p_hi = bf16(p), p_lo = bf16(p - p_hi), both into
+//   the same f32 accumulator (error about 2^-16 p, at twice the p v
+//   operations). The accumulator layout of p is the A-operand layout of the
+//   next mma, so p never goes through shared memory; V enters through
+//   ldmatrix.trans. Only the key tiles that straddle a mask edge (the
+//   diagonal, the window's start, Sk) evaluate the element mask. Query tiles
+//   run longest first (causal: the last tile has the most keys).
+//   Shared memory 5 x 64 x (D + 8) x 2 B: 85 KB at D 128, so two blocks
+//   share an SM (56 KB at D 80: four). 64-row query tiles of 4 warps
+//   rather than 128 of 8: the registers (229 a thread at D 128, 166 at D
+//   80, no spills) hold an SM to 8 warps at D 128 either way, and the
+//   smaller tile skips more of the causal triangle.
+// - float32 (the f32 logit check and tests): f32 on the CUDA cores, as the
+//   f32 tolerance (2e-5) excludes TF32. One block of 256 threads per (bh,
+//   64-row query tile); q (pre-scaled), K and V tiles in shared memory as
+//   f32; thread (ty, tx) of a 16 x 16 grid holds a 4 x 4 slice of the score
+//   tile and of the output accumulator; row max and row sum are 16-lane
+//   shuffles.
+//
+// Both skip key tiles wholly past the diagonal (causal) or wholly before
+// the window: in the TPU kernel they contribute exp(-2e38 - m) = 0 or are
+// wiped by the correction factor exp(-2e38 - m) = 0 once a real score
+// arrives, so skipping them gives the same result for every row that keeps
+// a key. (A row whose keys are all masked, which only a window with Sq >=
+// Sk + window leaves, would differ: the wrapper refuses that case.) Keys
+// past Sk are -inf (they do not exist), query rows past Sq are not stored.
 //
 // Bound on one H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at llama2-7b's
 // prefill, BH = 8 x 32 = 256, S = 1024, D = 128, causal, bf16: q, k, v in
 // and o out move 268.4 MB, 80.1 us; the S (S + 1) / 2 = 524,800 unmasked
 // (q, k) pairs of a head cost 4 D operations each (q k^T and p v), 68.8 G
-// operations, 69.6 us. Bound by bytes: 80.1 us.
+// operations, 69.6 us. Bound by bytes: 80.1 us. (The p_hi / p_lo split
+// makes the kernel's own work 6 D operations a pair, 103.2 G, 104.4 us on
+// the tensor cores.) The previous design, f32 on the CUDA cores, took
+// 2,915.6 us here (NVIDIA H100 80GB HBM3, 700 W).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -44,57 +78,289 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 64;
 constexpr int kBKV = 64;
-constexpr int kThreads = 256;
 constexpr float kMaskFill = -2.0e38f;
-static_assert(kBQ == kBKV, "load_rows stages 64-row tiles of q, k and v");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16(x);
+// Key tiles [kt_begin, kt_end) that hold a key some row of the query tile
+// at q0 keeps: tiles wholly past the diagonal or before the window are
+// skipped (see the header).
+__device__ __forceinline__ void key_tiles(int q0, int sk, int causal,
+                                          int window, int& kt_begin,
+                                          int& kt_end) {
+  kt_end = (sk + kBKV - 1) / kBKV;
+  kt_begin = 0;
+  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBKV + 1);
+  if (window > 0) kt_begin = max(0, q0 - window + 1) / kBKV;
 }
 
-// rows x D elements of a (nrows, D) matrix into shared memory (ld_s), as
-// f32 times `mul`, zero past nrows.
-template <typename T, int D>
-__device__ void load_rows(float* dst, int ld_s, const T* src, int row0,
+// The score of key kp for query qp after the mask: -2e38 where causal or
+// window masks it, -inf past Sk.
+__device__ __forceinline__ float masked(float s, int qp, int kp, int sk,
+                                        int causal, int window) {
+  bool ok = true;
+  if (causal) ok = ok && kp <= qp;
+  if (window > 0) ok = ok && kp > qp - window;
+  return kp >= sk ? -INFINITY : (ok ? s : kMaskFill);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores, cp.async double buffering
+// ---------------------------------------------------------------------------
+
+constexpr int kBf16Threads = 128;  // 4 warps x 16 query rows
+
+template <int D>
+__host__ __device__ constexpr size_t bf16_smem_bytes() {
+  // q, two K tiles, two V tiles, 64 rows of D + 8 bf16 each
+  return sizeof(bf16) * 5 * (size_t)kBQ * (D + 8);
+}
+
+// Rows [row0, row0 + 64) of a (nrows, D) bf16 matrix into a shared tile of
+// row stride D + 8 by cp.async, zero past nrows.
+template <int D>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+                                          int row0, int nrows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  static_assert(kBQ * kChunks % kBf16Threads == 0, "copy_tile");
+#pragma unroll
+  for (int i = 0; i < kBQ * kChunks / kBf16Threads; ++i) {
+    const int idx = threadIdx.x + i * kBf16Threads;
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const bool ok = row0 + r < nrows;
+    tc::cp_async16(dst + r * (D + 8) + c,
+                   src + (size_t)(ok ? row0 + r : 0) * D + c, ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBf16Threads)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          int sq, int sk, int causal, int window,
+                          float sm_scale) {
+  constexpr int kLd = D + 8;
+  constexpr int kKSteps = D / 16;  // k-steps of q k^T
+  constexpr int kDTiles = D / 8;   // n-tiles of p v
+  constexpr int kNTiles = kBKV / 8;
+  static_assert(D % 16 == 0, "head dim");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + kBQ * kLd;   // two buffers
+  bf16* vs = ks + 2 * kBKV * kLd;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // longest query tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const size_t bh = blockIdx.y;
+  const bf16* qb = q + bh * (size_t)sq * D;
+  const bf16* kb = k + bh * (size_t)sk * D;
+  const bf16* vb = v + bh * (size_t)sk * D;
+
+  int kt_begin, kt_end;
+  key_tiles(q0, sk, causal, window, kt_begin, kt_end);
+
+  copy_tile<D>(qs, qb, q0, sq);
+  if (kt_begin < kt_end) {
+    copy_tile<D>(ks, kb, kt_begin * kBKV, sk);
+    copy_tile<D>(vs, vb, kt_begin * kBKV, sk);
+  }
+  tc::cp_async_commit();
+
+  const int row_a = q0 + warp * 16 + g;  // this thread's rows: a, a + 8
+  uint32_t qf[kKSteps][4];
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+  float m_run[2] = {kMaskFill, kMaskFill};
+  float l_run[2] = {0.0f, 0.0f};
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    tc::cp_async_wait<0>();  // tile kt (and at first q) has landed
+    __syncthreads();         // ... for every thread; tile kt - 1 is consumed
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        tc::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kLd +
+                                    kk * 16 + (lane >> 4) * 8);
+      }
+    }
+    if (kt + 1 < kt_end) {
+      copy_tile<D>(ks + (buf ^ 1) * kBKV * kLd, kb, (kt + 1) * kBKV, sk);
+      copy_tile<D>(vs + (buf ^ 1) * kBKV * kLd, vb, (kt + 1) * kBKV, sk);
+    }
+    tc::cp_async_commit();
+    const bf16* kts = ks + buf * kBKV * kLd;
+    const bf16* vts = vs + buf * kBKV * kLd;
+
+    // s = q k^T: 16 rows x 64 keys a warp, unscaled
+    float s[kNTiles][4];
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kNTiles / 2; ++np) {
+        uint32_t b[4];
+        tc::ldmatrix_x4(b, kts + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                     kLd +
+                               kk * 16 + ((lane >> 3) & 1) * 8);
+        tc::mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+        tc::mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    const int k0 = kt * kBKV;
+    const bool edge = (causal && k0 + kBKV - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kBQ - 1 - window) ||
+                      k0 + kBKV > sk;
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= sm_scale;
+        if (edge) {
+          s[j][e] = masked(s[j][e], row_a + (e >> 1) * 8,
+                           k0 + j * 8 + 2 * t + (e & 1), sk, causal, window);
+        }
+      }
+    }
+
+    // online softmax over the tile; rows a (e = 0, 1) and a + 8 (e = 2, 3)
+    float m_new[2], corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kMaskFill;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      m_new[h] = fmaxf(m_run[h], mx);
+      corr[h] = expf(m_run[h] - m_new[h]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_new[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l_run[h] = l_run[h] * corr[h] + sum[h];
+      m_run[h] = m_new[h];
+    }
+#pragma unroll
+    for (int j = 0; j < kDTiles; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    // acc += p_hi v + p_lo v; p's accumulator layout is the A operand's
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // a0: s[2kk][0:2], a1: s[2kk][2:4], a2: s[2kk+1][0:2], a3: ...[2:4]
+        const float p0 = s[2 * kk + (i >> 1)][(i & 1) * 2];
+        const float p1 = s[2 * kk + (i >> 1)][(i & 1) * 2 + 1];
+        ph[i] = tc::pack_bf16(p0, p1);
+        const __nv_bfloat162 hi =
+            *reinterpret_cast<const __nv_bfloat162*>(&ph[i]);
+        pl[i] = tc::pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
+      }
+#pragma unroll
+      for (int dp = 0; dp < kDTiles / 2; ++dp) {
+        uint32_t b[4];
+        tc::ldmatrix_x4_trans(
+            b, vts + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                   dp * 16 + (lane >> 4) * 8);
+        tc::mma_bf16(acc[2 * dp], ph, b[0], b[1]);
+        tc::mma_bf16(acc[2 * dp], pl, b[0], b[1]);
+        tc::mma_bf16(acc[2 * dp + 1], ph, b[2], b[3]);
+        tc::mma_bf16(acc[2 * dp + 1], pl, b[2], b[3]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_a + h * 8;
+    if (row < sq) {
+      const float inv = 1.0f / fmaxf(l_run[h], 1e-30f);
+      bf16* orow = o + (bh * (size_t)sq + row) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kDTiles; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+            __floats2bfloat162_rn(acc[j][2 * h] * inv,
+                                  acc[j][2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;
+
+// rows x D elements of a (nrows, D) f32 matrix into shared memory (ld_s),
+// times `mul`, zero past nrows.
+template <int D>
+__device__ void load_rows(float* dst, int ld_s, const float* src, int row0,
                           int nrows, float mul) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecs = D / kVec;
-  for (int idx = threadIdx.x; idx < kBQ * kVecs; idx += kThreads) {
+  constexpr int kVecs = D / 4;
+  for (int idx = threadIdx.x; idx < kBQ * kVecs; idx += kF32Threads) {
     const int r = idx / kVecs;
-    const int c = (idx % kVecs) * kVec;
+    const int c = (idx % kVecs) * 4;
     float* d = dst + r * ld_s + c;
     if (row0 + r < nrows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
+      const float4 e = *reinterpret_cast<const float4*>(
           src + (size_t)(row0 + r) * D + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) d[i] = to_f32(e[i]) * mul;
+      d[0] = e.x * mul;
+      d[1] = e.y * mul;
+      d[2] = e.z * mul;
+      d[3] = e.w * mul;
     } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) d[i] = 0.0f;
+      d[0] = d[1] = d[2] = d[3] = 0.0f;
     }
   }
 }
 
 template <int D>
-__host__ __device__ constexpr size_t smem_bytes() {
+__host__ __device__ constexpr size_t f32_smem_bytes() {
   // q (BQ x D+1), k (BKV x D+1), v (BKV x D), p (BQ x BKV+1), all f32
   return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)kBKV * (D + 1) +
                           (size_t)kBKV * D + (size_t)kBQ * (kBKV + 1));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int sq,
-                     int sk, int causal, int window, float sm_scale) {
-  extern __shared__ __align__(16) float smem[];
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int sq, int sk, int causal, int window,
+                         float sm_scale) {
+  extern __shared__ __align__(16) float smem_f[];
   constexpr int kLdQ = D + 1, kLdK = D + 1, kLdV = D, kLdP = kBKV + 1;
   constexpr int kCols = D / 16;  // output columns per thread
-  float* qs = smem;
+  float* qs = smem_f;
   float* ks = qs + kBQ * kLdQ;
   float* vs = ks + kBKV * kLdK;
   float* ps = vs + kBKV * kLdV;
@@ -103,11 +369,11 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * kBQ;
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * (size_t)sq * D;
-  const T* kb = k + bh * (size_t)sk * D;
-  const T* vb = v + bh * (size_t)sk * D;
+  const float* qb = q + bh * (size_t)sq * D;
+  const float* kb = k + bh * (size_t)sk * D;
+  const float* vb = v + bh * (size_t)sk * D;
 
-  load_rows<T, D>(qs, kLdQ, qb, q0, sq, sm_scale);
+  load_rows<D>(qs, kLdQ, qb, q0, sq, sm_scale);
 
   float m_run[4], l_run[4], acc[4][kCols];
 #pragma unroll
@@ -118,16 +384,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
   }
 
-  int kt_end = (sk + kBKV - 1) / kBKV;
-  int kt_begin = 0;
-  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBKV + 1);
-  if (window > 0) kt_begin = max(0, q0 - window + 1) / kBKV;
+  int kt_begin, kt_end;
+  key_tiles(q0, sk, causal, window, kt_begin, kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBKV;
     __syncthreads();  // the previous tile's k, v and p are consumed
-    load_rows<T, D>(ks, kLdK, kb, k0, sk, 1.0f);
-    load_rows<T, D>(vs, kLdV, vb, k0, sk, 1.0f);
+    load_rows<D>(ks, kLdK, kb, k0, sk, 1.0f);
+    load_rows<D>(vs, kLdV, vb, k0, sk, 1.0f);
     __syncthreads();
 
     float s[4][4];
@@ -156,14 +420,8 @@ __global__ void __launch_bounds__(kThreads)
       float mx = kMaskFill;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool ok = true;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
-        float sv = ok ? s[i][j] : kMaskFill;
-        if (kp >= sk) sv = -INFINITY;
-        s[i][j] = sv;
-        mx = fmaxf(mx, sv);
+        s[i][j] = masked(s[i][j], qp, k0 + tx + 16 * j, sk, causal, window);
+        mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -206,9 +464,9 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty + 16 * i;
     if (row < sq) {
       const float inv = 1.0f / fmaxf(l_run[i], 1e-30f);
-      T* orow = o + (bh * (size_t)sq + row) * D;
+      float* orow = o + (bh * (size_t)sq + row) * D;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) store(orow + tx + 16 * j, acc[i][j] * inv);
+      for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
     }
   }
 }
@@ -217,17 +475,32 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int sk, int causal, int window, float sm_scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int,
+                 float);
+  size_t smem;
+  int threads;
+  if constexpr (std::is_same_v<T, bf16>) {
+    kernel = flash_fwd_bf16_kernel<D>;
+    smem = bf16_smem_bytes<D>();
+    threads = kBf16Threads;
+  } else {
+    kernel = flash_fwd_f32_kernel<D>;
+    smem = f32_smem_bytes<D>();
+    threads = kF32Threads;
   }
+  // once per instantiation, so no launch inside a CUDA graph capture sets a
+  // function attribute
+  static const cudaError_t attr =
+      smem > 48 * 1024
+          ? cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem)
+          : cudaSuccess;
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  kernel<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k,
-                                           (const T*)v, (T*)o, sq, sk, causal,
-                                           window, sm_scale);
+  kernel<<<grid, threads, smem, stream>>>((const T*)q, (const T*)k,
+                                          (const T*)v, (T*)o, sq, sk, causal,
+                                          window, sm_scale);
   return (int)cudaGetLastError();
 }
 

@@ -151,6 +151,52 @@ def test_k2_matches_plain(cuda, m, k, n, r, dtype):
                                **K2_TOL[dtype])
 
 
+# The edges of K2's bf16 tiles: decode (M <= 64, 64-column blocks, K split
+# over a cluster) and prefill (128 x 256 tiles, BK 64); K and N not
+# multiples of a tile, N 4100 with a ragged row pitch (no 16-byte copies),
+# N 4104 with whole 16-byte chunks; r 8, 16 and 64.
+@pytest.mark.parametrize("kn", [(4104, 4100), (4104, 4104)])
+@pytest.mark.parametrize("r", [8, 16, 64])
+@pytest.mark.parametrize("m", [1, 8, 17, 64, 65, 200])
+def test_k2_bf16_tile_edges(cuda, m, r, kn):
+    k, n = kn
+    x, w, a, b = (t.to(cuda) for t in _lora_inputs(m, k, n, r,
+                                                   torch.bfloat16, m + r))
+    before = lora_matmul.launches
+    y = lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert lora_matmul.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    torch.testing.assert_close(y.float(), lora_matmul_ref(x, w, a, b,
+                                                          2.0).float(),
+                               **K2_TOL[torch.bfloat16])
+
+
+# (M, K, N) of K2 on the three serving paths: llama2-7b's q / v, mamba2-370m's
+# and zamba2-2.7b's wx, each at prefill and at decode (M = 8)
+K2_SERVING = [(8192, 4096, 4096), (8, 4096, 4096), (16384, 1024, 2048),
+              (8, 1024, 2048), (8192, 2560, 5120), (8, 2560, 5120)]
+
+
+@pytest.mark.parametrize("m,k,n", K2_SERVING)
+def test_k2_bf16_serving_shapes(cuda, m, k, n):
+    x, w, a, b = (t.to(cuda) for t in _lora_inputs(m, k, n, 16,
+                                                   torch.bfloat16, n))
+    y = lora_matmul(x, w, a, b, 2.0)
+    torch.testing.assert_close(y.float(), lora_matmul_ref(x, w, a, b,
+                                                          2.0).float(),
+                               **K2_TOL[torch.bfloat16])
+
+
+def test_k2_decode_is_deterministic(cuda):
+    """The decode path splits K over a cluster and adds the partial sums in
+    a fixed order: two runs give the same bits."""
+    x, w, a, b = (t.to(cuda) for t in _lora_inputs(8, 4096, 4096, 16,
+                                                   torch.bfloat16, 3))
+    assert torch.equal(lora_matmul(x, w, a, b, 2.0),
+                       lora_matmul(x, w, a, b, 2.0))
+
+
 def test_k2_rejects_what_it_does_not_take(cuda):
     x, w, a, b = (t.to(cuda) for t in _lora_inputs(16, 32, 32, 8,
                                                    torch.float32, 0))
@@ -200,6 +246,27 @@ def test_k3_matches_plain(cuda, bh, sq, sk, d, dtype, causal, window):
                                window=window)[0]
     assert o.dtype == dtype and o.shape == q.shape
     torch.testing.assert_close(o.float(), want.float(), **K3_TOL[dtype])
+
+
+# The edges of K3's bf16 tiles (64 query rows, 64 keys): S around the
+# tile, Sq = Sk and Sq < Sk, each head dim, causal, with and without a
+# window.
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("extra", [0, 50])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 200])
+def test_k3_bf16_tile_edges(cuda, s, extra, d, window):
+    q, k, v = (t.to(cuda) for t in _qkv(2, s, s + extra, d, torch.bfloat16,
+                                        s * d + extra))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q[None], k[None], v[None], causal=True,
+                               window=window)[0]
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    torch.testing.assert_close(o.float(), want.float(),
+                               **K3_TOL[torch.bfloat16])
 
 
 def test_k3_rejects_what_it_does_not_take(cuda):

@@ -151,16 +151,21 @@ def test_k4_module_imports_without_nvcc(tmp_path):
 
 def test_kernel_libraries_named_by_source_hash():
     """One build helper serves K1-K4: each library sits in build/repro_torch/
-    under its source's stem and the hash of its bytes."""
+    under its source's stem and the hash of its bytes and of the shared
+    headers (K2 and K3 include csrc/tensor_core.cuh)."""
     import hashlib
 
     from repro_torch.kernels import build, flash_attention, lora_matmul
     from repro_torch.kernels import ssd_scan, window_dp
 
+    headers = sorted(build.CSRC.glob("*.cuh"))
+    assert build.CSRC / "tensor_core.cuh" in headers
     paths = set()
     for mod in (window_dp, lora_matmul, flash_attention, ssd_scan):
         path = build.library_path(mod.SOURCE)
         digest = hashlib.sha256((build.CSRC / mod.SOURCE).read_bytes())
+        for header in headers:
+            digest.update(header.read_bytes())
         assert path.parent == build.BUILD_DIR
         assert path.parent.parts[-2:] == ("build", "repro_torch")
         assert path.name == (f"{mod.SOURCE[:-3]}_"
