@@ -1,6 +1,7 @@
 // Warp-level tensor-core and asynchronous-copy helpers shared by K2
-// (lora_matmul.cu) and K3 (flash_attention.cu): cp.async 16-byte copies
-// into shared memory, ldmatrix, and mma.sync m16n8k16 bf16 -> f32.
+// (lora_matmul.cu), K3 (flash_attention.cu) and K4 (ssd_scan.cu): cp.async
+// 16-byte copies into shared memory, ldmatrix, movmatrix, and mma.sync
+// m16n8k16 bf16 -> f32.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 // - A (16 x 16, row-major), 4 registers of two bf16: a0 (row g, cols 2t,
@@ -80,6 +81,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the transpose of an 8 x 8 bf16 matrix held one row pair a lane (row
+// lane / 4, cols 2 (lane % 4), +1), in the same layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // two floats as one register of two bf16 (lo in the low half), each rounded

@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.lora_matmul import lora_matmul as _lora
-from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
+from repro_torch.kernels.ssd_scan import ssd_scan_grouped as _ssd
 
 
 @dataclass(frozen=True)
@@ -70,28 +70,19 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 def ssd(x, dt, A, B, C, *, kcfg: KernelConfig = DEFAULT):
     """Grouped-head SSD: x (B, S, H, P), dt (B, S, H) f32, A (H,) f32,
-    B / C (B, S, G, N). Returns (y (B, S, H, P) in x's dtype, state
-    (B, H, N, P) f32).
+    B / C (B, S, G, N). Returns (y (B, S, H, P) contiguous in x's dtype,
+    state (B, H, N, P) f32).
 
-    B and C are repeated from groups to heads and every operand is
-    flattened to (B*H, ...) copies, as the reference does. The reference's
-    ``chunk`` argument is the TPU kernel's tile: K4 picks its own and the
-    plain version is step by step, so there is none here."""
-    bsz, s, hh, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    rep = hh // g
-    # named so that a profiler trace shows what these copies cost
+    With ``kcfg.use_cuda`` K4 reads x, B and C where they lie (strided
+    views, B and C per group) and writes y in place: nothing is copied.
+    Otherwise the plain version repeats B and C from groups to heads and
+    flattens every operand to (B*H, ...) copies, as the reference does. The
+    reference's ``chunk`` argument is the TPU kernel's tile: K4 picks its
+    own and the plain version is step by step, so there is none here."""
+    # named so that a profiler trace shows what preparation costs (dt and
+    # A arrive in f32: no copy)
     with torch.profiler.record_function(SSD_COPIES):
-        if rep > 1:
-            B = B.repeat_interleave(rep, dim=2)
-            C = C.repeat_interleave(rep, dim=2)
-        xf = x.transpose(1, 2).reshape(bsz * hh, s, p).contiguous()
-        dtf = dt.transpose(1, 2).reshape(bsz * hh, s).contiguous()
-        Af = A.repeat(bsz).contiguous()
-        Bf = B.transpose(1, 2).reshape(bsz * hh, s, n).contiguous()
-        Cf = C.transpose(1, 2).reshape(bsz * hh, s, n).contiguous()
+        dt, A = dt.float(), A.float()
     if kcfg.use_cuda:
-        y, hf = _ssd(xf, dtf, Af, Bf, Cf)
-    else:
-        y, hf = ref.ssd_scan_ref(xf, dtf, Af, Bf, Cf)
-    return y.reshape(bsz, hh, s, p).transpose(1, 2), hf.reshape(bsz, hh, n, p)
+        return _ssd(x, dt, A, B, C)
+    return ref.ssd_scan_grouped_ref(x, dt, A, B, C)

@@ -114,3 +114,24 @@ def ssd_scan_ref(x, dt, A, B, C):
         h = decay * h + dtf[:, t, None, None] * outer
         ys[:, t] = torch.bmm(Cf[:, t, None, :], h)[:, 0]
     return ys.to(x.dtype), h
+
+
+def ssd_scan_grouped_ref(x, dt, A, B, C):
+    """:func:`ssd_scan_ref` on the model's layout: x (Bt, S, H, P), dt
+    (Bt, S, H), A (H,), B and C (Bt, S, G, N), head h reading group
+    h // (H / G). B and C are repeated from groups to heads and every
+    operand is flattened to (Bt*H, ...) copies. Returns (y (Bt, S, H, P)
+    contiguous in x's dtype, h_final (Bt, H, N, P) f32)."""
+    bt, s, hh, p = x.shape
+    n = B.shape[3]
+    rep = hh // B.shape[2]
+    if rep > 1:
+        B = B.repeat_interleave(rep, dim=2)
+        C = C.repeat_interleave(rep, dim=2)
+    y, h = ssd_scan_ref(
+        x.transpose(1, 2).reshape(bt * hh, s, p),
+        dt.transpose(1, 2).reshape(bt * hh, s), A.repeat(bt),
+        B.transpose(1, 2).reshape(bt * hh, s, n),
+        C.transpose(1, 2).reshape(bt * hh, s, n))
+    return (y.reshape(bt, hh, s, p).transpose(1, 2).contiguous(),
+            h.reshape(bt, hh, n, p))

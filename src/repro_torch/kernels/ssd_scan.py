@@ -2,16 +2,24 @@
 
 Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py:_kernel``. The
 source is ``csrc/ssd_scan.cu`` (design and bound in its header), built and
-loaded by :mod:`repro_torch.kernels.build`. Layout as the TPU kernel's:
-x (BH, S, P), dt (BH, S), A (BH,), B and C (BH, S, N), heads folded into
-the batch. The kernel picks its own chunk length (64 steps); a ragged S is
-masked inside the kernel.
+loaded by :mod:`repro_torch.kernels.build`. Two entry points launch the
+same kernel:
 
-:func:`ssd_scan` launches the kernel for CUDA tensors and runs the plain
-version (:func:`repro_torch.kernels.ref.ssd_scan_ref`, step by step) for CPU
-tensors. There is no fallback: on a CUDA tensor a missing compiler, a failed
-build or a failed launch raises. ``ssd_scan.launches`` counts kernel
-launches.
+- :func:`ssd_scan_grouped`, the model's layout: x (Bt, S, H, P), dt
+  (Bt, S, H), A (H,), B and C (Bt, S, G, N), each read where it lies
+  through its strides (the Mamba2 layer's x, B and C are views of one conv
+  output), head h reading group ``h // (H / G)``; y comes back as a
+  contiguous (Bt, S, H, P), h_final as (Bt, H, N, P) f32.
+- :func:`ssd_scan`, the TPU kernel's flattened layout: x (BH, S, P), dt
+  (BH, S), A (BH,), B and C (BH, S, N), contiguous; the case Bt = BH,
+  H = G = 1.
+
+The kernel picks its own chunk length (64 steps); a ragged S is masked
+inside the kernel. CPU tensors run the plain version
+(:mod:`repro_torch.kernels.ref`, step by step). There is no fallback: on a
+CUDA tensor a missing compiler, a failed build, a layout the kernel does
+not take or a failed launch raises. ``ssd_scan.launches`` counts kernel
+launches of both entry points.
 """
 from __future__ import annotations
 
@@ -20,17 +28,24 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import ssd_scan_grouped_ref, ssd_scan_ref
 
 SOURCE = "ssd_scan.cu"
 HEAD_DIMS = (32, 64)
 MAX_STATE = 128
+ALIGN = 8           # x, B and C strides and offsets, in elements
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "ssd_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                        ctypes.c_int),
+    "ssd_scan_launch": ([_P, _L, _L, _L,          # x and its strides
+                         _P, _L, _L, _L,          # dt
+                         _P, _L, _L,              # A (batch, head)
+                         _P, _L, _L, _L,          # B
+                         _P, _L, _L, _L,          # C
+                         _P, _P,                  # y, h_final
+                         _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
 }
 
 
@@ -45,55 +60,133 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, _SIGNATURES)
 
 
-def _check(x, dt, A, B, C):
-    ts = (x, dt, A, B, C)
+def _check_devices_and_dtypes(name, ts):
+    x, dt, A, B, C = ts
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError("ssd_scan takes all tensors on one CUDA device, got "
+        raise ValueError(f"{name} takes all tensors on one CUDA device, got "
                          f"{[str(t.device) for t in ts]}")
     if (x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype
             or dt.dtype != torch.float32 or A.dtype != torch.float32):
-        raise TypeError("ssd_scan takes x, B, C of one dtype, float32 or "
+        raise TypeError(f"{name} takes x, B, C of one dtype, float32 or "
                         "bfloat16, and dt, A in float32, got "
                         f"{[t.dtype for t in ts]}")
+
+
+def check_layout(x, dt, A, B, C) -> None:
+    """Raise ValueError unless K4 takes this grouped layout: x (Bt, S, H,
+    P), dt (Bt, S, H), A (H,), B and C (Bt, S, G, N) with P in HEAD_DIMS,
+    N in [1, MAX_STATE], H a multiple of G, and x, B and C each with a
+    contiguous last dimension and strides and offset multiples of ALIGN
+    elements (rows are copied 16 bytes at a time). Any device, meta too."""
+    shapes = [tuple(t.shape) for t in (x, dt, A, B, C)]
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError("ssd_scan_grouped takes x (Bt, S, H, P), dt "
+                         "(Bt, S, H), A (H,), B and C (Bt, S, G, N), got "
+                         f"{shapes}")
+    bt, s, hh, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if (tuple(dt.shape) != (bt, s, hh) or tuple(A.shape) != (hh,)
+            or tuple(B.shape[:2]) != (bt, s) or C.shape != B.shape):
+        raise ValueError(f"ssd_scan_grouped shapes do not match: {shapes}")
+    if p not in HEAD_DIMS or not 1 <= n <= MAX_STATE:
+        raise ValueError(f"ssd_scan takes head_dim P in {HEAD_DIMS} and "
+                         f"state N in [1, {MAX_STATE}], got P={p}, N={n}")
+    if g < 1 or hh % g:
+        raise ValueError(f"ssd_scan_grouped takes H a multiple of G, got "
+                         f"H={hh}, G={g}")
+    _check_rows(x, B, C)
+
+
+def _check_rows(x, B, C):
+    """x's, B's and C's rows: a contiguous last dimension, strides and
+    offset multiples of ALIGN elements."""
+    for name, t in (("x", x), ("B", B), ("C", C)):
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"ssd_scan takes {name} with a "
+                             f"contiguous last dimension, got strides "
+                             f"{t.stride()}")
+        strides = [st for st, sz in zip(t.stride()[:-1], t.shape[:-1])
+                   if sz > 1]
+        if t.storage_offset() % ALIGN or any(st % ALIGN for st in strides):
+            raise ValueError(f"ssd_scan takes {name} with strides "
+                             f"and offset multiples of {ALIGN} elements, got "
+                             f"strides {t.stride()}, offset "
+                             f"{t.storage_offset()}")
+
+
+def _check_flat(x, dt, A, B, C):
+    ts = (x, dt, A, B, C)
+    _check_devices_and_dtypes("ssd_scan", ts)
+    shapes = [tuple(t.shape) for t in ts]
     if x.dim() != 3 or B.dim() != 3:
         raise ValueError("ssd_scan takes x (BH, S, P), dt (BH, S), A (BH,), "
-                         f"B and C (BH, S, N), got {[tuple(t.shape) for t in ts]}")
+                         f"B and C (BH, S, N), got {shapes}")
     bh, s, p = x.shape
     n = B.shape[2]
     if (tuple(dt.shape) != (bh, s) or tuple(A.shape) != (bh,)
             or tuple(B.shape) != (bh, s, n) or C.shape != B.shape):
-        raise ValueError("ssd_scan shapes do not match: "
-                         f"{[tuple(t.shape) for t in ts]}")
+        raise ValueError(f"ssd_scan shapes do not match: {shapes}")
     if p not in HEAD_DIMS or not 1 <= n <= MAX_STATE:
         raise ValueError(f"ssd_scan takes head_dim P in {HEAD_DIMS} and "
                          f"state N in [1, {MAX_STATE}], got P={p}, N={n}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("ssd_scan takes contiguous tensors")
+    _check_rows(x, B, C)
+
+
+def _strides3(t):
+    """The first three element strides of t, 0 where the size is 1."""
+    return [st if sz > 1 else 0 for st, sz in zip(t.stride()[:3], t.shape)]
+
+
+def _launch(x, dt, A, a_strides, B, C):
+    """K4 on the grouped layout (checked by the caller); A's element
+    strides over (batch, head) are given."""
+    lib = load_library()
+    bt, s, hh, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if x.data_ptr() % 16 or B.data_ptr() % 16 or C.data_ptr() % 16:
+        raise ValueError("ssd_scan takes x, B and C 16-byte aligned")
+    y = torch.empty((bt, s, hh, p), dtype=x.dtype, device=x.device)
+    hfin = torch.empty((bt, hh, n, p), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.ssd_scan_launch(
+            x.data_ptr(), *_strides3(x), dt.data_ptr(), *_strides3(dt),
+            A.data_ptr(), *a_strides, B.data_ptr(), *_strides3(B),
+            C.data_ptr(), *_strides3(C), y.data_ptr(), hfin.data_ptr(), bt,
+            s, hh, g, p, n, _DTYPES[x.dtype], stream)
+    _build.check(lib, SOURCE, rc, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, hfin
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor):
-    """Returns (y (BH, S, P) in x's dtype, h_final (BH, N, P) f32). CUDA
-    tensors launch K4 on the current stream; CPU tensors run the plain
-    version."""
+    """Flattened layout. Returns (y (BH, S, P) in x's dtype, h_final
+    (BH, N, P) f32). CUDA tensors launch K4 on the current stream; CPU
+    tensors run the plain version."""
     if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
         return ssd_scan_ref(x, dt, A, B, C)
-    _check(x, dt, A, B, C)
-    lib = load_library()
+    _check_flat(x, dt, A, B, C)
     bh, s, p = x.shape
     n = B.shape[2]
-    y = torch.empty_like(x)
-    hfin = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), hfin.data_ptr(), bh, s, p, n,
-            _DTYPES[x.dtype], stream)
-    _build.check(lib, SOURCE, rc, "ssd_scan")
-    ssd_scan.launches += 1
-    return y, hfin
+    y, hfin = _launch(x[:, :, None], dt[:, :, None], A, (1, 0),
+                      B[:, :, None], C[:, :, None])
+    return y.reshape(bh, s, p), hfin.reshape(bh, n, p)
+
+
+def ssd_scan_grouped(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor):
+    """The model's layout, read in place. Returns (y (Bt, S, H, P)
+    contiguous in x's dtype, h_final (Bt, H, N, P) f32). CUDA tensors
+    launch K4 on the current stream; CPU tensors run the plain version."""
+    if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
+        return ssd_scan_grouped_ref(x, dt, A, B, C)
+    _check_devices_and_dtypes("ssd_scan_grouped", (x, dt, A, B, C))
+    check_layout(x, dt, A, B, C)
+    return _launch(x, dt, A, (0, A.stride(0)), B, C)
 
 
 ssd_scan.launches = 0

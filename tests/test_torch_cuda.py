@@ -15,8 +15,9 @@ from repro_torch.core.policy_pool import (baseline_specs, paper_pool,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lora_matmul import lora_matmul
 from repro_torch.kernels.ref import (flash_attention_ref, lora_matmul_ref,
-                                     ssd_scan_ref, window_dp_ref)
-from repro_torch.kernels.ssd_scan import ssd_scan
+                                     ssd_scan_grouped_ref, ssd_scan_ref,
+                                     window_dp_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_grouped
 from repro_torch.kernels.window_dp import window_dp
 from repro_torch.workload import PAPER_TPUT, job_stream_arrays, paper_market
 
@@ -344,6 +345,122 @@ def test_k4_rejects_what_it_does_not_take(cuda):
         ssd_scan(x, dt, a, big, big)
     with pytest.raises(ValueError, match="one CUDA device"):
         ssd_scan(x, dt.cpu(), a, b, c)
+
+
+def _xbc_inputs(dev, bt, s, hh, p, g, n, dtype, seed, width=None):
+    """x (bt, s, hh, p), B and C (bt, s, g, n) as views of one
+    (bt, s, width) buffer on ``dev``, sliced as the Mamba2 layer slices its
+    conv output (width hh p + 2 g n unless given); dt (bt, s, hh), A (hh,).
+    (The buffer is moved before it is sliced: ``.to`` of a view copies it
+    into a dense tensor.)"""
+    rng = np.random.default_rng(seed)
+    di = hh * p
+    width = width or di + 2 * g * n
+    xbc = rng.standard_normal((bt, s, width)).astype(np.float32)
+    xbc[..., di:] *= 0.3
+    xbc = torch.from_numpy(xbc).to(dev, dtype)
+    x = xbc[..., :di].reshape(bt, s, hh, p)
+    B = xbc[..., di:di + g * n].reshape(bt, s, g, n)
+    C = xbc[..., di + g * n:di + 2 * g * n].reshape(bt, s, g, n)
+    dt = torch.tensor(np.log1p(np.exp(rng.standard_normal((bt, s, hh))))
+                      * 0.5, dtype=torch.float32, device=dev)
+    a = torch.tensor(-np.exp(rng.standard_normal(hh)) * 0.5,
+                     dtype=torch.float32, device=dev)
+    return x, dt, a, B, C
+
+
+def _flattened(x, dt, a, B, C):
+    """The same operands as contiguous (Bt*H, ...) copies, B and C repeated
+    to heads."""
+    bt, s, hh, p = x.shape
+    rep = hh // B.shape[2]
+    B, C = (t.repeat_interleave(rep, dim=2) for t in (B, C))
+    flat = (lambda t: t.transpose(1, 2).reshape(bt * hh, s, -1).contiguous())
+    return (flat(x), dt.transpose(1, 2).reshape(bt * hh, s).contiguous(),
+            a.repeat(bt), flat(B), flat(C))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 2049])
+@pytest.mark.parametrize("n,p,g", [(16, 32, 2), (64, 64, 1), (128, 64, 2),
+                                   (128, 32, 1)])
+def test_k4_grouped_matches_plain_and_flattened(cuda, s, n, p, g, dtype):
+    """The model's layout read in place (strided views, B and C per group)
+    against the plain version, and bit-equal to the flattened entry on
+    contiguous copies with B and C repeated to heads: S at the 64-step chunk
+    edges, N, P and G over the kernel's range."""
+    ins = _xbc_inputs(cuda, 2, s, 4, p, g, n, dtype, s * n + p + g)
+    assert not ins[0].is_contiguous() and not ins[3].is_contiguous()
+    before = ssd_scan.launches
+    y, h = ssd_scan_grouped(*ins)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == (2, s, 4, p) and y.is_contiguous()
+    assert h.dtype == torch.float32 and h.shape == (2, 4, n, p)
+    want_y, want_h = ssd_scan_grouped_ref(*ins)
+    torch.testing.assert_close(y.float(), want_y.float(), **K4_TOL[dtype])
+    torch.testing.assert_close(h, want_h, **K4_TOL[torch.float32])
+    yf, hf = ssd_scan(*_flattened(*ins))
+    assert torch.equal(yf.reshape(2, 4, s, p).transpose(1, 2), y)
+    assert torch.equal(hf.reshape(2, 4, n, p), h)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_k4_grouped_serving_layout_smoke_size(cuda, arch):
+    """ops.ssd on the layer's own views at the smoke configs' widths (d 256,
+    d_inner 512, N 16, P 32: rows of 544 elements), bf16, against the plain
+    path of ops.ssd."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+
+    cfg = get_smoke_config(arch)
+    sc = cfg.ssm
+    hh, p, g, n = (sc.heads(cfg.d_model), sc.head_dim, sc.n_groups,
+                   sc.state_size)
+    ins = _xbc_inputs(cuda, 3, 300, hh, p, g, n, torch.bfloat16, 5)
+    assert ins[0].stride(1) == 544
+    y, h = ops.ssd(*ins)
+    want_y, want_h = ops.ssd(*ins, kcfg=ops.KernelConfig(use_cuda=False))
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               **K4_TOL[torch.bfloat16])
+    torch.testing.assert_close(h, want_h, **K4_TOL[torch.float32])
+
+
+def test_k4_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits (no atomics, a
+    fixed order of sums)."""
+    ins = _xbc_inputs(cuda, 2, 700, 8, 64, 1, 128, torch.bfloat16, 9)
+    y1, h1 = ssd_scan_grouped(*ins)
+    y2, h2 = ssd_scan_grouped(*ins)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_k4_grouped_rejects_what_it_does_not_take(cuda):
+    x, dt, a, b, c = _xbc_inputs(cuda, 2, 64, 4, 32, 2, 16, torch.bfloat16,
+                                 0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        # rows of 196 elements: a stride that is not a multiple of 8
+        ssd_scan_grouped(*_xbc_inputs(cuda, 2, 64, 4, 32, 2, 16,
+                                      torch.bfloat16, 0, width=196))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        buf = torch.zeros((2, 64, 2 * 16 + 4), dtype=torch.bfloat16,
+                          device=cuda)
+        ssd_scan_grouped(x, dt, a, buf[..., 4:].reshape(2, 64, 2, 16), c)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        ssd_scan_grouped(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, a, b, c)
+    with pytest.raises(ValueError, match="H a multiple of G"):
+        ssd_scan_grouped(x[:, :, :3], dt[:, :, :3], a[:3], b, c)
+    with pytest.raises(ValueError, match="state N"):
+        big = torch.zeros((2, 64, 2, 136), dtype=torch.bfloat16, device=cuda)
+        ssd_scan_grouped(x, dt, a, big, big)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan_grouped(x.reshape(2, 64, 2, 64)[..., :48], dt[:, :, :2],
+                         a[:2], b, c)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_scan_grouped(x, dt[:, :-1], a, b, c)
+    with pytest.raises(TypeError, match="dt, A in float32"):
+        ssd_scan_grouped(x, dt.bfloat16(), a, b, c)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])

@@ -1,6 +1,8 @@
-"""K3's tensor-core arithmetic, emulated in plain torch on the CPU, against
-the JAX package's flash attention (the Pallas kernel in interpret mode, as
-tests/test_torch_flash_attention.py runs it).
+"""K3's and K4's tensor-core arithmetic, emulated in plain torch on the
+CPU, against the JAX package's flash attention and SSD chunk scan (the
+Pallas kernels in interpret mode, as tests/test_torch_flash_attention.py
+and tests/test_torch_ssd_scan.py run them; K4 also against the step-by-step
+oracle).
 
 The bf16 path of ``csrc/flash_attention.cu`` computes q k^T on the unscaled
 bf16 q and k (exact products, f32 sums), scales the scores in f32, walks
@@ -9,7 +11,11 @@ p_hi + p_lo (p_hi = bf16(p), p_lo = bf16(p - p_hi)). The emulation below
 follows those steps (the kernel's sums run in another order, which is f32
 reassociation only). A second case measures how far the same emulation
 lands with a single bf16 p: the reason for the split, recorded in PERF.md
-(run with ``-s`` to print it). Inputs come from numpy seeds."""
+(run with ``-s`` to print it). K4's bf16 path (``csrc/ssd_scan.cu``) feeds
+its three f32 operands (the masked scores M, the state h for C h, and the
+weighted x of the state update) as hi + lo halves in the same way; its
+second test shows that one bf16 for any of them leaves K4's tolerance.
+Inputs come from numpy seeds."""
 import math
 
 import jax.numpy as jnp
@@ -18,6 +24,8 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.ref import ssd_scan_ref as jssd_ref
+from repro.kernels.ssd_scan import ssd_scan as jssd
 
 torch.set_num_threads(1)
 
@@ -148,3 +156,146 @@ def test_k3_single_bf16_p_is_the_reason_for_the_split():
           f"{rows[False][1]:.3e} ({rows[False][2]} outside)")
     assert rows[True][2] == 0
     assert rows[True][0] * 10 < rows[False][0]
+
+
+# ---------------------------------------------------------------------------
+# K4 (csrc/ssd_scan.cu), bf16 path
+# ---------------------------------------------------------------------------
+
+CHUNK = 64               # K4's chunk length
+# K4's tolerances on the card (tests/test_torch_cuda.py, chip_smoke.py): the
+# f32 state 3e-4, the JAX kernel test's own for chunked against sequential;
+# bf16 y one bf16 ulp (2^-7 relative) besides
+K4_TOL_STATE = dict(rtol=3e-4, atol=3e-4)
+K4_TOL_BF16 = dict(rtol=2.0 ** -7, atol=1e-3)
+K4_OPERANDS = ("M", "h", "wx")
+
+
+def _hi_lo(v, split):
+    """v as the kernel feeds it to the tensor cores: bf16(v) plus, with
+    ``split``, bf16(v - bf16(v)); both returned in f32."""
+    hi = v.bfloat16().float()
+    lo = (v - hi).bfloat16().float() if split else torch.zeros_like(v)
+    return hi, lo
+
+
+def _clip_exp(v):
+    return torch.exp(v.clamp(-60.0, 0.0))
+
+
+def k4_emulated(x, dt, A, B, C, *, single=()):
+    """x (BH, S, P), B, C (BH, S, N) bf16, dt (BH, S), A (BH,) f32 ->
+    (y bf16, y before its rounding f32, h_final f32), with the kernel's
+    bf16-path arithmetic: 64-step chunks, steps past S as dt = 0 steps, f32
+    sums of exact bf16 products, and the three f32 operands M (the masked,
+    decayed scores), h (the incoming state, for C h) and w x (x weighted
+    for the state update) each as hi + lo bf16 halves; an operand named in
+    ``single`` enters as one bf16 instead."""
+    bh, s, p = x.shape
+    n = B.shape[-1]
+    xf, bf, cf = x.float(), B.float(), C.float()
+    h = torch.zeros((bh, n, p))
+    y = torch.empty((bh, s, p))
+    idx = torch.arange(CHUNK)
+    causal = idx[:, None] >= idx[None, :]
+    for t0 in range(0, s, CHUNK):
+        ln = min(CHUNK, s - t0)
+        xc, bc, cc = (torch.zeros((bh, CHUNK, t.shape[-1])) for t in
+                      (xf, bf, cf))
+        d = torch.zeros((bh, CHUNK))
+        for full, part in ((xf, xc), (bf, bc), (cf, cc), (dt, d)):
+            part[:, :ln] = full[:, t0:t0 + ln]
+        cum = torch.cumsum(d * A[:, None], 1)
+        m = torch.where(causal, (cc @ bc.transpose(1, 2))
+                        * _clip_exp(cum[:, :, None] - cum[:, None, :])
+                        * d[:, None, :], torch.zeros(()))
+        h_hi, h_lo = _hi_lo(h, "h" not in single)
+        yc = (cc @ h_hi + cc @ h_lo) * _clip_exp(cum)[..., None]
+        m_hi, m_lo = _hi_lo(m, "M" not in single)
+        y[:, t0:t0 + ln] = (yc + m_hi @ xc + m_lo @ xc)[:, :ln]
+        w = _clip_exp(cum[:, -1:] - cum) * d
+        wx_hi, wx_lo = _hi_lo(xc * w[..., None], "wx" not in single)
+        bt = bc.transpose(1, 2)
+        h = (h * _clip_exp(cum[:, -1])[:, None, None] + bt @ wx_hi
+             + bt @ wx_lo)
+    return y.bfloat16(), y, h
+
+
+def _ssd_inputs(bh, s, p, n, seed):
+    """x ~ N(0, 1), B, C ~ 0.3 N(0, 1) in bf16, dt = softplus(N(0, 1)) / 2,
+    A = -exp(N(0, 1)) / 2 in f32 (numpy; as the JAX kernel test draws)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bh, s, p), np.float32).astype(jnp.bfloat16)
+    dt = (np.log1p(np.exp(rng.standard_normal((bh, s)))) * 0.5).astype(
+        np.float32)
+    A = (-np.exp(rng.standard_normal(bh)) * 0.5).astype(np.float32)
+    B, C = ((rng.standard_normal((bh, s, n)) * 0.3).astype(np.float32)
+            .astype(jnp.bfloat16) for _ in "BC")
+    return x, dt, A, B, C
+
+
+def _k4_torch(ins):
+    x, dt, A, B, C = ins
+    return (_torch(x), torch.from_numpy(dt), torch.from_numpy(A), _torch(B),
+            _torch(C))
+
+
+def _k4_jax(ins, chunk):
+    """The JAX Pallas kernel in interpret mode (chunk given) or, with
+    chunk None, the JAX package's step-by-step oracle."""
+    args = [jnp.asarray(a) for a in ins]
+    y, h = (jssd(*args, chunk=chunk, interpret=True) if chunk
+            else jssd_ref(*args))
+    return (torch.from_numpy(np.asarray(y, np.float32)),
+            torch.from_numpy(np.array(h, np.float32)))
+
+
+K4_SHAPES = [  # (BH, S, P, N): mamba2's P and N, zamba2's N, P 32, ragged
+    (2, 256, 64, 128),
+    (2, 256, 64, 64),
+    (3, 128, 32, 16),
+    (2, 200, 64, 128),
+]
+
+
+@pytest.mark.parametrize("bh,s,p,n", K4_SHAPES)
+def test_k4_split_emulation_matches_jax(bh, s, p, n):
+    """The kernel's bf16 arithmetic (M, h and w x as hi + lo halves) lands
+    within K4's tolerances of the JAX Pallas kernel at its 64-step chunk
+    (where S is a multiple of it) and of the step-by-step oracle."""
+    ins = _ssd_inputs(bh, s, p, n, bh * s + p + n)
+    y, _, h = k4_emulated(*_k4_torch(ins))
+    for chunk in ((CHUNK, None) if s % CHUNK == 0 else (None,)):
+        want_y, want_h = _k4_jax(ins, chunk)
+        torch.testing.assert_close(y.float(), want_y, **K4_TOL_BF16)
+        torch.testing.assert_close(h, want_h, **K4_TOL_STATE)
+
+
+def test_k4_single_bf16_operand_is_the_reason_for_the_split():
+    """Each of the three f32 operands as a single bf16 leaves K4's
+    tolerance against the JAX kernel: w x the state's 3e-4, M and h the
+    bf16 y's one ulp; with all three split nothing does. The printed counts
+    (``-s``) are recorded in PERF.md."""
+    ins = _ssd_inputs(2, 256, 64, 128, 2025)
+    want_y, want_h = _k4_jax(ins, CHUNK)
+    t = _k4_torch(ins)
+
+    def outside(got, want, tol):
+        err = (got - want).abs()
+        return int((err > tol["atol"] + tol["rtol"] * want.abs()).sum())
+
+    rows = {}
+    for single in ((),) + tuple((op,) for op in K4_OPERANDS):
+        y, _, h = k4_emulated(*t, single=single)
+        rows[single] = (outside(y.float(), want_y, K4_TOL_BF16),
+                        outside(h, want_h, K4_TOL_STATE),
+                        float((h - want_h).abs().max()))
+    print("\nK4 emulation at (BH, S, P, N) = (2, 256, 64, 128), bf16, "
+          f"against JAX (y {want_y.numel()} outputs, state "
+          f"{want_h.numel()}): " + "; ".join(
+              f"{'+'.join(k) or 'all split'} single: y {v[0]} outside, state "
+              f"{v[1]} outside (max |err| {v[2]:.2e})"
+              for k, v in rows.items()))
+    assert rows[()][:2] == (0, 0)
+    assert rows[("wx",)][1] > 0
+    assert rows[("M",)][0] > 0 and rows[("h",)][0] > 0
