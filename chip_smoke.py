@@ -11,9 +11,12 @@ window_dp, K2 lora_matmul, K3 flash_attention, K4 ssd_scan), one nvcc for
 sm_90a each, all started together, and then drives four paths on the card:
 
 - the paper's online policy selection (Fig. 9: four noise settings, 1000
-  jobs x ``paper_pool()``) through ``engine.simulate_and_select``, with K1
-  held bit for bit against its plain version, winners checked against the
-  JAX reference and the plain-DP run;
+  jobs x ``paper_pool()``) through ``engine.simulate_and_select``, whose
+  window solve is K1's forecast entry (one launch a market slot, the
+  window's tables built inside it), with both K1 entries held bit for bit
+  against their plain versions (random tables and rows, ties, and every
+  slot's real rows of one setting), winners checked against the JAX
+  reference and the plain-chain run, and one setting traced;
 - dense-model serving: K2 and K3 held against their plain versions, the
   llama2-7b smoke config served greedily and checked token for token against
   the JAX ``ServingEngine``, then llama2-7b at full width and depth (bf16)
@@ -47,10 +50,19 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): device memory
-# rate, f32 rate outside the tensor cores, bf16 dense tensor-core rate
+# rate, bf16 dense tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+
+# K1's bound: an H100 SXM's SMs and f32 lanes a clock an SM; an FADD for
+# every reachable DP candidate and an FMNMX for every one but a unit's
+# first, one issue slot each, at the card's maximum SM clock (nvidia-smi
+# clocks.max.sm, read in the run)
+H100_SMS = 132
+F32_LANES_PER_SM = 128
+# K1's time before its redesign (one launch between CUDA events, random
+# tables at B = 105,000; NVIDIA H100 80GB HBM3, 700 W)
+K1_BEFORE_US = 477.4
 
 SETTINGS = (("magdep_uniform", 0.1), ("fixed_uniform", 0.1),
             ("magdep_heavytail", 0.3), ("fixed_heavytail", 0.3))
@@ -243,6 +255,133 @@ def _compare_k1(name, slot_cost, gain, torch, window_dp, window_dp_ref):
     return err
 
 
+def _tie_tables(b, w1, tn, seed, torch, dev):
+    """DP tables that force ties: integer costs (30% BIG) and integer
+    gains, with half the rows' every k >= 1 priced out."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kw, u1 = tn + 1, w1 * tn + 1
+    cost = rng.integers(0, 4, (b, w1, kw)).astype(np.float32)
+    cost = np.where(rng.random((b, w1, kw)) < 0.3, 1.0e9, cost)
+    cost[: b // 2, :, 1:] = 1.0e9
+    cost[:, :, 0] = 0.0
+    gain = np.cumsum(rng.integers(0, 3, (b, u1)), axis=1).astype(np.float32)
+    return (torch.from_numpy(cost.astype(np.float32)).to(dev),
+            torch.from_numpy(gain).to(dev))
+
+
+def _forecast_rows(b, w1, tn, seed, torch, dev):
+    """Random forecast rows for K1's forecast entry, made with numpy from a
+    seed: prices on a 1/8 grid (ties) and above p_o, slots past the
+    deadline (slots_to_deadline in [-1, w1 + 1]), n_min up to 3, n_max
+    above and below tn, progress past the workload. Returns (job, z0,
+    slots_to_deadline, prices, avail) on ``dev``."""
+    import numpy as np
+
+    from repro_torch.configs.base import JobConfig
+
+    rng = np.random.default_rng(seed)
+    cols = {
+        "workload": rng.uniform(5.0, 150.0, b).astype(np.float32),
+        "deadline": rng.integers(2, 12, b).astype(np.int32),
+        "n_min": rng.integers(1, 4, b).astype(np.int32),
+        "n_max": rng.integers(2, tn + 3, b).astype(np.int32),
+        "value": rng.uniform(10.0, 300.0, b).astype(np.float32),
+        "gamma": rng.uniform(1.1, 3.0, b).astype(np.float32),
+        "on_demand_price": rng.choice(
+            np.array([1.0, 0.875, 1.3], np.float32), b),
+    }
+    prices = np.round(rng.uniform(0.05, 1.6, (b, w1)) * 8) / 8
+    arrays = (rng.uniform(0, 1.2 * cols["workload"]).astype(np.float32),
+              rng.integers(-1, w1 + 2, b).astype(np.int32),
+              prices.astype(np.float32),
+              rng.integers(0, tn + 3, (b, w1)).astype(np.int32))
+    job = JobConfig(**{f: torch.from_numpy(v).to(dev)
+                       for f, v in cols.items()})
+    return (job,) + tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def _compare_k1_rows(name, rows, tput, tn, torch, k1, window_dp_rows_ref):
+    """K1's forecast entry against its plain chain (table, DP, split,
+    un-bias) on the same card tensors: n_o, n_s and obj bit-equal."""
+    launches = (k1.window_dp.launches, k1.window_dp_rows.launches)
+    got = k1.window_dp_rows(*rows[:1], tput, *rows[1:], tn)
+    torch.cuda.synchronize()
+    # comparison launches do not count
+    k1.window_dp.launches, k1.window_dp_rows.launches = launches
+    want = window_dp_rows_ref(*rows[:1], tput, *rows[1:], tn)
+    torch.cuda.synchronize()
+    for what, g, w in zip(("n_o", "n_s", "obj"), got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            bad = int((g != w).reshape(g.shape[0], -1).any(dim=1).sum())
+            _fail(f"K1 forecast entry {what} differs from the plain chain "
+                  f"on {name}: {bad} rows")
+    b, w1 = rows[3].shape
+    print(f"[k1] forecast entry, {name}: B={b} w1={w1} tn={tn} n_o, n_s, "
+          "obj bit-equal")
+
+
+def _max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0].split()[0])
+
+
+def _k1_bound(b, w1, tn, row_bytes, clock_mhz):
+    """(bound ms, bytes ms, operations ms, candidates, instructions) of one
+    K1 launch: the reachable candidates, (tn + 1) x (tau tn + 1) a slot
+    (costs >= 0: no unit above tau tn holds a state below BIG before slot
+    tau), each an FADD, and an FMNMX for each but the first of every
+    reachable unit ((tau + 1) tn + 1 a slot), over the f32 lanes' issue
+    rate; the bytes each row reads and writes once over HBM_BYTES_PER_S."""
+    cand = b * sum((tn + 1) * (tau * tn + 1) for tau in range(w1))
+    units = b * sum((tau + 1) * tn + 1 for tau in range(w1))
+    instr = 2 * cand - units
+    rate = H100_SMS * F32_LANES_PER_SM * clock_mhz * 1e6
+    o_ms = instr / rate * 1e3
+    b_ms = b * row_bytes / HBM_BYTES_PER_S * 1e3
+    return max(b_ms, o_ms), b_ms, o_ms, cand, instr
+
+
+def _k1_sass(lib_path):
+    """Instruction counts of K1's (w1, tn) = (6, 16) strip kernels in the
+    built library's SASS (cuobjdump): FMNMX, FADD, shared-memory loads and
+    stores, and local-memory loads and stores (LDL / STL: a spill or a
+    dynamically indexed array). Static counts: each strip variant's code
+    appears once."""
+    import shutil
+
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        found = shutil.which("cuobjdump")
+        if found is None:
+            return None
+        tool = Path(found)
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            continue
+        if name is None or "window_dp_strips" not in name:
+            continue
+        c = counts.setdefault(name, {"FMNMX": 0, "FADD": 0, "LDL/STL": 0,
+                                     "LDS": 0, "STS": 0})
+        # "/*0040*/  @P0 FMNMX R3, R4, R5, !PT ;  /* 0x... */"
+        words = line.split("*/", 1)[1].split() if "*/" in line else []
+        op = next((w for w in words if not w.startswith("@")), "")
+        for key in ("FMNMX", "FADD", "LDS", "STS"):
+            if op.startswith(key):
+                c[key] += 1
+        if op.startswith(("LDL", "STL")):
+            c["LDL/STL"] += 1
+    return counts
+
+
 def _event_ms(torch, fn, reps: int) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timings."""
     times = []
@@ -285,6 +424,141 @@ def _graph_ms(torch, fn, reps: int = TIME_REPS, rounds: int = 5) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / reps)
     return statistics.median(times)
+
+
+def _phase_time_k1(torch, k1, tput, window_dp_ref, window_dp_rows_ref,
+                   big_c, big_g, big_rows, captured, clock):
+    """K1's two entries at B = B_MAIN, (W1, TN): 25 launches in one CUDA
+    graph (``_graph_ms``: device time alone) and CUDA events around single
+    launches (``event_ms``: also the host's enqueue and the wrapper's
+    checks), on the random tables / rows and on each real slot's; the plain
+    versions by events. The table entry's real tables are built from the
+    real rows in torch ops. Timing launches do not count. Returns
+    {"table": row, "forecast": row}."""
+    from repro_torch.core.window_opt import _unit_cost_table
+
+    real_tables = []
+    for job, *rows in captured:
+        c, _, g = _unit_cost_table(job, tput, *rows, job.on_demand_price, TN)
+        real_tables.append((c, g))
+    u1 = W1 * TN + 1
+    entries = {
+        # slot_cost, gain in; n_tot, obj out
+        "table": (k1.window_dp, window_dp_ref, (big_c, big_g), real_tables,
+                  4 * (W1 * (TN + 1) + u1 + W1 + 1)),
+        # prices, avail, z0, slots_to_deadline, 7 job fields in; n_o, n_s,
+        # obj out
+        "forecast": (lambda job, *r: k1.window_dp_rows(job, tput, *r, TN),
+                     lambda job, *r: window_dp_rows_ref(job, tput, *r, TN),
+                     big_rows, captured, 4 * (2 * W1 + 2 + 7 + 2 * W1 + 1)),
+    }
+    launches = (k1.window_dp.launches, k1.window_dp_rows.launches)
+    out = {}
+    for entry, (fn, plain_fn, args, real, row_bytes) in entries.items():
+        for _ in range(3):
+            fn(*args)
+        ms = _graph_ms(torch, lambda: fn(*args))
+        events = _event_ms(torch, lambda: fn(*args), TIME_REPS)
+        real_ms = [_graph_ms(torch, lambda a=a: fn(*a)) for a in real]
+        plain = _event_ms(torch, lambda: plain_fn(*args), 5)
+        bound, b_ms, o_ms, cand, instr = _k1_bound(B_MAIN, W1, TN,
+                                                   row_bytes, clock)
+        out[entry] = {"ms": ms, "event_ms": events, "real_ms": real_ms,
+                      "plain_ms": plain, "library_ms": None,
+                      "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
+                      "bytes_ms": b_ms, "ops_ms": o_ms, "cand": cand,
+                      "instr": instr, "bytes": B_MAIN * row_bytes}
+    k1.window_dp.launches, k1.window_dp_rows.launches = launches
+    return out
+
+
+def _phase_trace_selection(torch, engine, fast_sim, window_opt, pool, inp,
+                           slot_rows, dev):
+    """One Fig. 9 setting on the main path. Wall seconds of two runs without
+    the profiler; then under ``torch.profiler`` the device busy time (the
+    device events' self time; one stream, so they do not overlap) against
+    the profiled wall, K1's part, and the device events of the whole
+    setting, of the simulate phase a slot (``simulate_pool_jobs``, 10
+    slots) and of one ``solve_window_batch`` call on a real slot's rows (10
+    calls profiled); and the aten ops that call dispatches, counted by a
+    TorchDispatchMode."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.workload import PAPER_TPUT
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket.__name__))
+            return func(*args, **(kwargs or {}))
+
+    def device_events(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+
+    def select():
+        engine.simulate_and_select(pool, inp[0], PAPER_TPUT, *inp[1:])
+        torch.cuda.synchronize()
+
+    def solve():
+        return window_opt.solve_window_batch(job, PAPER_TPUT, *rows,
+                                             job.on_demand_price, TN)
+
+    jobs_d = fast_sim.jobs_to(inp[0], dev)
+    job, *rows = slot_rows
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        select()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        select()
+        pwall = time.perf_counter() - t0
+    events = device_events(prof)
+    with profile(activities=acts) as prof:
+        fast_sim.simulate_pool_jobs(pool, jobs_d, PAPER_TPUT, *inp[1:])
+        torch.cuda.synchronize()
+    n_sim = sum(e.count for e in device_events(prof))
+    with profile(activities=acts) as prof:
+        for _ in range(10):
+            solve()
+        torch.cuda.synchronize()
+    solve_events = device_events(prof)
+    counter = CountOps()
+    with counter:
+        solve()
+    torch.cuda.synchronize()
+    n_solve = sum(e.count for e in solve_events) / 10
+    print(f"[trace] selection: one solve_window_batch call dispatches "
+          f"{len(counter.ops)} aten ops ({', '.join(sorted(set(counter.ops)))}"
+          f"); its device events ({n_solve:.1f}): " + "; ".join(
+              f"{e.key[:40]} {e.count / 10:.0f}x" for e in sorted(
+                  solve_events, key=lambda e: -e.count)[:8]))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    wall_s = ", ".join(f"{w:.4f}" for w in walls)
+    if busy == 0:
+        print(f"[trace] selection: wall {wall_s} s; device time not measured "
+              "(the profiler recorded no device events)")
+        return
+    k1_ev = [e for e in events if "window_dp" in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1_ev) / 1e3
+    print(f"[trace] selection {SETTINGS[0]}: wall {wall_s} s (profiled "
+          f"{pwall:.4f} s); device busy {busy:.2f} ms = "
+          f"{busy / (pwall * 1e3):.1%} of the profiled wall (idle "
+          f"{1 - busy / (pwall * 1e3):.1%}); K1 {k1_ms:.3f} ms "
+          f"({k1_ms / busy:.1%} of busy, {sum(e.count for e in k1_ev)} "
+          f"launches); device events: {sum(e.count for e in events)} in the "
+          f"setting, {n_sim / 10:.1f} a slot in the simulate phase, "
+          f"{n_solve:.1f} in one solve_window_batch call")
 
 
 def _engine_inputs(kind, level, engine, workload, np):
@@ -1024,10 +1298,12 @@ def main() -> int:
     from repro_torch.kernels import lora_matmul as k2
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.kernels import window_dp as k1
+    from repro_torch.configs.base import ThroughputConfig
     from repro_torch.kernels.ref import (flash_attention_ref,
                                          lora_matmul_ref,
                                          ssd_scan_grouped_ref, ssd_scan_ref,
                                          window_dp_ref)
+    from repro_torch.core.window_opt import window_dp_rows_ref
     from repro_torch import workload
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1052,16 +1328,40 @@ def main() -> int:
         for line in log.strip().splitlines():
             print(f"[nvcc] {line}")
 
-    # ---- phase 2: K1 against its plain version on the card ----
+    # ---- phase 2: K1's two entries against their plain versions ----
+    sass = _k1_sass(built[k1.SOURCE][0])
+    for name, c in (sass or {}).items():
+        entry = "forecast" if "RowArgs" in name else "table"
+        print(f"[k1] SASS of the (6, 16) strip kernel, {entry} entry: "
+              + ", ".join(f"{k} {v}" for k, v in c.items()))
+    if sass is None:
+        print("[k1] SASS not read (no cuobjdump)")
     max_err = 0.0
     for b, w1, tn in ((1, 6, 16), (8, 6, 16), (13, 3, 5), (40, 1, 4)):
         c, g = _tables(b, w1, tn, b * 131 + w1, torch, dev)
         max_err = max(max_err, _compare_k1(f"test shape {(b, w1, tn)}", c,
                                            g, torch, window_dp,
                                            window_dp_ref))
+    for b, w1, tn in ((64, 6, 16), (5000, 6, 16), (64, 3, 5)):
+        c, g = _tie_tables(b, w1, tn, b + w1, torch, dev)
+        max_err = max(max_err, _compare_k1(
+            f"integer ties, half the rows priced out {(b, w1, tn)}", c, g,
+            torch, window_dp, window_dp_ref))
     big_c, big_g = _tables(B_MAIN, W1, TN, 2024, torch, dev)
     max_err = max(max_err, _compare_k1("random tables", big_c, big_g, torch,
                                        window_dp, window_dp_ref))
+    odd_tput = ThroughputConfig(alpha=0.7, beta=0.3)
+    for b, w1, tn in ((1, 6, 16), (8, 6, 16), (13, 3, 5), (40, 1, 4),
+                      (300, 6, 7)):
+        for tput in (workload.PAPER_TPUT, odd_tput):
+            _compare_k1_rows(f"random rows {(b, w1, tn)} alpha {tput.alpha} "
+                             f"beta {tput.beta}",
+                             _forecast_rows(b, w1, tn, 31 * b + tn, torch,
+                                            dev),
+                             tput, tn, torch, k1, window_dp_rows_ref)
+    big_rows = _forecast_rows(B_MAIN, W1, TN, 2025, torch, dev)
+    _compare_k1_rows("random rows", big_rows, workload.PAPER_TPUT, TN,
+                     torch, k1, window_dp_rows_ref)
 
     # ---- phase 3: the main path, four Fig. 9 settings on paper_pool ----
     pool = specs_to_arrays(paper_pool())
@@ -1076,34 +1376,41 @@ def main() -> int:
     w = inputs[SETTINGS[0]]
     engine.simulate_and_select(pool, *w[:1], workload.PAPER_TPUT, *w[1:])
 
-    window_dp.launches = 0
+    window_dp.launches = k1.window_dp_rows.launches = 0
     results, wall = {}, {}
     for setting in SETTINGS:
-        before = window_dp.launches
+        before = (window_dp.launches, k1.window_dp_rows.launches)
         t0 = time.perf_counter()
         results[setting] = engine.simulate_and_select(
             pool, inputs[setting][0], workload.PAPER_TPUT,
             *inputs[setting][1:], return_utilities=True)
         wall[setting] = time.perf_counter() - t0
-        if window_dp.launches - before != 10:
-            _fail(f"{setting}: K1 launched {window_dp.launches - before} "
-                  "times, expected 10 (one per market slot)")
+        n = (window_dp.launches - before[0],
+             k1.window_dp_rows.launches - before[1])
+        if n != (10, 10):
+            _fail(f"{setting}: K1 launched {n[0]} times, {n[1]} of them the "
+                  "forecast entry; expected 10 forecast-entry launches "
+                  "(one per market slot)")
     main_launches = window_dp.launches
-    print(f"[main] K1 launches over the four settings: {main_launches}")
+    rows_launches = k1.window_dp_rows.launches
+    print(f"[main] K1 launches over the four settings: {main_launches}, "
+          f"{rows_launches} of them the forecast entry")
 
-    # the same runs with the plain DP on the card; capture one slot's real
-    # tables on the way
-    captured = {"calls": 0}
-    plain_solve = window_opt._solve_batch
+    # the same runs on the plain chain on the card; capture every slot's
+    # rows of the first setting on the way
+    captured = []
+    plain_rows = window_opt._solve_rows
 
-    def capture(slot_cost, gain, backend):
-        captured["calls"] += 1
-        if captured["calls"] == 6:      # slot 5 of the first setting
-            captured["tables"] = (slot_cost.clone(), gain.clone())
-        return plain_solve(slot_cost, gain, backend)
+    def capture(job, tput, z0, std, prices, avail, tn, backend):
+        if len(captured) < 10:
+            captured.append((
+                type(job)(**{f: getattr(job, f).clone()
+                             for f in job.__dataclass_fields__}),
+                z0.clone(), std.clone(), prices.clone(), avail.clone()))
+        return plain_rows(job, tput, z0, std, prices, avail, tn, backend)
 
     torch_wall = {}
-    window_opt._solve_batch = capture
+    window_opt._solve_rows = capture
     try:
         for setting in SETTINGS:
             t0 = time.perf_counter()
@@ -1121,8 +1428,16 @@ def main() -> int:
                 _fail(f"{setting}: utilities of the K1 and plain-DP runs "
                       f"differ (max {diff}); they must be bit-equal")
     finally:
-        window_opt._solve_batch = plain_solve
-    real_c, real_g = captured["tables"]
+        window_opt._solve_rows = plain_rows
+    if len(captured) != 10:
+        _fail(f"captured {len(captured)} slots of real rows, expected 10")
+    for slot, rows in enumerate(captured):
+        _compare_k1_rows(f"{SETTINGS[0][0]} {SETTINGS[0][1]} slot {slot} "
+                         "real rows", rows, workload.PAPER_TPUT, TN, torch,
+                         k1, window_dp_rows_ref)
+    real_c, _, real_g = window_opt._unit_cost_table(
+        captured[5][0], workload.PAPER_TPUT, *captured[5][1:],
+        captured[5][0].on_demand_price, TN)
     max_err = max(max_err, _compare_k1("main-path slot 5 tables", real_c,
                                        real_g, torch, window_dp,
                                        window_dp_ref))
@@ -1145,15 +1460,16 @@ def main() -> int:
     kinds = set(pool124["kind"].tolist())
     if kinds != {0, 1, 2, 3, 4, 5}:
         _fail(f"124-lane pool kinds {sorted(kinds)}")
-    window_dp.launches = 0
+    window_dp.launches = k1.window_dp_rows.launches = 0
     setting = SETTINGS[0]
     t0 = time.perf_counter()
     res124 = engine.simulate_and_select(
         pool124, inputs[setting][0], workload.PAPER_TPUT,
         *inputs[setting][1:], return_utilities=True)
     wall124 = time.perf_counter() - t0
-    if window_dp.launches != 10:
-        _fail(f"124-lane run launched K1 {window_dp.launches} times")
+    if (window_dp.launches, k1.window_dp_rows.launches) != (10, 10):
+        _fail(f"124-lane run launched K1 {window_dp.launches} times, "
+              f"{k1.window_dp_rows.launches} of them the forecast entry")
     _check_result("124-lane pool", res124, JAX_REF_124, len(pool124["kind"]))
     print(f"[main] 124-lane pool {setting}: best={res124.best_policy()} "
           f"iters_to_half={res124.iters_to_half()} engine {wall124:.3f} s; "
@@ -1176,30 +1492,35 @@ def main() -> int:
     print(f"[split] {setting}: simulate {sim_s:.4f} s, select (normalize + "
           f"EG over {N_JOBS} jobs) {sel_s:.4f} s")
 
-    # ---- phase 4: K1's time beside its bound and the plain DP ----
-    for _ in range(3):
-        window_dp(big_c, big_g)
-    k1_ms = _event_ms(torch, lambda: window_dp(big_c, big_g), 25)
-    k1_real_ms = _event_ms(torch, lambda: window_dp(real_c, real_g), 25)
-    plain_ms = _event_ms(torch, lambda: window_dp_ref(big_c, big_g), 5)
-    b, u1 = B_MAIN, W1 * TN + 1
-    n_bytes = 4 * (b * W1 * (TN + 1) + b * u1 + b * W1 + b)
-    n_ops = 2 * b * W1 * (TN + 1) * u1
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[time] card {card}: K1 {k1_ms * 1e3:.1f} us/launch at "
-          f"B={b} (real slot tables {k1_real_ms * 1e3:.1f} us); bound "
-          f"{bound_ms * 1e3:.1f} us by {bound_by} (bytes {bytes_ms * 1e3:.1f}"
-          f" us for {n_bytes / 1e6:.2f} MB, operations {ops_ms * 1e3:.1f} us "
-          f"for {n_ops / 1e9:.3f} G) = {bound_ms / k1_ms:.1%} of bound; "
-          f"plain torch DP {plain_ms * 1e3:.1f} us; library_ms null (no "
-          "single PyTorch call computes a min-plus DP)")
+    # ---- phase 4: K1's two entries beside their bound and plain versions
+    clock = _max_sm_clock_mhz()
+    k1_rows = _phase_time_k1(torch, k1, workload.PAPER_TPUT, window_dp_ref,
+                             window_dp_rows_ref, big_c, big_g, big_rows,
+                             captured, clock)
+    for entry, row in k1_rows.items():
+        real = ", ".join(f"{ms * 1e3:.1f}" for ms in row["real_ms"])
+        print(f"[time] card {card}: K1 {entry} entry at B={B_MAIN} (w1, tn) "
+              f"= ({W1}, {TN}): {row['ms'] * 1e3:.1f} us/launch in a CUDA "
+              f"graph on random {'tables' if entry == 'table' else 'rows'}, "
+              f"{row['event_ms'] * 1e3:.1f} us by "
+              f"events (before the redesign, by events: "
+              f"{K1_BEFORE_US} us); the 10 real slots' "
+              f"{'tables' if entry == 'table' else 'rows'} in a graph: "
+              f"{real} us; bound {row['bound_ms'] * 1e3:.1f} us by "
+              f"{row['bound_by']} (bytes {row['bytes_ms'] * 1e3:.1f} us for "
+              f"{row['bytes'] / 1e6:.2f} MB; {row['cand'] / 1e6:.1f} M "
+              f"reachable candidates, {row['instr'] / 1e6:.1f} M FADD + "
+              f"FMNMX at {F32_LANES_PER_SM} lanes x {H100_SMS} SMs x "
+              f"{clock:.0f} MHz: {row['ops_ms'] * 1e3:.1f} us) = "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound; plain "
+              f"{row['plain_ms'] * 1e3:.1f} us; library_ms null (no PyTorch "
+              "call computes a min-plus DP)")
     print("[time] engine per setting: " + "; ".join(
         f"{k} {lv}: {wall[(k, lv)]:.3f} s, "
         f"{N_JOBS * n_pol / wall[(k, lv)]:.0f} cells/s"
         for k, lv in SETTINGS))
+    _phase_trace_selection(torch, engine, fast_sim, window_opt, pool,
+                           inputs[SETTINGS[0]], captured[5], dev)
 
     # ---- phase 5: dense-model serving (K2, K3) ----
     kernels = (k2, k3, k4)
@@ -1291,12 +1612,15 @@ def main() -> int:
               f"{g_row['event_ms'] / f_row['event_ms']:.3f} by events; "
               f"{rows['grouped']['launches']} launches on its serving path")
 
-    k1_row = {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": None}
-    print(json.dumps({"kernels": [
-        _entry("window_dp", "window_dp.cu",
-               "src/repro/kernels/window_dp.py:36", main_launches, max_err,
-               k1_row)] + [
+    # each K1 entry with its own main-path launches (window_dp.launches
+    # counts both; every main-path launch is the forecast entry's)
+    k1_entries = [
+        _entry(f"window_dp/{entry}", "window_dp.cu",
+               "src/repro/kernels/window_dp.py:36", own, max_err,
+               k1_rows[entry])
+        for entry, own in (("forecast", rows_launches),
+                           ("table", main_launches - rows_launches))]
+    print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'
         _entry(f"lora_matmul/{phase}", "lora_matmul.cu",

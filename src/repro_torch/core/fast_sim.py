@@ -121,15 +121,15 @@ def _sim_clip(n_o, n_s, avail, j: JobArrays):
 def _ahap_precompute(j3: JobArrays, omega, sigma, rho, t: int, pred_t):
     """AHAP scaffolding for slot ``t``: omega/sigma/rho are (P,) lane
     parameters, ``j3`` holds (K, 1, 1) job columns and pred_t is the
-    slot's (K, W1MAX, 2) forecast. Returns (pr (K, P, W1MAX, 2),
-    thr_s (K, P, W1MAX) i32, z_exp_end (K, P), eff_slots (K, P) i32).
+    slot's (K, W1MAX, 2) forecast. Returns (pr (2, K, P, W1MAX): prices,
+    then availability, each dense, as K1 reads them; thr_s (K, P, W1MAX)
+    i32, z_exp_end (K, P), eff_slots (K, P) i32).
 
     Robust-AHAP discounts *predicted* availability (entries j >= 1 only)."""
     k, p = pred_t.shape[0], omega.shape[0]
     disc_av = torch.floor(rho[None, :, None] * pred_t[:, None, :, 1])
     disc_av[..., 0] = pred_t[:, None, 0, 1]      # the present is observed
-    pr = torch.stack([pred_t[:, None, :, 0].expand(k, p, W1MAX), disc_av],
-                     dim=-1)
+    pr = torch.stack([pred_t[:, None, :, 0].expand(k, p, W1MAX), disc_av])
     in_w = (torch.arange(W1MAX, device=omega.device)[None, None, :]
             <= omega[None, :, None])
     j2 = JobArrays(*[f[:, :, 0] for f in j3])
@@ -138,9 +138,9 @@ def _ahap_precompute(j3: JobArrays, omega, sigma, rho, t: int, pred_t):
     )
     thr_s = torch.where(
         in_w
-        & (pr[..., 0] <= sigma[None, :, None] * j3.p_o)
-        & (pr[..., 1] >= j3.n_min),
-        torch.minimum(pr[..., 1].to(_I32), j3.n_max),
+        & (pr[0] <= sigma[None, :, None] * j3.p_o)
+        & (pr[1] >= j3.n_min),
+        torch.minimum(pr[1].to(_I32), j3.n_max),
         0,
     )
     eff_slots = torch.minimum(j2.deadline - t, omega[None, :] + 1)
@@ -159,8 +159,8 @@ def _ahap_rule_batch(rows: JobConfig, j: JobArrays, tput, v, backend, device,
     ahead = z >= zee_t
     chc_o, chc_s, _ = solve_window_batch(
         rows, tput, z.reshape(b), eff_t.reshape(b),
-        pr_t[..., 0].reshape(b, W1MAX),
-        pr_t[..., 1].to(_I32).reshape(b, W1MAX),
+        pr_t[0].reshape(b, W1MAX),
+        pr_t[1].to(_I32).reshape(b, W1MAX),
         rows.on_demand_price, table_n=NTABLE, backend=backend, device=device,
     )
     plan = torch.where(

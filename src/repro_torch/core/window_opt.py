@@ -12,13 +12,22 @@ the argmax. Slots past the job deadline are priced out (BIG).
 
 Backends (``backend=`` on :func:`solve_window_batch`):
 
-``"cuda"``   kernel K1 (repro_torch.kernels.window_dp): DP, objective
-             argmax and backtrack in one launch per call.
-``"torch"``  the plain DP in torch ops (kernels.ref.window_dp_ref).
+``"cuda"``   kernel K1 (repro_torch.kernels.window_dp). A call with one job
+             per row (the pool simulator's, each slot) takes K1's forecast
+             entry, ``window_dp_rows``: one launch reads the rows' forecasts
+             and job fields and writes the split plan and the objective,
+             with no table, split or un-bias op around it. A call with one
+             shared scalar job (:func:`solve_window`) builds the unit-cost
+             table in torch ops (its python-scalar subexpressions round in
+             f64, as the reference's weak scalars do) and takes the table
+             entry, ``window_dp``.
+``"torch"``  the plain chain in torch ops: :func:`_unit_cost_table`,
+             ``kernels.ref.window_dp_ref`` and :func:`split_plan`
+             (:func:`window_dp_rows_ref` for per-row calls, also the
+             forecast entry's plain version).
 
 The default follows the device: ``"cuda"`` for the card, ``"torch"`` for the
-CPU. Both give bit-equal results on the same tables (they only add and
-compare).
+CPU. Both give bit-equal results on the same inputs.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ from repro_torch.configs.base import JobConfig, ThroughputConfig
 from repro_torch.core.job import tilde_value
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.ref import BIG, window_dp_ref
-from repro_torch.kernels.window_dp import window_dp
+from repro_torch.kernels.window_dp import window_dp, window_dp_rows
 
 # Deterministic near-tie resolution, kept exactly as in the reference: the
 # gain is biased by -TIE_EPS per unit so every near-tie (true marginal value
@@ -70,7 +79,10 @@ def _unit_cost_table(job: JobConfig, tput: ThroughputConfig, z0,
     tau, k] is the cheapest cost of buying k units in slot tau (spot-first
     split; infeasible k priced out with BIG) and gain[b, u] is
     Ṽ(z0 + alpha * u) - TIE_EPS * u. Every op is elementwise, as in the
-    reference's vmapped per-row table."""
+    reference's vmapped per-row table. K1's forecast entry
+    (kernels/csrc/window_dp.cu) repeats each of these f32 ops, and
+    ``core/job.tilde_value``'s, in the same order: a change here is made
+    there too."""
     dev = prices.device
     w1 = prices.shape[1]
     nmax2, nmax3 = _col(job.n_max, 1), _col(job.n_max, 2)
@@ -102,6 +114,33 @@ def _unit_cost_table(job: JobConfig, tput: ThroughputConfig, z0,
     return slot_cost.contiguous(), spot_units, gain.contiguous()
 
 
+def split_plan(n_tot, spot_units, obj):
+    """A DP plan as the solver returns it: spot first (n_s = min(n_tot,
+    spot_units)), the rest on demand, and the objective un-biased by
+    TIE_EPS per unit. Returns (n_o, n_s, obj)."""
+    n_s = torch.minimum(n_tot, spot_units).to(torch.int32)
+    n_o = n_tot - n_s
+    obj = obj + TIE_EPS * n_tot.sum(dim=1).to(torch.float32)
+    return n_o, n_s, obj
+
+
+def window_dp_rows_ref(job: JobConfig, tput: ThroughputConfig, z0,
+                       slots_to_deadline, prices, avail, tn: int):
+    """K1's forecast entry in torch ops (its plain version):
+    :func:`_unit_cost_table`, ``kernels.ref.window_dp_ref`` and
+    :func:`split_plan`.
+
+    ``job`` holds (B,) tensors in the reference's dtypes, its
+    ``on_demand_price`` the rows' p_o; z0 (B,) f32, slots_to_deadline (B,)
+    i32, prices (B, w1) f32, avail (B, w1) i32. Returns (n_o (B, w1) i32,
+    n_s (B, w1) i32, obj (B,) f32)."""
+    slot_cost, spot_units, gain = _unit_cost_table(
+        job, tput, z0, slots_to_deadline, prices, avail,
+        job.on_demand_price, tn)
+    n_tot, obj = window_dp_ref(slot_cost, gain)
+    return split_plan(n_tot, spot_units, obj)
+
+
 def _per_row_job(job: JobConfig, p_o, b: int, dev):
     """(job, p_o) with every field a (B,) tensor of the reference's dtype.
     As in the reference's per-row table, the row's ``p_o`` is also its
@@ -121,6 +160,16 @@ def _solve_batch(slot_cost, gain, backend: str):
     return window_dp_ref(slot_cost, gain)
 
 
+def _solve_rows(job: JobConfig, tput: ThroughputConfig, z0,
+                slots_to_deadline, prices, avail, tn: int, backend: str):
+    """One job per row: K1's forecast entry, or its plain chain."""
+    if backend == "cuda":
+        return window_dp_rows(job, tput, z0, slots_to_deadline, prices,
+                              avail, tn)
+    return window_dp_rows_ref(job, tput, z0, slots_to_deadline, prices,
+                              avail, tn)
+
+
 def solve_window_batch(
     job: JobConfig,
     tput: ThroughputConfig,
@@ -135,6 +184,8 @@ def solve_window_batch(
 ):
     """Solve a whole batch of window problems with ONE DP call (one K1
     launch on the card) — what the pool simulator issues per market slot.
+    With per-row job fields that launch is all the call issues on the card:
+    K1's forecast entry builds the tables and splits the plan itself.
 
     ``job`` fields (and ``p_o``) are python scalars shared by every row, or
     (B,) arrays with one job per row. Inputs are moved to ``device`` (None:
@@ -156,15 +207,18 @@ def solve_window_batch(
 
     is_array = lambda x: torch.is_tensor(x) or np.ndim(x) > 0
     if is_array(p_o) or any(is_array(getattr(job, f)) for f in _JOB_DTYPES):
-        job, p_o = _per_row_job(job, p_o, b, dev)
+        job, _ = _per_row_job(job, p_o, b, dev)
+        # K1 takes dense rows; the pool simulator's already are (no copy)
+        job = JobConfig(**{f: getattr(job, f).contiguous()
+                           for f in _JOB_DTYPES})
+        return _solve_rows(job, tput, z0.contiguous(), std.contiguous(),
+                           prices.contiguous(), avail.contiguous(), tn,
+                           backend)
     slot_cost, spot_units, gain = _unit_cost_table(
         job, tput, z0, std, prices, avail, p_o, tn
     )
     n_tot, obj = _solve_batch(slot_cost, gain, backend)
-    n_s = torch.minimum(n_tot, spot_units).to(torch.int32)
-    n_o = n_tot - n_s
-    obj = obj + TIE_EPS * n_tot.sum(dim=1).to(torch.float32)
-    return n_o, n_s, obj
+    return split_plan(n_tot, spot_units, obj)
 
 
 def solve_window(job: JobConfig, tput: ThroughputConfig, z0,

@@ -5,20 +5,24 @@ not installed:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Every test skips, saying why, when no CUDA device is present."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import engine, window_opt
+from repro_torch.core.window_opt import window_dp_rows_ref
 from repro_torch.core.policy_pool import (baseline_specs, paper_pool,
                                           rand_deadline_pool, specs_to_arrays)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lora_matmul import lora_matmul
+from repro_torch.configs.base import JobConfig, ThroughputConfig
 from repro_torch.kernels.ref import (flash_attention_ref, lora_matmul_ref,
                                      ssd_scan_grouped_ref, ssd_scan_ref,
                                      window_dp_ref)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_grouped
-from repro_torch.kernels.window_dp import window_dp
+from repro_torch.kernels.window_dp import window_dp, window_dp_rows
 from repro_torch.workload import PAPER_TPUT, job_stream_arrays, paper_market
 
 torch.set_num_threads(1)
@@ -69,6 +73,114 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         window_dp(c, g[:, :-1].contiguous())
     with pytest.raises(ValueError, match="one CUDA device"):
         window_dp(c, g.cpu())
+
+
+def _tie_tables(b, w1, tn, seed):
+    """Integer costs and gains (ties in the DP and the objective), 30% BIG,
+    and half the rows with every k >= 1 priced out."""
+    rng = np.random.default_rng(seed)
+    kw, u1 = tn + 1, w1 * tn + 1
+    cost = rng.integers(0, 4, (b, w1, kw)).astype(np.float32)
+    cost = np.where(rng.random((b, w1, kw)) < 0.3, 1.0e9, cost)
+    cost[: b // 2, :, 1:] = 1.0e9
+    cost[:, :, 0] = 0.0
+    gain = np.cumsum(rng.integers(0, 3, (b, u1)), axis=1).astype(np.float32)
+    return torch.from_numpy(cost.astype(np.float32)), torch.from_numpy(gain)
+
+
+@pytest.mark.parametrize("b,w1,tn", [(64, 6, 16), (5000, 6, 16),
+                                     (64, 3, 5)])
+def test_k1_bit_equal_on_ties_and_priced_out_rows(cuda, b, w1, tn):
+    c, g = _tie_tables(b, w1, tn, b + w1)
+    n_k, o_k = window_dp(c.to(cuda), g.to(cuda))
+    n_r, o_r = window_dp_ref(c, g)
+    assert torch.equal(n_k.cpu(), n_r)
+    assert torch.equal(o_k.cpu(), o_r)
+
+
+def _forecast_rows(b, w1, tn, seed, dev):
+    """Forecast rows with ties (prices on a 1/8 grid), prices above p_o,
+    slots past the deadline, n_min > 1 and progress past the workload, as
+    (job, z0, slots_to_deadline, prices, avail) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    cols = {
+        "workload": rng.uniform(5.0, 150.0, b).astype(np.float32),
+        "deadline": rng.integers(2, 12, b).astype(np.int32),
+        "n_min": rng.integers(1, 4, b).astype(np.int32),
+        "n_max": rng.integers(2, tn + 3, b).astype(np.int32),
+        "value": rng.uniform(10.0, 300.0, b).astype(np.float32),
+        "gamma": rng.uniform(1.1, 3.0, b).astype(np.float32),
+        "on_demand_price": rng.choice(
+            np.array([1.0, 0.875, 1.3], np.float32), b),
+    }
+    prices = np.round(rng.uniform(0.05, 1.6, (b, w1)) * 8) / 8
+    arrays = (rng.uniform(0, 1.2 * cols["workload"]).astype(np.float32),
+              rng.integers(-1, w1 + 2, b).astype(np.int32),
+              prices.astype(np.float32),
+              rng.integers(0, tn + 3, (b, w1)).astype(np.int32))
+    job = JobConfig(**{f: torch.from_numpy(v).to(dev)
+                       for f, v in cols.items()})
+    return (job,) + tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+@pytest.mark.parametrize("b,w1,tn", [(1, 6, 16), (8, 6, 16), (4096, 6, 16),
+                                     (13, 3, 5), (40, 1, 4), (300, 6, 7)])
+@pytest.mark.parametrize("tput", [ThroughputConfig(),
+                                  ThroughputConfig(alpha=0.7, beta=0.3)],
+                         ids=["paper", "odd"])
+def test_k1_forecast_entry_bit_equal_to_plain_chain(cuda, b, w1, tn, tput):
+    """(6, 16) runs the static kernel, the other shapes the generic one."""
+    job, *rows = _forecast_rows(b, w1, tn, 31 * b + tn, cuda)
+    before = (window_dp.launches, window_dp_rows.launches)
+    got = window_dp_rows(job, tput, *rows, tn)
+    torch.cuda.synchronize()
+    assert (window_dp.launches, window_dp_rows.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = window_dp_rows_ref(job, tput, *rows, tn)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_k1_forecast_entry_rejects_what_it_does_not_take(cuda):
+    job, z0, std, prices, avail = _forecast_rows(8, 6, 16, 0, cuda)
+    tput = ThroughputConfig()
+    with pytest.raises(TypeError, match="prices as torch.float32"):
+        window_dp_rows(job, tput, z0, std, prices.double(), avail, 16)
+    with pytest.raises(TypeError, match="n_max as torch.int32"):
+        window_dp_rows(dataclasses.replace(job, n_max=job.n_max.long()),
+                       tput, z0, std, prices, avail, 16)
+    with pytest.raises(ValueError, match="shape"):
+        window_dp_rows(job, tput, z0, std, prices, avail[:, :5].contiguous(),
+                       16)
+    with pytest.raises(ValueError, match="shape"):
+        window_dp_rows(job, tput, z0[:4].contiguous(), std, prices, avail,
+                       16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        window_dp_rows(job, tput, z0.cpu(), std, prices, avail, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_dp_rows(job, tput, z0, std,
+                       prices.t().contiguous().t(), avail, 16)
+    with pytest.raises(ValueError, match="outside"):
+        window_dp_rows(job, tput, z0, std, prices, avail, 128)
+
+
+def test_solve_window_batch_per_row_takes_the_forecast_entry(cuda):
+    """One job per row: one launch of K1's forecast entry, nothing else
+    from K1, and the CPU plain chain's bits."""
+    job, z0, std, prices, avail = _forecast_rows(2000, 6, 16, 5, cuda)
+    before = (window_dp.launches, window_dp_rows.launches)
+    got = window_opt.solve_window_batch(job, ThroughputConfig(), z0, std,
+                                        prices, avail, job.on_demand_price,
+                                        16)
+    assert (window_dp.launches, window_dp_rows.launches) == (
+        before[0] + 1, before[1] + 1)
+    cpu = JobConfig(**{f.name: getattr(job, f.name).cpu()
+                       for f in dataclasses.fields(job)})
+    want = window_opt.solve_window_batch(
+        cpu, ThroughputConfig(), z0.cpu(), std.cpu(), prices.cpu(),
+        avail.cpu(), cpu.on_demand_price, 16, device="cpu")
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
 
 
 def test_solve_window_batch_cuda_equals_cpu(cuda):
