@@ -13,6 +13,12 @@ the JAX package's ``core/engine.py`` (single region, numpy prep path).
 The job axis streams in chunks (``job_chunk``); the EG state threads through
 the chunks, so chunked and unchunked runs agree (the trajectories bitwise,
 the mean-utility accumulator to f32 tolerance).
+
+``collect=True`` turns the flight recorder on end to end (the simulator's
+``tel_*`` series, the EG loop's entropy and leader traces; repro_torch.obs
+folds them into ledgers) and ``fallback=`` arms the AHAP lanes'
+prediction-failure monitor (repro_torch.chaos). Both defaults run the ops
+of the program without them.
 """
 from __future__ import annotations
 
@@ -50,11 +56,24 @@ def prepare_noisy_inputs(trace, t0s, deadline: int, kind: str, level,
 
 
 def _normalize_and_scan(jobs: fast_sim.JobArrays, u, state: selector.EGState,
-                        track_history: bool):
+                        track_history: bool, collect: bool = False):
     """The select stage: per-job [0,1] normalization of the (K, M)
     raw-utility matrix + the EG loop, on the matrix's device."""
     un = normalize_utility_batch(jobs, u)
-    return selector.run_eg_scan(state, un, track_history=track_history)
+    return selector.run_eg_scan(state, un, track_history=track_history,
+                                collect=collect)
+
+
+def select_from_utilities(jobs: fast_sim.JobArrays, utilities,
+                          state: selector.EGState,
+                          track_history: bool = False,
+                          collect: bool = False):
+    """The engine's select stage on its own: normalize a (K, M) raw-utility
+    tensor per job and run the EG loop from ``state``, on the tensor's
+    device. ``jobs`` leaves must be tensors on that device
+    (:func:`fast_sim.jobs_to`). Returns ``(final_state, traj)`` as
+    :func:`selector.run_eg_scan`."""
+    return _normalize_and_scan(jobs, utilities, state, track_history, collect)
 
 
 @dataclass
@@ -70,6 +89,9 @@ class SelectionResult:
     n_jobs: int
     weight_history: Optional[np.ndarray] = None   # (K, M), track_history only
     utilities: Optional[np.ndarray] = None        # (K, M), return_utilities only
+    entropy: Optional[np.ndarray] = None          # (K,), collect only
+    top_policy: Optional[np.ndarray] = None       # (K,) i32, collect only
+    sim_out: Optional[dict] = None                # full sim dict, collect only
 
     def best_policy(self) -> int:
         return selector.best_policy(self.state)
@@ -98,6 +120,8 @@ def simulate_and_select(
     job_chunk: int = 0,
     track_history: bool = False,
     return_utilities: bool = False,
+    collect: bool = False,
+    fallback=None,
 ) -> SelectionResult:
     """Run the whole online-selection workload in one call: simulate every
     (job, policy) cell, normalize the utilities per job and run the EG
@@ -110,7 +134,15 @@ def simulate_and_select(
     (default: a fresh uniform selector with Thm. 2's eta for K jobs);
     ``job_chunk`` > 0 streams the job axis in chunks of that size.
     ``backend`` picks the window DP (None: "cuda" on the card, "torch" on
-    the CPU)."""
+    the CPU).
+
+    ``collect=True`` adds the flight recorder: ``sim_out`` holds the whole
+    simulator output with its (K, M, T) ``tel_*`` series (chunks
+    concatenated along the job axis, kept on the device and copied to the
+    host once, after the last chunk), and ``entropy`` / ``top_policy`` the
+    EG loop's per-job traces. ``fallback`` takes a
+    :class:`repro_torch.chaos.FallbackConfig` to arm the AHAP lanes'
+    prediction-failure monitor."""
     dev = resolve_device(device)
     n_jobs = int(np.shape(jobs.workload)[0])
     n_pol = int(np.shape(pool_arrays["kind"])[0])
@@ -123,24 +155,35 @@ def simulate_and_select(
 
     u_sum = torch.zeros((n_pol,), dtype=torch.float32, device=dev)
     max_w, regrets, hist, raw = [], [], [], []
+    ent, top, sim_chunks = [], [], []
     for lo in range(0, n_jobs, chunk):
         hi = min(lo + chunk, n_jobs)
         jb = fast_sim.slice_jobs(jobs, lo, hi)
         out = fast_sim.simulate_pool_jobs(
             pool_arrays, jb, tput, prices[lo:hi], avail[lo:hi],
-            preds[lo:hi], backend=backend, device=dev,
+            preds[lo:hi], backend=backend, device=dev, collect=collect,
+            fallback=fallback,
         )
         u = out["utility"]                       # (k, M), stays on device
         u_sum = u_sum + u.sum(dim=0)
-        state, traj = _normalize_and_scan(jb, u, state, track_history)
+        state, traj = _normalize_and_scan(jb, u, state, track_history,
+                                          collect)
         max_w.append(traj["max_weight"])
         regrets.append(traj["regret"])
         if track_history:
             hist.append(traj["weights"])
         if return_utilities:
             raw.append(u)
+        if collect:
+            ent.append(traj["entropy"])
+            top.append(traj["top_policy"])
+            sim_chunks.append(out)
 
     cat = lambda parts: torch.cat(parts).cpu().numpy()
+    sim_out = None
+    if collect:
+        sim_out = {k: cat([c[k] for c in sim_chunks])
+                   for k in sim_chunks[0]}
     return SelectionResult(
         state=state,
         mean_utility=u_sum.cpu().numpy() / n_jobs,
@@ -149,4 +192,7 @@ def simulate_and_select(
         n_jobs=n_jobs,
         weight_history=cat(hist) if track_history else None,
         utilities=cat(raw) if return_utilities else None,
+        entropy=cat(ent) if collect else None,
+        top_policy=cat(top) if collect else None,
+        sim_out=sim_out,
     )

@@ -11,6 +11,12 @@ row batch, so each slot issues exactly one ``solve_window_batch`` call —
 one K1 launch on the card. The other kinds (AHANP/OD/MSU/UP/RAND_DEADLINE)
 run a cheap loop that never touches the window DP, and the two parts are
 scattered back to pool order.
+
+Two flags ride every pool entry point, as in the reference: ``collect``
+adds the per-slot ``tel_*`` flight-recorder series (repro_torch.obs), and
+``fallback`` (a :class:`repro_torch.chaos.FallbackConfig`) arms the AHAP
+lanes' prediction-failure monitor. With their defaults the loops run
+exactly the ops they run without them.
 """
 from __future__ import annotations
 
@@ -44,6 +50,16 @@ class JobArrays(NamedTuple):
     gamma: object               # f32
     p_o: object                 # f32
 
+    @staticmethod
+    def of(job: JobConfig) -> "JobArrays":
+        """One JobConfig as scalar numpy leaves of the reference's dtypes."""
+        return JobArrays(
+            np.float32(job.workload), np.int32(job.deadline),
+            np.int32(job.n_min), np.int32(job.n_max),
+            np.float32(job.value), np.float32(job.gamma),
+            np.float32(job.on_demand_price),
+        )
+
 
 _JOB_DTYPES = (_F32, _I32, _I32, _I32, _F32, _F32, _F32)
 _JOB_NP = (np.float32, np.int32, np.int32, np.int32, np.float32, np.float32,
@@ -67,6 +83,35 @@ def stack_jobs(jobs) -> JobArrays:
 def slice_jobs(jobs: JobArrays, start: int, stop: int) -> JobArrays:
     """Job-axis slice — the unit of the engine's job-chunked mode."""
     return JobArrays(*[f[start:stop] for f in jobs])
+
+
+def concat_jobs(parts) -> JobArrays:
+    """Concatenate stacked JobArrays along the job axis (host numpy leaves)
+    — the inverse of repeated :func:`slice_jobs`; how the scenario grid
+    stacks per-regime job blocks regime-major onto one jobs axis."""
+    parts = list(parts)
+    if len(parts) == 1:
+        return parts[0]
+    return JobArrays(*[
+        np.concatenate([np.asarray(getattr(p, f)) for p in parts])
+        for f in JobArrays._fields
+    ])
+
+
+def unstack_jobs(jobs: JobArrays):
+    """Stacked (K,) JobArrays -> list of JobConfig (host scalars) — the
+    inverse of :func:`stack_jobs`, for per-job host paths."""
+    n = int(np.shape(jobs.workload)[0])
+    rows = [_host(f) for f in jobs]
+    return [
+        JobConfig(
+            workload=float(rows[0][k]), deadline=int(rows[1][k]),
+            n_min=int(rows[2][k]), n_max=int(rows[3][k]),
+            value=float(rows[4][k]), gamma=float(rows[5][k]),
+            on_demand_price=float(rows[6][k]),
+        )
+        for k in range(n)
+    ]
 
 
 def _job_cfg(j: JobArrays) -> JobConfig:
@@ -314,6 +359,92 @@ def _execute(j: JobArrays, tput, z, n_prev, cost, done, T, t: int, n_o, n_s,
     return z, n_prev, cost, done, T, n_o, n_s, active
 
 
+# flight-recorder slot series (repro_torch.obs), the reference's keys in its
+# order: emitted as (K, P, T) result keys when a pool entry point runs with
+# collect=True. Order matches _slot_telemetry's return tuple.
+_TEL_SLOTS = ("tel_spot_cost", "tel_od_cost", "tel_progress", "tel_active",
+              "tel_up", "tel_down", "tel_preempt")
+
+# prediction-health series, emitted ONLY when a collect run also arms the
+# fallback monitor: (fallback-active bool, error EWMA f32)
+_TEL_FALLBACK = ("tel_fallback", "tel_pred_err")
+
+# floor for the relative-error denominators of the fallback monitor
+# (traces clip prices >= 0.02; availability errors normalize by >= 1 unit)
+_FB_PRICE_EPS = 0.01
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to f32, as the reference's ``jnp.float32(x)``."""
+    return float(np.float32(x))
+
+
+def _one_minus(x: float) -> float:
+    """``1 - x`` taken in f32, as the reference's ``jnp.float32(1.0) - x``."""
+    return float(np.float32(1.0) - np.float32(x))
+
+
+def _fma(a: float, b, c):
+    """``a * b + c`` rounded to f32 once, as XLA's compiled program contracts
+    both blends of the monitor (fma(a, b, c) with the product exact in f64;
+    the f64 sum rounds only where the exact sum needs over 53 bits)."""
+    return (a * b.double() + c.double()).float()
+
+
+def _fallback_error(fallback, err, price, av, prev1_t):
+    """One EWMA update of the prediction-health monitor: blend the relative
+    errors of last slot's 1-step-ahead forecast ``prev1_t`` ((K, 2): price,
+    avail) against this slot's observed (K, 1) market. ``err`` is (K, 1):
+    one value per job, read by every lane of the job. Each blend is one
+    fused multiply-add, as in the reference's compiled program: the
+    monitor's threshold test is strict, so an ulp flips a plan."""
+    avf = av.to(_F32)
+    e_p = (torch.abs(price - prev1_t[:, :1])
+           / torch.clamp_min(price, _FB_PRICE_EPS))
+    e_a = torch.abs(avf - prev1_t[:, 1:]) / torch.clamp_min(avf, 1.0)
+    w_p = _f32(fallback.price_weight)
+    lam = _f32(fallback.lam)
+    e = _fma(w_p, e_p, _one_minus(w_p) * e_a)
+    return _fma(_one_minus(lam), err, lam * e)
+
+
+def _fallback_prev1(pred):
+    """(K, T, 2) realized 1-step-ahead forecast series: at slot t, the value
+    the predictor issued at t-1 for t. Slot 0 uses its own observed-present
+    row, so the monitor starts cold (zero error)."""
+    return torch.cat([pred[:, :1, 0, :], pred[:, :-1, 1, :]], dim=1)
+
+
+def _slot_telemetry(j: JobArrays, n_prev_before, z, n_o, n_s, active,
+                    price, av):
+    """One flight-recorder sample, taken AFTER :func:`_execute` ran the
+    slot: the spot/on-demand cost split billed this slot, cumulative
+    progress, and the reconfiguration events — ``preempt`` flags a shrink
+    forced by supply (available spot fell below last slot's allocation).
+    Elementwise on the (K, P) state; never called when collect is off."""
+    n = n_o + n_s
+    act_f = active.to(_F32)
+    up = active & (n > n_prev_before)
+    down = active & (n < n_prev_before)
+    preempt = down & (av < n_prev_before)
+    return (
+        act_f * n_s.to(_F32) * price,
+        act_f * n_o.to(_F32) * j.p_o,
+        z,
+        active,
+        up,
+        down,
+        preempt,
+    )
+
+
+def _telemetry_out(keys, samples) -> dict:
+    """Per-slot samples (a list over slots of tuples in ``keys`` order) as
+    (K, P, T) result entries, stacked once after the loop."""
+    return {key: torch.stack(series, dim=2)
+            for key, series in zip(keys, zip(*samples))}
+
+
 def _finalize(j: JobArrays, tput, z, cost, done, T, no_hist, ns_hist):
     """Termination configuration (N^max on-demand past the deadline)."""
     h_max = tput.alpha * j.n_max.to(_F32) + tput.beta
@@ -345,9 +476,21 @@ def _init_state(k: int, p: int, device):
 
 
 def _simulate_lanes_ahap(omega, v, sigma, rho, jobs: JobArrays, tput,
-                         prices, avail, pred, backend, device):
+                         prices, avail, pred, backend, device,
+                         collect: bool = False, fallback=None):
     """Every (job, AHAP lane) pair over the market slots. Each slot issues
-    ONE window solve over the flattened (K * P) rows."""
+    ONE window solve over the flattened (K * P) rows.
+
+    ``collect`` adds the ``_TEL_SLOTS`` series. ``fallback`` arms the
+    prediction-health monitor: a forecast-error EWMA of shape (K, 1), one
+    value per job (every lane of a job reads the same forecast stack),
+    updated before the slot's rule; while it exceeds the threshold every
+    AHAP lane of the job takes the prediction-free AHANP decision, whose
+    "previous availability" is the shifted supply (not the active-masked
+    one the cheap lanes carry). The window solve still runs for every row
+    every slot, so plans keep updating underneath and recovery resumes
+    AHAP with a warm history. With collect also on, the ``_TEL_FALLBACK``
+    series join the result."""
     k, dmax = prices.shape
     p = omega.shape[0]
     j, j3 = _columns(jobs), _columns(jobs, 2)
@@ -355,9 +498,18 @@ def _simulate_lanes_ahap(omega, v, sigma, rho, jobs: JobArrays, tput,
                                 for f in jobs]))
     z, n_prev, cost, done, T = _init_state(k, p, device)
     plans = torch.zeros((k, p, VMAX, W1MAX, 2), dtype=_F32, device=device)
-    no_hist, ns_hist = [], []
+    if fallback is not None:
+        thr = _f32(fallback.threshold)
+        prev1 = _fallback_prev1(pred)                   # (K, dmax, 2)
+        prev_av = torch.cat([avail[:, :1], avail[:, :-1]], dim=1)
+        err = torch.zeros((k, 1), dtype=_F32, device=device)
+        lane_sigma = sigma[None, :]
+    no_hist, ns_hist, tel = [], [], []
     for t in range(dmax):
         price, av = prices[:, t:t + 1], avail[:, t:t + 1]
+        if fallback is not None:
+            err = _fallback_error(fallback, err, price, av, prev1[:, t])
+            fb = err > thr                              # (K, 1)
         pr_t, thr_t, zee_t, eff_t = _ahap_precompute(
             j3, omega, sigma, rho, t, pred[:, t]
         )
@@ -365,25 +517,45 @@ def _simulate_lanes_ahap(omega, v, sigma, rho, jobs: JobArrays, tput,
             rows, j, tput, v, backend, device, z, t, price, av, plans,
             pr_t, thr_t, zee_t, eff_t,
         )
-        z, n_prev, cost, done, T, n_o, n_s, _ = _execute(
+        if fallback is not None:
+            an_o, an_s = _ahanp_rule(j, lane_sigma, z, t, price, av, n_prev,
+                                     prev_av[:, t:t + 1])
+            n_o = torch.where(fb, an_o, n_o)
+            n_s = torch.where(fb, an_s, n_s)
+        n_prev0 = n_prev
+        z, n_prev, cost, done, T, n_o, n_s, active = _execute(
             j, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av
         )
         no_hist.append(n_o)
         ns_hist.append(n_s)
-    return _finalize(j, tput, z, cost, done, T, no_hist, ns_hist)
+        if collect:
+            sample = _slot_telemetry(j, n_prev0, z, n_o, n_s, active, price,
+                                     av)
+            if fallback is not None:
+                sample += (fb.expand(k, p), err.expand(k, p))
+            tel.append(sample)
+    out = _finalize(j, tput, z, cost, done, T, no_hist, ns_hist)
+    if collect:
+        keys = _TEL_SLOTS + (_TEL_FALLBACK if fallback is not None else ())
+        out.update(_telemetry_out(keys, tel))
+    return out
 
 
 def _simulate_one_cheap(kind, sigma, cfrac, jobs: JobArrays, tput, prices,
-                        avail):
+                        avail, collect: bool = False, fallback=None):
     """Every (job, non-AHAP lane) pair (AHANP/OD/MSU/UP/RAND_DEADLINE): no
-    forecasts, no window DP. kind/sigma/cfrac are (P,) lane parameters."""
+    forecasts, no window DP. kind/sigma/cfrac are (P,) lane parameters.
+    ``collect`` adds the ``_TEL_SLOTS`` series. Cheap lanes consume no
+    forecasts, so ``fallback`` never changes their decisions; with collect
+    it only adds all-zero ``_TEL_FALLBACK`` placeholders, so the merged
+    pool result keeps one key set."""
     k, dmax = prices.shape
     p = kind.shape[0]
     j = _columns(jobs)
     kind, sigma, cfrac = kind[None, :], sigma[None, :], cfrac[None, :]
     z, n_prev, cost, done, T = _init_state(k, p, prices.device)
     prev_avail = avail[:, :1].expand(k, p)
-    no_hist, ns_hist = [], []
+    no_hist, ns_hist, tel = [], [], []
     for t in range(dmax):
         price, av = prices[:, t:t + 1], avail[:, t:t + 1]
         rules = (
@@ -399,13 +571,25 @@ def _simulate_one_cheap(kind, sigma, cfrac, jobs: JobArrays, tput, prices,
         for kind_id, (r_o, r_s) in rules:
             n_o = torch.where(kind == kind_id, r_o, n_o)
             n_s = torch.where(kind == kind_id, r_s, n_s)
+        n_prev0 = n_prev
         z, n_prev, cost, done, T, n_o, n_s, active = _execute(
             j, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av
         )
         prev_avail = torch.where(active, av, prev_avail)
         no_hist.append(n_o)
         ns_hist.append(n_s)
-    return _finalize(j, tput, z, cost, done, T, no_hist, ns_hist)
+        if collect:
+            tel.append(_slot_telemetry(j, n_prev0, z, n_o, n_s, active,
+                                       price, av))
+    out = _finalize(j, tput, z, cost, done, T, no_hist, ns_hist)
+    if collect:
+        out.update(_telemetry_out(_TEL_SLOTS, tel))
+        if fallback is not None:
+            out["tel_fallback"] = torch.zeros((k, p, dmax), dtype=torch.bool,
+                                              device=prices.device)
+            out["tel_pred_err"] = torch.zeros((k, p, dmax), dtype=_F32,
+                                              device=prices.device)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -446,10 +630,15 @@ def _scatter_merge(parts, index_arrays, device):
 
 def simulate_pool_jobs(pool_arrays: dict, jobs: JobArrays,
                        tput: ThroughputConfig, prices, avail, pred,
-                       backend: Optional[str] = None, device=None) -> dict:
+                       backend: Optional[str] = None, device=None,
+                       collect: bool = False, fallback=None) -> dict:
     """Simulate every (job, policy) pair: a dict of (K, P, ...) tensors in
     pool order (utility, value, cost, completion_time, z_ddl, completed,
-    n_od, n_spot).
+    n_od, n_spot). ``collect=True`` adds the (K, P, T) ``tel_*``
+    flight-recorder series; ``fallback`` (a
+    :class:`repro_torch.chaos.FallbackConfig`) arms the AHAP lanes'
+    prediction-failure monitor. Both defaults run the ops of the program
+    without them.
 
     ``pool_arrays`` from specs_to_arrays (numpy or tensors); ``jobs``
     stacked (K,) JobArrays; prices/avail (K, d_max), pred
@@ -471,13 +660,14 @@ def simulate_pool_jobs(pool_arrays: dict, jobs: JobArrays,
         parts.append(_simulate_lanes_ahap(
             lane(omega, _I32), lane(v, _I32), lane(sigma, _F32),
             lane(rho, _F32), jobs, tput, prices, avail, pred, backend, dev,
+            collect=collect, fallback=fallback,
         ))
         idxs.append(ahap_idx)
     if other_idx.size:
         kind, sigma, cfrac = cheap_args
         parts.append(_simulate_one_cheap(
             lane(kind, _I32), lane(sigma, _F32), lane(cfrac, _F32), jobs,
-            tput, prices, avail,
+            tput, prices, avail, collect=collect, fallback=fallback,
         ))
         idxs.append(other_idx)
     return _scatter_merge(parts, idxs, dev)
@@ -485,13 +675,16 @@ def simulate_pool_jobs(pool_arrays: dict, jobs: JobArrays,
 
 def simulate_pool(pool_arrays: dict, j: JobArrays, tput: ThroughputConfig,
                   prices, avail, pred, backend: Optional[str] = None,
-                  device=None) -> dict:
-    """One job: ``j`` holds scalar leaves, prices/avail are (d_max,) and pred
-    (d_max, W1MAX, 2). Returns a dict of (P, ...) tensors in pool order."""
+                  device=None, collect: bool = False, fallback=None) -> dict:
+    """One job: ``j`` holds scalar leaves (:meth:`JobArrays.of`),
+    prices/avail are (d_max,) and pred (d_max, W1MAX, 2). Returns a dict of
+    (P, ...) tensors in pool order; ``collect`` and ``fallback`` as in
+    :func:`simulate_pool_jobs`."""
     jobs = JobArrays(*[np.asarray(_host(f))[None] for f in j])
     out = simulate_pool_jobs(
         pool_arrays, jobs, tput, _host(prices)[None], _host(avail)[None],
-        _host(pred)[None], backend=backend, device=device,
+        _host(pred)[None], backend=backend, device=device, collect=collect,
+        fallback=fallback,
     )
     return {k: v[0] for k, v in out.items()}
 

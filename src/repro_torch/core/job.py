@@ -1,6 +1,7 @@
 """Fine-tuning job model in torch: the deadline value function V(T) (Eq. 4)
 and its reformulation Ṽ(Z^ddl) (Eq. 9), plus the EG selector's per-job
-utility normalization. Port of the JAX package's ``core/job.py``.
+utility normalization (one job, or a stacked batch). Port of the JAX
+package's ``core/job.py``.
 
 Ṽ absorbs the *termination configuration*: any workload left at the deadline
 is finished immediately with N^max on-demand instances, so the value and the
@@ -28,6 +29,11 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, _f32(lo, x)), _f32(hi, x))
 
 
+def expected_progress(job: JobConfig, t):
+    """Uniform workload slicing Z^exp_t = (L/d) * t (Eq. 6)."""
+    return job.workload / job.deadline * t
+
+
 def value_fn(job: JobConfig, T):
     """V(T), Eq. 4: full value v until d, linear decay to 0 at gamma*d."""
     v, d, g = job.value, job.deadline, job.gamma
@@ -53,6 +59,25 @@ def tilde_value(job: JobConfig, tput: ThroughputConfig, z_ddl):
     val = value_fn(job, job.deadline + dt)
     post_cost = job.on_demand_price * job.n_max * dt
     return val - post_cost
+
+
+def normalization_bounds(job: JobConfig):
+    """(u_min, u_max) for the EG selector's normalized utility (Thm. 2 needs
+    u in [0,1]). u_max = v; u_min = worst feasible spend with zero value."""
+    u_max = job.value
+    u_min = -job.on_demand_price * job.n_max * job.gamma * job.deadline
+    return u_min, u_max
+
+
+def normalize_utility(job: JobConfig, u) -> torch.Tensor:
+    """One job's utilities mapped to [0, 1], as an f32 tensor. The
+    arithmetic runs in ``u``'s own float dtype, as the reference's runs in
+    numpy's before its clip casts to f32."""
+    lo, hi = normalization_bounds(job)
+    u = torch.as_tensor(u)
+    if not u.is_floating_point():
+        u = u.to(torch.float32)
+    return torch.clamp((u - lo) / (hi - lo), 0.0, 1.0).to(torch.float32)
 
 
 def normalization_bounds_batch(jobs):

@@ -129,7 +129,7 @@ def eg_init(n_policies: int, horizon: int, eta: Optional[float] = None,
 
 
 def run_eg_scan(state: EGState, utilities: torch.Tensor,
-                track_history: bool = False):
+                track_history: bool = False, collect: bool = False):
     """Run the EG update over every row of ``utilities`` ((K, M), clipped to
     [0, 1] here exactly like the numpy loop), on the state's device.
     Returns ``(final_state, traj)``; ``traj`` holds the per-job
@@ -138,14 +138,20 @@ def run_eg_scan(state: EGState, utilities: torch.Tensor,
       max_weight  (K,)   max_m w_k[m] — iters-to-half-weight reads off this
       regret      (K,)   max_m cum_utils - cum_expected after job k
       weights     (K, M) only when ``track_history``
+      entropy     (K,)   only when ``collect`` — Shannon entropy of w_k,
+                         the flight recorder's convergence gauge
+      top_policy  (K,)   only when ``collect`` — argmax_m w_k[m], i32
+                         (first-max ties, matching the numpy loop)
 
-    The numpy loop floors weights at 1e-300 before the log; in f32 the floor
-    is the smallest normal. Chaining calls on consecutive row blocks equals
-    one call on their concatenation (the engine's chunked mode)."""
+    Both flags only add outputs: with them off the loop runs the ops it ran
+    without them. The numpy loop floors weights at 1e-300 before the log;
+    in f32 the floor is the smallest normal. Chaining calls on consecutive
+    row blocks equals one call on their concatenation (the engine's
+    chunked mode)."""
     u_all = torch.clamp(utilities.to(torch.float32), 0.0, 1.0)
     tiny = torch.finfo(torch.float32).tiny
     w, eta, k, ce, cu = state
-    max_w, regrets, hist = [], [], []
+    max_w, regrets, hist, ent, top = [], [], [], [], []
     for u in u_all:
         ce = ce + torch.dot(w, u)
         cu = cu + u
@@ -157,6 +163,9 @@ def run_eg_scan(state: EGState, utilities: torch.Tensor,
         regrets.append(cu.max() - ce)
         if track_history:
             hist.append(w)
+        if collect:
+            ent.append(-torch.sum(w * torch.log(torch.clamp_min(w, tiny))))
+            top.append(torch.argmax(w))
     n = u_all.shape[0]
     empty = u_all.new_zeros((0,))
     traj = {
@@ -166,6 +175,10 @@ def run_eg_scan(state: EGState, utilities: torch.Tensor,
     if track_history:
         traj["weights"] = (torch.stack(hist) if n
                            else u_all.new_zeros((0, w.shape[0])))
+    if collect:
+        traj["entropy"] = torch.stack(ent) if n else empty
+        traj["top_policy"] = (torch.stack(top).to(torch.int32) if n
+                              else empty.to(torch.int32))
     return EGState(w, eta, k + n, ce, cu), traj
 
 

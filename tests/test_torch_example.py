@@ -1,0 +1,74 @@
+"""The port's policy-selection example (``examples/policy_selection_torch.py``)
+run as a program, against the same loop through the JAX package's functions
+(the loop of ``examples/policy_selection.py``, cut to 20 jobs).
+
+The final leader is exact. The regret is printed to two decimals; the
+utilities of the two packages agree to an ulp of the slot bill (ROADMAP
+Queue 3, entry 3), so the printed regret is held to its rounding."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from repro.configs.base import JobConfig, ThroughputConfig
+from repro.core import fast_sim
+from repro.core.job import normalize_utility
+from repro.core.market import vast_like_trace
+from repro.core.policy_pool import baseline_specs, paper_pool, specs_to_arrays
+from repro.core.predictor import NoisyPredictor
+from repro.core.selector import (best_policy, init_selector, regret,
+                                 regret_bound, select, update)
+
+ROOT = Path(__file__).resolve().parents[1]
+N_JOBS = 20
+
+
+def _reference_loop(k_jobs):
+    """examples/policy_selection.py's loop on the JAX package."""
+    tput = ThroughputConfig(mu1=0.9, mu2=0.95)
+    pool = paper_pool() + baseline_specs()
+    arrs = specs_to_arrays(pool)
+    market = vast_like_trace(seed=3, days=40, mean_price=0.7,
+                             price_sigma=0.5, avail_mean=5.5,
+                             avail_season_amp=3.0)
+    rng = np.random.default_rng(0)
+    st = init_selector(len(pool), k_jobs)
+    for k in range(k_jobs):
+        job = JobConfig(workload=float(rng.uniform(70, 120)), deadline=10,
+                        n_min=int(rng.integers(1, 4)),
+                        n_max=int(rng.integers(12, 17)), value=120.0)
+        tr = market.window(int(rng.integers(0, len(market) - 11)), 11)
+        pred = NoisyPredictor(tr, "fixed_uniform", 0.15, seed=k).matrix(5)
+        prices, avail, pm = fast_sim.prepare_inputs(tr, pred, job.deadline)
+        select(st, rng)
+        out = fast_sim.simulate_pool(arrs, fast_sim.JobArrays.of(job), tput,
+                                     prices, avail, pm)
+        st = update(st, np.asarray(normalize_utility(
+            job, np.asarray(out["utility"]))))
+    return pool, st
+
+
+def test_example_matches_reference_loop():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "policy_selection_torch.py"),
+         "--jobs", str(N_JOBS), "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    leader = re.search(rf"selected policy after {N_JOBS} jobs: (\S+) "
+                       r"\(weight ([0-9.]+)\)", proc.stdout)
+    final = re.search(r"final regret ([0-9.]+) <= bound ([0-9.]+): (\w+)",
+                      proc.stdout)
+    assert leader and final, proc.stdout
+
+    pool, st = _reference_loop(N_JOBS)
+    b = best_policy(st)
+    assert leader.group(1) == pool[b].name
+    assert float(leader.group(2)) == round(float(st.weights[b]), 3)
+    assert abs(float(final.group(1)) - regret(st)) <= 0.005 + 1e-6
+    assert float(final.group(2)) == round(regret_bound(len(pool), N_JOBS), 2)
+    assert final.group(3) == str(regret(st) <= regret_bound(len(pool),
+                                                             N_JOBS))

@@ -195,3 +195,97 @@ def test_convert_round_trips():
     back = ref_sel.EGState(**convert.eg_state_to_numpy(ts))
     for f in ref_sel.EGState._fields:
         _eq(getattr(st, f), getattr(back, f))
+
+
+@pytest.mark.parametrize("alpha,beta,mu1,mu2", [
+    (1.0, 0.0, 0.9, 0.95), (0.7, 0.3, 0.75, 0.85), (1.3, 0.1, 1.0, 0.6)])
+def test_throughput_model_bit_equal(alpha, beta, mu1, mu2):
+    import importlib
+
+    from repro.configs.base import ThroughputConfig as RefTput
+    from repro_torch.core import throughput as tp
+
+    # repro.core re-exports a function under the module's name
+    ref_tp = importlib.import_module("repro.core.throughput")
+
+    ref_t = RefTput(alpha=alpha, beta=beta, mu1=mu1, mu2=mu2)
+    t = tb.ThroughputConfig(alpha=alpha, beta=beta, mu1=mu1, mu2=mu2)
+    rng = np.random.default_rng(int(alpha * 10))
+    n_prev = rng.integers(0, 5, 64).astype(np.int32)
+    n_now = rng.integers(0, 5, 64).astype(np.int32)
+    n_now[:8] = n_prev[:8]                      # unchanged, zeros included
+    n_prev[8:12] = n_now[8:12] = 0
+    for a, b in (
+        (ref_tp.throughput(ref_t, n_now),
+         tp.throughput(t, torch.from_numpy(n_now))),
+        (ref_tp.mu_factor(ref_t, n_prev, n_now),
+         tp.mu_factor(t, torch.from_numpy(n_prev), torch.from_numpy(n_now))),
+        (ref_tp.effective_work(ref_t, n_prev, n_now),
+         tp.effective_work(t, torch.from_numpy(n_prev),
+                           torch.from_numpy(n_now))),
+    ):
+        _eq(a, b.numpy())
+    # python scalars
+    assert float(tp.effective_work(t, 2, 3)) == \
+        float(ref_tp.effective_work(ref_t, 2, 3))
+    assert float(tp.throughput(t, 0)) == 0.0
+
+
+def test_job_scalars_bit_equal():
+    """expected_progress, normalization_bounds and the one-job
+    normalize_utility, on python scalars and on f32 / f64 arrays."""
+    rng = np.random.default_rng(7)
+    for _ in range(4):
+        kw = dict(workload=float(rng.uniform(20, 120)),
+                  deadline=int(rng.integers(2, 12)),
+                  n_min=int(rng.integers(1, 4)),
+                  n_max=int(rng.integers(4, 17)),
+                  value=float(rng.uniform(10, 200)),
+                  gamma=float(rng.uniform(1.2, 3.0)),
+                  on_demand_price=float(rng.uniform(0.5, 2.0)))
+        rj, pj = ref_job.JobConfig(**kw), tb.JobConfig(**kw)
+        assert ref_job.normalization_bounds(rj) == \
+            job.normalization_bounds(pj)
+        for t in (0, 3, 7.5):
+            assert ref_job.expected_progress(rj, t) == \
+                job.expected_progress(pj, t)
+        ts = np.arange(kw["deadline"], dtype=np.int32)
+        _eq(ref_job.expected_progress(rj, jnp.asarray(ts)),
+            job.expected_progress(pj, torch.from_numpy(ts)).numpy())
+        lo, hi = job.normalization_bounds(pj)
+        u = rng.uniform(lo * 1.1, hi * 1.1, 40)
+        for arr in (u.astype(np.float32), u):
+            want = ref_job.normalize_utility(rj, arr)
+            got = job.normalize_utility(pj, arr)
+            assert got.dtype == torch.float32
+            _eq(want, got.numpy())
+        _eq(ref_job.normalize_utility(rj, u.astype(np.float32)),
+            job.normalize_utility(
+                pj, torch.from_numpy(u.astype(np.float32))).numpy())
+
+
+def test_job_arrays_of_concat_unstack_bit_equal():
+    jobs = list(ref_common.job_stream(np.random.default_rng(6), 5))
+    port_jobs = [tb.JobConfig(**dataclasses.asdict(j)) for j in jobs]
+    for rj, pj in zip(jobs, port_jobs):
+        for x, y in zip(ref_fs.JobArrays.of(rj), fast_sim.JobArrays.of(pj)):
+            _eq(x, y)
+    parts = [ref_common.job_stream_arrays(np.random.default_rng(s), n,
+                                          workload_scale=w)
+             for s, n, w in ((1, 3, 0.8), (2, 1, 1.0), (3, 4, 1.15))]
+    want = ref_fs.concat_jobs(parts)
+    got = fast_sim.concat_jobs(parts)
+    for x, y in zip(want, got):
+        _eq(x, y)
+    assert fast_sim.concat_jobs(parts[:1]) is parts[0]
+    for a, b in zip(fast_sim.slice_jobs(got, 3, 4), parts[1]):
+        _eq(a, b)
+    ref_rows = ref_fs.unstack_jobs(want)
+    rows = fast_sim.unstack_jobs(got)
+    assert [dataclasses.asdict(r) for r in ref_rows] == \
+        [dataclasses.asdict(r) for r in rows]
+    # unstack reads tensor leaves too, and stack_jobs inverts it
+    rows_t = fast_sim.unstack_jobs(convert.job_arrays(got, "cpu"))
+    assert rows_t == rows
+    for x, y in zip(fast_sim.stack_jobs(rows), got):
+        _eq(x, y)

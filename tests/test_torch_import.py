@@ -40,6 +40,23 @@ def test_import_loads_neither_jax_nor_reference():
     assert n_modules >= 15, proc.stdout
 
 
+@pytest.mark.parametrize("module", ["repro_torch.chaos", "repro_torch.obs",
+                                    "repro_torch.data",
+                                    "repro_torch.scenarios"])
+def test_host_packages_load_neither_jax_nor_reference(module):
+    """The numpy-only copies (fault injection, the flight recorder's
+    ledgers, the regime generators) and the stress workloads stand alone
+    too, each imported first in a fresh process."""
+    proc = _run(
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or"
+        " k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_kernel_module_imports_without_nvcc(tmp_path):
     """Importing the kernel module builds nothing; without a compiler the
     build raises (no fallback), while CPU tensors still take the plain
