@@ -37,7 +37,18 @@ sm_90a each, all started together, and then drives four paths on the card:
   without and with the prediction-failure monitor and the flight
   recorder; one run traced) and the scenario grid (``[grid]``: 48 market
   regimes x 16 jobs, one ``collect=True`` pass), held against the JAX
-  reference's winners, fallback events and winner map.
+  reference's winners, fallback events and winner map;
+- the regional selection path (``[region]``: benchmarks/region_e2e.py's
+  1000 jobs x the 36-lane ``region_pool()`` x 3 regions x 16 slots, chunks
+  of 256 through a double-buffered ``prep=`` closure, flat and with
+  per-region on-demand prices; one K1 forecast-entry launch a slot a
+  chunk), held against the JAX reference's winner, iters-to-half,
+  migrations and regret, ``prep=`` bit-equal to the arrays, migrations
+  reconciled, one run traced;
+- the host reference chain (``[oracle]``: the python policies, the
+  regional and single-region reference simulators, the offline optimum)
+  against the vectorized lanes on the card, each python AHAP window on
+  K1's table entry.
 
 It times each kernel beside its bound, its plain version and a PyTorch
 yardstick. Any failed phase raises and the script exits nonzero. Without a
@@ -52,6 +63,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -135,6 +147,35 @@ JAX_GRID = ((122, 122, 21, 70, 70, 70, 42, 21, 122, 122, 122, 122, 70, 70,
 # ledger's f64 recomposition): the bound tests/test_telemetry.py's
 # cost-reconciliation property states
 RESIDUAL_BOUND = 1e-3
+
+# ---- [region] and [oracle]: the regional selection path and the host
+# reference chain ----
+# [region]: benchmarks/region_e2e.py's full size: 1000 jobs x the 36-lane
+# region_pool() x 3 phase-shifted regions x 16 slots, fixed_uniform 0.1,
+# chunks of 256 jobs through a prep= closure; flat, then with per-region
+# on-demand multipliers. The JAX reference on these inputs, recorded on the
+# CPU by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_region_refs.py
+# per run: (best_policy, iters_to_half, regret_ratio, total migrations).
+JAX_REGION = {
+    "flat": (29, 1000, 0.1727200057337932, 69510),
+    "p_od": (29, 1000, 0.17224633605993128, 69689),
+}
+REGION_JOBS, REGION_SLOTS, REGION_CHUNK = 1000, 16, 256
+REGION_P_OD = (1.0, 1.3, 0.8)
+REGION_NOISE = ("fixed_uniform", 0.1)
+# one forecast-entry K1 launch a slot a chunk
+REGION_LAUNCHES = REGION_SLOTS * -(-REGION_JOBS // REGION_CHUNK)
+# the torch-drawn forecast stack against the numpy one: the same winner,
+# the regret ratio within this (absolute), as the JAX package holds its
+# JAX-PRNG stack
+TORCH_PREP_REGRET_ATOL = 0.05
+# [oracle]: the python reference chain against the vectorized lanes on the
+# card, for ORACLE_JOBS jobs (region lanes on the [region] workload, the
+# single-region paper_pool on the first Fig. 9 setting): allocations, region
+# paths and migrations exact, utilities to ROADMAP Queue 3, entry 3
+ORACLE_JOBS = 6
+ORACLE_RTOL, ORACLE_ATOL = 1e-5, 1e-4
 
 # ---- dense-model serving ----
 # [serve-ref]: the llama2-7b smoke config (2 layers, d 256, f32) with
@@ -274,7 +315,8 @@ def _tables(b, w1, tn, seed, torch, dev):
             torch.from_numpy(gain).to(dev))
 
 
-def _compare_k1(name, slot_cost, gain, torch, window_dp, window_dp_ref):
+def _compare_k1(name, slot_cost, gain, torch, window_dp, window_dp_ref,
+                quiet=False):
     """K1 against the plain DP on the same card tensors: bit-equal."""
     launches = window_dp.launches
     n_k, o_k = window_dp(slot_cost, gain)
@@ -290,8 +332,9 @@ def _compare_k1(name, slot_cost, gain, torch, window_dp, window_dp_ref):
         else 0.0
     if not torch.equal(o_k, o_r):
         _fail(f"K1 obj differs from the plain DP on {name}: max {err}")
-    print(f"[k1] {name}: B={slot_cost.shape[0]} w1={slot_cost.shape[1]} "
-          f"tn={slot_cost.shape[2] - 1} bit-equal")
+    if not quiet:
+        print(f"[k1] {name}: B={slot_cost.shape[0]} w1={slot_cost.shape[1]} "
+              f"tn={slot_cost.shape[2] - 1} bit-equal")
     return err
 
 
@@ -512,14 +555,29 @@ def _phase_time_k1(torch, k1, tput, window_dp_ref, window_dp_rows_ref,
     return out
 
 
+class _DeviceRow(NamedTuple):
+    """Device events of one name: ``count`` of them, ``self_device_time_
+    total`` us in all (the fields ``key_averages`` rows have)."""
+    key: str
+    count: int
+    self_device_time_total: float
+
+
 def _device_events(prof):
-    """The profiled window's device events (``key_averages`` rows with
-    device self time; one stream, so they do not overlap)."""
+    """The profiled window's device events, one row per name (one stream,
+    so they do not overlap), summed from the profiler's raw results:
+    ``key_averages`` makes a python object of every host and device event
+    first, ~9 s for a regional run's 57,000 device events."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.duration_ns() <= 0):
+            continue
+        count, us = rows.get(e.name(), (0, 0.0))
+        rows[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
+    return [_DeviceRow(k, c, us) for k, (c, us) in rows.items()]
 
 
 def _phase_trace_selection(torch, engine, fast_sim, window_opt, pool, inp,
@@ -818,6 +876,345 @@ def _phase_trace_chaos(torch, engine, inp):
           f"; K1 {k1_ms:.3f} ms ({k1_ms / busy:.1%} of busy, "
           f"{sum(e.count for e in k1_ev)} launches); "
           f"{sum(e.count for e in events)} device events")
+
+
+def _region_workload(np):
+    """benchmarks/region_e2e.py's workload, drawn as it draws it (seed 7:
+    jobs, then window starts; per-job forecast seeds)."""
+    from repro_torch import workload
+    from repro_torch.core.region_market import vast_like_regions
+
+    market = vast_like_regions(
+        3, seed=13, days=8, phase_hours=(0.0, 8.0, 16.0), mean_price=0.7,
+        price_sigma=0.5, avail_mean=5.5, avail_season_amp=3.0, delta_mig=1)
+    rng = np.random.default_rng(SEED)
+    jobs = workload.job_stream_arrays(rng, REGION_JOBS, REGION_SLOTS)
+    t0s = rng.integers(0, len(market) - REGION_SLOTS - 1, size=REGION_JOBS)
+    seeds = SEED * 100003 + np.arange(REGION_JOBS)
+    return market, jobs, t0s, seeds
+
+
+def _same_selection(a, b) -> bool:
+    """Two SelectionResults select alike bit for bit: final EG state,
+    trajectories and mean utilities."""
+    import numpy as np
+
+    return bool(a.state.weights.equal(b.state.weights)
+                and np.array_equal(a.max_weight, b.max_weight)
+                and np.array_equal(a.regret, b.regret)
+                and np.array_equal(a.mean_utility, b.mean_utility))
+
+
+def _phase_region(torch, np, engine, fast_sim, k1):
+    """The regional selection path on the card at region_e2e.py's full
+    size, flat and with REGION_P_OD: each once through a prep= closure (the
+    side-stream double buffer; the timed run) and once from prebuilt
+    arrays with collect=True (the same selection bit for bit, so prep=
+    and the recorder change nothing; migrations reconciled across chunks);
+    REGION_LAUNCHES forecast-entry K1 launches a run; JAX_REGION held. Then
+    the prep / simulate / select split, the numpy and torch forecast stacks
+    beside each other (the torch one's winner and regret against numpy's),
+    and one traced run. Returns the forecast-entry launches of the checked
+    runs."""
+    from repro_torch.core.policy_pool import region_pool, specs_to_arrays
+    from repro_torch.core import selector
+    from repro_torch.obs import ledger
+    from repro_torch.workload import PAPER_TPUT
+
+    t_start = time.perf_counter()
+    specs = region_pool()
+    pool = specs_to_arrays(specs)
+    market, jobs, t0s, seeds = _region_workload(np)
+    kind, level = REGION_NOISE
+
+    def prep(backend="numpy"):
+        return lambda lo, hi: engine.prepare_noisy_inputs_regions(
+            market, t0s[lo:hi], REGION_SLOTS, kind, level, seeds[lo:hi],
+            prep_backend=backend)
+
+    def run(p_od, arrays=None, **kw):
+        args = arrays if arrays is not None else (None, None, None)
+        return engine.simulate_and_select(
+            pool, jobs, PAPER_TPUT, *args, delta_mig=market.delta_mig,
+            p_od=p_od, job_chunk=REGION_CHUNK,
+            prep=None if arrays is not None else prep(), **kw)
+
+    run(None)                                   # warm-up
+    arrays = prep()(0, REGION_JOBS)
+    launches = 0
+    walls = {}
+    for name, p_od in (("flat", None), ("p_od", REGION_P_OD)):
+        res = {}
+        for mode, kw in (("prep", {}),
+                         ("arrays", dict(collect=True, arrays=arrays))):
+            before = _k1_counts(k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[mode] = run(p_od, **kw)
+            walls[(name, mode)] = time.perf_counter() - t0
+            n = tuple(a - b for a, b in zip(_k1_counts(k1), before))
+            if n != (REGION_LAUNCHES, REGION_LAUNCHES):
+                _fail(f"[region] {name} {mode}: K1 launched {n[0]} times, "
+                      f"{n[1]} of them the forecast entry; expected "
+                      f"{REGION_LAUNCHES} forecast-entry launches")
+            launches += n[1]
+        out = res["arrays"].sim_out
+        u = out["utility"]
+        if u.shape != (REGION_JOBS, len(specs)) or not np.isfinite(u).all():
+            _fail(f"[region] {name}: utilities {u.shape} not finite")
+        if not _same_selection(res["prep"], res["arrays"]):
+            _fail(f"[region] {name}: prep= and the arrays (collect=True) "
+                  "select differently; they must be bit-equal")
+        recon = ledger.migration_reconciliation(out)
+        if not (recon["events_reconciled"] and recon["series_matches_leaf"]):
+            _fail(f"[region] {name}: migrations do not reconcile: {recon}")
+        r = res["prep"]
+        if name == "flat":
+            flat = r
+        best, t_half, ratio, migs = JAX_REGION[name]
+        got = (r.best_policy(), r.iters_to_half(), recon["total_migrations"])
+        if got != (best, t_half, migs):
+            _fail(f"[region] {name}: (best, iters_to_half, migrations) {got} "
+                  f"!= JAX {(best, t_half, migs)}")
+        if abs(r.regret_ratio() - ratio) > REGRET_RTOL * ratio:
+            _fail(f"[region] {name}: regret_ratio {r.regret_ratio()} vs JAX "
+                  f"{ratio}")
+        print(f"[region] {name}: {REGION_JOBS} jobs x {len(specs)} lanes x "
+              f"{market.n_regions} regions x {REGION_SLOTS} slots, chunks of "
+              f"{REGION_CHUNK}: engine with prep= {walls[(name, 'prep')]:.3f} "
+              f"s ({REGION_JOBS * len(specs) / walls[(name, 'prep')]:.0f} "
+              f"cells/s), arrays + collect {walls[(name, 'arrays')]:.3f} s; "
+              f"best "
+              f"{specs[r.best_policy()].name} iters_to_half {got[1]} "
+              f"regret_ratio {r.regret_ratio():.6f} migrations {got[2]} "
+              f"(mean {recon['migrations_mean']:.3f}, occupancy "
+              + ", ".join(f"{o:.3f}" for o in recon["region_occupancy"])
+              + f"); {REGION_LAUNCHES} K1 launches a run; matches JAX, "
+              "prep= bit-equal to the arrays, migrations reconcile")
+
+    # stage split (not double-buffered): prep, simulate, select, each
+    # synchronized
+    t0 = time.perf_counter()
+    arrays = prep()(0, REGION_JOBS)
+    prep_s = time.perf_counter() - t0
+    dev = torch.device(DEVICE)
+    jobs_d = fast_sim.jobs_to(jobs, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fast_sim.simulate_pool_regions(pool, jobs_d, PAPER_TPUT, *arrays,
+                                         delta_mig=market.delta_mig)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine._normalize_and_scan(jobs_d, out["utility"],
+                               selector.eg_init(len(specs), REGION_JOBS),
+                               False)
+    torch.cuda.synchronize()
+    sel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch_arrays = prep("torch")(0, REGION_JOBS)
+    torch.cuda.synchronize()
+    torch_prep_s = time.perf_counter() - t0
+    print(f"[split] region flat: prep (numpy, {REGION_JOBS} jobs x "
+          f"{market.n_regions} regions) {prep_s:.4f} s, simulate (unchunked) "
+          f"{sim_s:.4f} s, select {sel_s:.4f} s; forecast stack on the card "
+          f"(one batched counter-based draw) {torch_prep_s:.4f} s against "
+          f"numpy {prep_s:.4f} s")
+    r_t = run(None, arrays=torch_arrays)
+    if r_t.best_policy() != flat.best_policy() or abs(
+            r_t.regret_ratio() - flat.regret_ratio()) > TORCH_PREP_REGRET_ATOL:
+        _fail(f"[region] torch-drawn forecasts: best {r_t.best_policy()} "
+              f"regret_ratio {r_t.regret_ratio()} against numpy's "
+              f"{flat.best_policy()} {flat.regret_ratio()}")
+    print(f"[region] torch-drawn forecasts: best {r_t.best_policy()} "
+          f"regret_ratio {r_t.regret_ratio():.6f} (numpy "
+          f"{flat.regret_ratio():.6f}); same winner")
+
+    # device activity alone: a run is ~57,000 device events, and the
+    # host-side op events would multiply the profiler's own work
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run(None)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    events = _device_events(prof)
+    trace_s = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy == 0:
+        print(f"[trace] region: profiled wall {pwall:.4f} s; device time not "
+              "measured (the profiler recorded no device events)")
+        return launches
+    k1_ev = [e for e in events if "window_dp" in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1_ev) / 1e3
+    copies = [e for e in events if "Memcpy HtoD" in e.key]
+    print(f"[trace] region flat (prep=, 4 chunks): profiled wall "
+          f"{pwall:.4f} s; device busy {busy:.2f} ms = "
+          f"{busy / (pwall * 1e3):.1%} (idle {1 - busy / (pwall * 1e3):.1%})"
+          f"; K1 {k1_ms:.3f} ms ({k1_ms / busy:.1%} of busy, "
+          f"{sum(e.count for e in k1_ev)} launches); host-to-device copies "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms "
+          f"({sum(e.count for e in copies)}); "
+          f"{sum(e.count for e in events)} device events; the trace took "
+          f"{trace_s:.1f} s, the phase {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def _phase_oracle(torch, np, engine, fast_sim, k1, fig9_inputs):
+    """The host reference chain on the card: for ORACLE_JOBS jobs, every
+    region_pool lane of the [region] workload through the python regional
+    simulator (simulate_regional with the lane's build() /
+    build_selector(); AHAP's windows on K1's table entry) against
+    simulate_pool_regions, and every paper_pool lane of the first Fig. 9
+    setting through simulator.simulate against simulate_pool_jobs; the
+    offline optimum above every lane. Returns (forecast-entry launches,
+    table-entry launches)."""
+    from repro_torch.core import offline_opt, simulator
+    from repro_torch.core.market import from_arrays
+    from repro_torch.core.policy_pool import (paper_pool, region_pool,
+                                              specs_to_arrays)
+    from repro_torch.core.region_market import simulate_regional
+    from repro_torch.workload import PAPER_TPUT
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    k1.window_dp.launches = k1.window_dp_rows.launches = 0
+    n = ORACLE_JOBS
+
+    def check(what, got_u, want):
+        for key in ("n_spot", "n_od"):
+            if not np.array_equal(got_u[key], getattr(want, key)):
+                _fail(f"[oracle] {what}: {key} {got_u[key].tolist()} != the "
+                      f"python oracle's {getattr(want, key).tolist()}")
+        if abs(got_u["utility"] - want.utility) > (
+                ORACLE_ATOL + ORACLE_RTOL * abs(want.utility)):
+            _fail(f"[oracle] {what}: utility {got_u['utility']} vs the "
+                  f"python oracle's {want.utility}")
+
+    # region lanes
+    market, jobs, t0s, seeds = _region_workload(np)
+    kind, level = REGION_NOISE
+    rp, ra, rpm = engine.prepare_noisy_inputs_regions(
+        market, t0s[:n], REGION_SLOTS, kind, level, seeds[:n])
+    sub = fast_sim.slice_jobs(jobs, 0, n)
+    specs = region_pool()
+    out = fast_sim.simulate_pool_regions(
+        specs_to_arrays(specs), sub, PAPER_TPUT, rp, ra, rpm,
+        delta_mig=market.delta_mig)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    n_region = 0
+    for k, job in enumerate(fast_sim.unstack_jobs(sub)):
+        w = market.window(int(t0s[k]), REGION_SLOTS)
+        for i, spec in enumerate(specs):
+            ref = simulate_regional(spec.build(device=dev),
+                                    spec.build_selector(), job, PAPER_TPUT,
+                                    w, rpm[k])
+            what = f"job {k} {spec.name}"
+            check(what, {key: out[key][k, i] for key in
+                         ("n_spot", "n_od", "utility")}, ref)
+            done_at = len(ref.region_hist)
+            if ref.completed_by_deadline:
+                done_at = int(np.ceil(ref.completion_time))
+            if ref.migrations != int(out["migrations"][k, i]) or not \
+                    np.array_equal(out["region"][k, i, :done_at],
+                                   ref.region_hist[:done_at]):
+                _fail(f"[oracle] {what}: region path / migrations differ "
+                      "from the python oracle's")
+            n_region += 1
+    region_counts = _k1_counts(k1)
+
+    # single-region paper_pool lanes, and the offline optimum
+    jobs9, prices, avail, preds = fig9_inputs
+    sub = fast_sim.slice_jobs(jobs9, 0, n)
+    specs = paper_pool()
+    out = fast_sim.simulate_pool_jobs(specs_to_arrays(specs), sub,
+                                      PAPER_TPUT, prices[:n], avail[:n],
+                                      preds[:n])
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    gaps = []
+    for k, job in enumerate(fast_sim.unstack_jobs(sub)):
+        trace = from_arrays(prices[k], avail[k])
+        for i, spec in enumerate(specs):
+            ref = simulator.simulate(spec.build(device=dev), job, PAPER_TPUT,
+                                     trace, preds[k] if spec.kind == 0
+                                     else None)
+            check(f"Fig. 9 job {k} {spec.name}",
+                  {key: out[key][k, i] for key in
+                   ("n_spot", "n_od", "utility")}, ref)
+        opt = offline_opt.solve_offline(job, PAPER_TPUT, trace)
+        best = float(out["utility"][k].max())
+        if best > opt.utility + 1e-3:
+            _fail(f"[oracle] Fig. 9 job {k}: a lane's utility {best} beats "
+                  f"the offline optimum {opt.utility}")
+        gaps.append(opt.utility - best)
+    counts = _k1_counts(k1)
+    table = counts[0] - counts[1]
+    wall = time.perf_counter() - t_start
+    print(f"[oracle] {n} jobs: {n_region} regional (job, lane) runs of "
+          f"simulate_regional and {n * len(specs)} of simulator.simulate "
+          f"equal the vectorized lanes on the card (allocations, region "
+          f"paths, migrations exact; utilities to {ORACLE_RTOL:g} / "
+          f"{ORACLE_ATOL:g}); offline optimum above every lane (gap to the "
+          f"best lane {min(gaps):.4f}-{max(gaps):.4f}); K1 launches: "
+          f"{table} table entry (python AHAP decisions; "
+          f"{region_counts[0] - region_counts[1]} of them regional), "
+          f"{counts[1]} forecast entry; {wall:.2f} s")
+    return counts[1], table
+
+
+def _phase_time_k1_region(torch, k1, tput, window_dp_ref,
+                          window_dp_rows_ref, clock):
+    """K1 at the shapes this slice launches it with: the forecast entry at
+    B = 18 AHAP lanes x REGION_CHUNK jobs (the regional scan's rows a slot,
+    random rows) and the table entry at B = 1 (one python-AHAP window,
+    (w1, tn) = (4, 12)), each 25 launches in a CUDA graph beside its plain
+    version (events) and its bound; and the host wall of one
+    ``solve_window_numpy`` call (table in torch ops, K1, the plan back to
+    the host). Timing launches do not count."""
+    from repro_torch.configs.base import JobConfig
+    from repro_torch.core import window_opt
+
+    launches = (k1.window_dp.launches, k1.window_dp_rows.launches)
+    dev = torch.device(DEVICE)
+    b = 18 * REGION_CHUNK
+    rows = _forecast_rows(b, W1, TN, 2027, torch, dev)
+    fn = lambda: k1.window_dp_rows(rows[0], tput, *rows[1:], TN)
+    ms = _graph_ms(torch, fn)
+    plain = _event_ms(torch, lambda: window_dp_rows_ref(rows[0], tput,
+                                                        *rows[1:], TN), 5)
+    row_bytes = 4 * (2 * W1 + 2 + 7 + 2 * W1 + 1)
+    bound, b_ms, o_ms, _, _ = _k1_bound(b, W1, TN, row_bytes, clock)
+    out = {"forecast": {"B": b, "w1": W1, "tn": TN, "ms": ms,
+                        "plain_ms": plain, "bound_ms": bound,
+                        "bound_by": _bound_by(b_ms, o_ms)}}
+    job = JobConfig(workload=80.0, deadline=10, n_min=1, n_max=12,
+                    value=120.0)
+    z0, std, prices, avail = 31.5, 4, [0.4, 0.9, 0.55, 1.2], [5, 2, 9, 0]
+    args = (job, tput, z0, std, prices, avail, 1.0)
+    c, _, g = window_opt._unit_cost_table(
+        job, tput, torch.tensor([z0], device=dev),
+        torch.tensor([std], dtype=torch.int32, device=dev),
+        torch.tensor([prices], device=dev),
+        torch.tensor([avail], dtype=torch.int32, device=dev), 1.0, 12)
+    _compare_k1("a python AHAP window's table", c, g, torch, k1.window_dp,
+                window_dp_ref)
+    ms = _graph_ms(torch, lambda: k1.window_dp(c, g))
+    plain = _event_ms(torch, lambda: window_dp_ref(c, g), TIME_REPS)
+    w1, tn = len(prices), 12
+    row_bytes = 4 * (w1 * (tn + 1) + w1 * tn + 1 + w1 + 1)
+    bound, b_ms, o_ms, _, _ = _k1_bound(1, w1, tn, row_bytes, clock)
+    for _ in range(20):
+        window_opt.solve_window_numpy(*args)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        window_opt.solve_window_numpy(*args)
+    call_ms = (time.perf_counter() - t0) / 200 * 1e3
+    out["table"] = {"B": 1, "w1": w1, "tn": tn, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
+                    "call_ms": call_ms}
+    k1.window_dp.launches, k1.window_dp_rows.launches = launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1573,6 +1970,24 @@ def main() -> int:
     big_c, big_g = _tables(B_MAIN, W1, TN, 2024, torch, dev)
     max_err = max(max_err, _compare_k1("random tables", big_c, big_g, torch,
                                        window_dp, window_dp_ref))
+    # the table entry at every shape [oracle]'s python AHAP gives it: B = 1,
+    # w1 = omega + 1 over the AHAP lanes of both pools, tn = n_max over the
+    # job stream's range
+    from repro_torch.core.policy_pool import KIND_AHAP, region_pool
+    oracle_w1 = sorted({s.omega + 1 for s in paper_pool() + region_pool()
+                        if s.kind == KIND_AHAP})
+    oracle_tn = sorted(int(v) for v in
+                       np.unique(_region_workload(np)[1].n_max))
+    for w1 in oracle_w1:
+        for tn in oracle_tn:
+            for make, what in ((_tables, "random"), (_tie_tables, "ties")):
+                c, g = make(1, w1, tn, 7 * w1 + tn, torch, dev)
+                max_err = max(max_err, _compare_k1(
+                    f"the python AHAP's shape (1, {w1}, {tn}), {what}", c, g,
+                    torch, window_dp, window_dp_ref, quiet=True))
+    print(f"[k1] python AHAP's shapes: B=1, w1 in {oracle_w1}, tn in "
+          f"{oracle_tn}, random and tie tables: "
+          f"{2 * len(oracle_w1) * len(oracle_tn)} cases bit-equal")
     odd_tput = ThroughputConfig(alpha=0.7, beta=0.3)
     for b, w1, tn in ((1, 6, 16), (8, 6, 16), (13, 3, 5), (40, 1, 4),
                       (300, 6, 7)):
@@ -1751,6 +2166,23 @@ def main() -> int:
           f"chaos {chaos_launches}, grid {grid_launches}")
     _phase_trace_chaos(torch, engine, chaos_inp)
 
+    # ---- phase 4c: the regional selection path and the reference chain
+    region_launches = _phase_region(torch, np, engine, fast_sim, k1)
+    oracle_rows, oracle_table = _phase_oracle(torch, np, engine, fast_sim,
+                                              k1, inputs[SETTINGS[0]])
+    print(f"[launches] K1 forecast entry: region {region_launches}, oracle "
+          f"{oracle_rows}; K1 table entry: oracle {oracle_table}")
+    for entry, row in _phase_time_k1_region(
+            torch, k1, workload.PAPER_TPUT, window_dp_ref,
+            window_dp_rows_ref, _max_sm_clock_mhz()).items():
+        extra = (f"; one solve_window_numpy call (python AHAP, host wall) "
+                 f"{row['call_ms']:.3f} ms" if entry == "table" else "")
+        print(f"[time] card {card}: K1 {entry} entry at this slice's shape "
+              f"B={row['B']} (w1, tn) = ({row['w1']}, {row['tn']}): "
+              f"{row['ms'] * 1e3:.1f} us/launch in a CUDA graph; bound "
+              f"{row['bound_ms'] * 1e6:.3f} ns by {row['bound_by']}; plain "
+              f"{row['plain_ms'] * 1e3:.1f} us{extra}")
+
     # ---- phase 5: dense-model serving (K2, K3) ----
     kernels = (k2, k3, k4)
     gen = torch.Generator(device=dev)
@@ -1842,15 +2274,17 @@ def main() -> int:
               f"{rows['grouped']['launches']} launches on its serving path")
 
     # each K1 entry with its own main-path launches (window_dp.launches
-    # counts both; every launch of the Fig. 9 settings, the chaos runs and
-    # the grid pass is the forecast entry's)
+    # counts both): the forecast entry's in the Fig. 9 settings, the chaos
+    # runs, the grid pass, the regional runs and the oracle's vectorized
+    # lanes; the table entry's in the oracle's python AHAP decisions
     k1_entries = [
         _entry(f"window_dp/{entry}", "window_dp.cu",
                "src/repro/kernels/window_dp.py:36", own, max_err,
                k1_rows[entry])
         for entry, own in (
-            ("forecast", rows_launches + chaos_launches + grid_launches),
-            ("table", main_launches - rows_launches))]
+            ("forecast", rows_launches + chaos_launches + grid_launches
+             + region_launches + oracle_rows),
+            ("table", main_launches - rows_launches + oracle_table))]
     print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'

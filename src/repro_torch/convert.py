@@ -18,15 +18,14 @@ from repro_torch.models import transformer as tf
 
 _POOL_DTYPES = {"kind": torch.int32, "omega": torch.int32, "v": torch.int32,
                 "sigma": torch.float32, "rho": torch.float32,
-                "cfrac": torch.float32}
+                "cfrac": torch.float32, "rsel": torch.int32,
+                "rmargin": torch.float32}
 _EG_DTYPES = (torch.float32, torch.float32, torch.int32, torch.float32,
               torch.float32)
 
 
 def pool_arrays(pool: dict, device) -> dict:
-    """A ``specs_to_arrays`` pool dict -> the port's pool dict of tensors.
-    Keys the single-region port does not read (the region slots) are
-    dropped."""
+    """A ``specs_to_arrays`` pool dict -> the port's pool dict of tensors."""
     return {k: to_device(pool[k], dt, device)
             for k, dt in _POOL_DTYPES.items() if k in pool}
 

@@ -1,2 +1,4 @@
 """Scheduler core: market, forecasts, policy pool, job model, window
-solver, pool simulator, EG selector and the selection engine."""
+solver, pool simulator (one region and many), EG selector and the selection
+engine; and the host reference chain (python policies, reference
+simulators, offline optimum) the vectorized paths are held to."""

@@ -1,7 +1,7 @@
 """Vectorized policy-pool simulator in torch: every (job, policy) pair of the
 pool simulated over the market slots at once.
 
-Port of the JAX package's ``core/fast_sim.py`` (single region). Semantics,
+Port of the JAX package's ``core/fast_sim.py``. Semantics,
 rounding and feasibility rules are the reference's op for op; what changes
 is the batching. The reference vmaps a per-job scan over the jobs axis; here
 the state is one (K jobs, P lanes) batch, the scan is a Python loop over
@@ -12,6 +12,9 @@ one K1 launch on the card. The other kinds (AHANP/OD/MSU/UP/RAND_DEADLINE)
 run a cheap loop that never touches the window DP, and the two parts are
 scattered back to pool order.
 
+:func:`simulate_pool_regions` layers per-slot region selection over the
+same two scans (an R-region market, one current region per lane).
+
 Two flags ride every pool entry point, as in the reference: ``collect``
 adds the per-slot ``tel_*`` flight-recorder series (repro_torch.obs), and
 ``fallback`` (a :class:`repro_torch.chaos.FallbackConfig`) arms the AHAP
@@ -20,13 +23,15 @@ exactly the ops they run without them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import JobConfig, ThroughputConfig
-from repro_torch.core.job import value_fn
+from repro_torch.core.job import exact_div, value_fn
+from repro_torch.core.policies import RSEL_BIG, RSEL_PRED_WINDOW
 from repro_torch.core.policy_pool import (KIND_AHANP, KIND_AHAP, KIND_MSU,
                                           KIND_OD, KIND_RAND, KIND_UP)
 from repro_torch.core.window_opt import solve_window_batch
@@ -274,9 +279,9 @@ def _od_need(j: JobArrays, tput, z, t: int):
     """(remaining, slots_left, on-demand units to finish at the deadline)."""
     remaining = torch.clamp_min(j.workload - z, 0.0)
     slots_left = (j.deadline - t).to(_F32)
-    od_need = torch.ceil(
-        remaining / torch.clamp_min(slots_left, 1.0) / tput.alpha
-    ).to(_I32)
+    od_need = torch.ceil(exact_div(
+        remaining / torch.clamp_min(slots_left, 1.0), tput.alpha
+    )).to(_I32)
     return remaining, slots_left, od_need
 
 
@@ -308,7 +313,8 @@ def _up_rule(j: JobArrays, tput, z, t: int, price, av):
     remaining = torch.clamp_min(j.workload - z, 0.0)
     rate = j.workload / j.deadline.to(_F32)
     deficit = torch.clamp_min(rate * float(t) - z, 0.0)
-    up_need = _clip(torch.ceil((rate + deficit) / tput.alpha).to(_I32),
+    up_need = _clip(torch.ceil(exact_div(rate + deficit,
+                                         tput.alpha)).to(_I32),
                     j.n_min, j.n_max)
     up_s = torch.minimum(av, up_need)
     up_o = torch.where(deficit > 0, up_need - up_s, 0)
@@ -329,6 +335,27 @@ def _rand_rule(j: JobArrays, tput, cfrac, z, t: int, price, av):
     rd_zero = (remaining <= 0) | (slots_left <= 0) | ((rd_o + rd_s) == 0)
     rd_o_f, rd_s_f = _feasible(rd_o, rd_s, price, av, j)
     return torch.where(rd_zero, 0, rd_o_f), torch.where(rd_zero, 0, rd_s_f)
+
+
+def _cheap_rules(kind, sigma, cfrac, j: JobArrays, tput, z, t: int, price,
+                 av, n_prev, prev_avail):
+    """Every DP-free rule on the (K, P) state, each lane taking its
+    ``kind``'s decision (kind/sigma/cfrac are (1, P)). Returns (n_o,
+    n_s)."""
+    rules = (
+        (KIND_AHANP,
+         _ahanp_rule(j, sigma, z, t, price, av, n_prev, prev_avail)),
+        (KIND_OD, _od_rule(j, tput, z, t, price, av)),
+        (KIND_MSU, _msu_rule(j, tput, z, t, price, av)),
+        (KIND_UP, _up_rule(j, tput, z, t, price, av)),
+        (KIND_RAND, _rand_rule(j, tput, cfrac, z, t, price, av)),
+    )
+    n_o = torch.zeros(z.shape, dtype=_I32, device=z.device)
+    n_s = torch.zeros(z.shape, dtype=_I32, device=z.device)
+    for kind_id, (r_o, r_s) in rules:
+        n_o = torch.where(kind == kind_id, r_o, n_o)
+        n_s = torch.where(kind == kind_id, r_s, n_s)
+    return n_o, n_s
 
 
 def _execute(j: JobArrays, tput, z, n_prev, cost, done, T, t: int, n_o, n_s,
@@ -395,9 +422,10 @@ def _fallback_error(fallback, err, price, av, prev1_t):
     """One EWMA update of the prediction-health monitor: blend the relative
     errors of last slot's 1-step-ahead forecast ``prev1_t`` ((K, 2): price,
     avail) against this slot's observed (K, 1) market. ``err`` is (K, 1):
-    one value per job, read by every lane of the job. Each blend is one
-    fused multiply-add, as in the reference's compiled program: the
-    monitor's threshold test is strict, so an ulp flips a plan."""
+    one value per job, read by every lane of the job (the regional scan
+    passes its (K * P) lanes as rows). Each blend is one fused
+    multiply-add, as in the reference's compiled program: the monitor's
+    threshold test is strict, so an ulp flips a plan."""
     avf = av.to(_F32)
     e_p = (torch.abs(price - prev1_t[:, :1])
            / torch.clamp_min(price, _FB_PRICE_EPS))
@@ -558,19 +586,8 @@ def _simulate_one_cheap(kind, sigma, cfrac, jobs: JobArrays, tput, prices,
     no_hist, ns_hist, tel = [], [], []
     for t in range(dmax):
         price, av = prices[:, t:t + 1], avail[:, t:t + 1]
-        rules = (
-            (KIND_AHANP,
-             _ahanp_rule(j, sigma, z, t, price, av, n_prev, prev_avail)),
-            (KIND_OD, _od_rule(j, tput, z, t, price, av)),
-            (KIND_MSU, _msu_rule(j, tput, z, t, price, av)),
-            (KIND_UP, _up_rule(j, tput, z, t, price, av)),
-            (KIND_RAND, _rand_rule(j, tput, cfrac, z, t, price, av)),
-        )
-        n_o = torch.zeros((k, p), dtype=_I32, device=prices.device)
-        n_s = torch.zeros((k, p), dtype=_I32, device=prices.device)
-        for kind_id, (r_o, r_s) in rules:
-            n_o = torch.where(kind == kind_id, r_o, n_o)
-            n_s = torch.where(kind == kind_id, r_s, n_s)
+        n_o, n_s = _cheap_rules(kind, sigma, cfrac, j, tput, z, t, price, av,
+                                n_prev, prev_avail)
         n_prev0 = n_prev
         z, n_prev, cost, done, T, n_o, n_s, active = _execute(
             j, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av
@@ -600,9 +617,12 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _partition_lane_args(pool_arrays: dict):
+def _partition_lane_args(pool_arrays: dict, with_regions: bool = False):
     """(ahap_idx, other_idx, ahap_args, cheap_args) as numpy: the pool
-    encoding is data, so the kind split happens on the host."""
+    encoding is data, so the kind split happens on the host. With
+    ``with_regions`` each args tuple also carries the partition's (rsel,
+    rmargin) region-strategy slices (stay-put lanes when the encoding has
+    no region slots)."""
     arr = {k: _host(v) for k, v in pool_arrays.items()}
     kind = arr["kind"]
     n = len(kind)
@@ -610,9 +630,16 @@ def _partition_lane_args(pool_arrays: dict):
     cfrac = arr.get("cfrac", np.zeros(n, np.float32)).astype(np.float32)
     ahap_idx = np.flatnonzero(kind == KIND_AHAP)
     other_idx = np.flatnonzero(kind != KIND_AHAP)
+    extras = lambda idx: ()
+    if with_regions:
+        rsel = arr.get("rsel", np.zeros(n, np.int32)).astype(np.int32)
+        rmargin = arr.get("rmargin", np.zeros(n, np.float32)).astype(
+            np.float32)
+        extras = lambda idx: (rsel[idx], rmargin[idx])
     ahap_args = (arr["omega"][ahap_idx], arr["v"][ahap_idx],
-                 arr["sigma"][ahap_idx], rho[ahap_idx])
-    cheap_args = (kind[other_idx], arr["sigma"][other_idx], cfrac[other_idx])
+                 arr["sigma"][ahap_idx], rho[ahap_idx], *extras(ahap_idx))
+    cheap_args = (kind[other_idx], arr["sigma"][other_idx], cfrac[other_idx],
+                  *extras(other_idx))
     return ahap_idx, other_idx, ahap_args, cheap_args
 
 
@@ -689,6 +716,307 @@ def simulate_pool(pool_arrays: dict, j: JobArrays, tput: ThroughputConfig,
     return {k: v[0] for k, v in out.items()}
 
 
+# ---------------------------------------------------------------------------
+# Multi-region lanes (BEYOND-PAPER, SkyNomad arXiv:2601.06520)
+# ---------------------------------------------------------------------------
+#
+# ``simulate_pool_regions`` layers per-slot region selection over the kind-
+# partitioned scans: every lane carries a current region, scores all
+# regions each slot, switches with a hysteresis margin, pays ``delta_mig``
+# zero-allocation slots per switch (checkpoint transfer), and feeds the
+# selected region's (price, avail, forecast) into the unchanged decision
+# rules. With R == 1 the selector never leaves region 0 and every migration
+# branch is a passthrough ``where``, so the shared leaves equal
+# ``simulate_pool_jobs``'s bit for bit.
+
+# per-slot region series a collect=True regional run adds: the occupied
+# region and the committed switch events
+_TEL_REGION = ("tel_region", "tel_migration")
+
+# the pred_horizon score averages a fixed-width forecast window; the python
+# reference (policies.RegionSelector.scores) pads / trims to the same width
+assert RSEL_PRED_WINDOW == W1MAX
+
+
+def _mean_last(x):
+    """Mean over the last axis in f32, summed left to right then divided by
+    the count: the order of the reference's reduction of a W1MAX-wide row
+    (and of numpy's for fewer than 8 entries). A region score's mean feeds
+    a strict hysteresis test, so its last bit matters."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return exact_div(acc, float(x.shape[-1]))
+
+
+def _region_scores(n_min, prices, avail, pred):
+    """(K, T, N_RSEL, R) lower-better scores from (K, R, T) market data and
+    (K, R, T, W1MAX, 2) forecasts: the twin of
+    policies.RegionSelector.scores for all four RSEL_* strategies at once
+    (lanes gather theirs by ``rsel``). ``n_min`` is the (K,) job field."""
+    nmin = n_min[:, None, None]
+    big = float(RSEL_BIG)
+    price_sc = prices + big * (avail < nmin).to(_F32)        # (K, R, T)
+    avail_sc = -avail.to(_F32)
+    pdead = (pred[..., 1] < nmin.to(_F32)[..., None]).to(_F32)
+    pred_sc = _mean_last(pred[..., 0] + big * pdead)
+    sc = torch.stack([torch.zeros_like(price_sc), price_sc, avail_sc,
+                      pred_sc], dim=1)                       # (K, 4, R, T)
+    return sc.permute(0, 3, 1, 2)
+
+
+def _region_step(cur, mig_left, sc_row, rmargin, delta_mig: int, inactive):
+    """One slot of region selection for (K, P) lanes: argmin with
+    hysteresis and migration bookkeeping. ``sc_row`` is (K, P, R) and
+    ``rmargin`` (1, P). Returns (cur, mig_left, migrating, switched);
+    ``migrating`` slots execute with zero instances (the checkpoint is in
+    transit). ``inactive`` lanes (completed, or past their deadline) never
+    switch: the reference loop has stopped by then."""
+    best = torch.argmin(sc_row, dim=-1)
+    cur_sc = torch.gather(sc_row, -1, cur[..., None])[..., 0]
+    best_sc = torch.gather(sc_row, -1, best[..., None])[..., 0]
+    switch = ((best != cur) & (best_sc + rmargin < cur_sc)
+              & (mig_left == 0) & ~inactive)
+    cur = torch.where(switch, best, cur)
+    mig_left = torch.where(switch, delta_mig,
+                           torch.clamp_min(mig_left - 1, 0))
+    return cur, mig_left, mig_left > 0, switch
+
+
+def _at(x, t: int, cur):
+    """Slot ``t`` of a (K, R, T) market tensor at each lane's region:
+    (K, P)."""
+    return torch.gather(x[:, :, t], 1, cur)
+
+
+def _region_od(j: JobArrays, p_od, cur) -> JobArrays:
+    """``j`` with the on-demand price of each lane's region: ``p_o * p_od[cur]``
+    (K, P) in f32; unchanged when there are no multipliers."""
+    return j if p_od is None else j._replace(p_o=j.p_o * p_od[cur])
+
+
+def _region_finish(out: dict, cur_hist, sw_hist, keys, tel) -> dict:
+    """Add the region leaves (and the collected series) to a lane scan's
+    result: ``region`` (K, P, T) i32 and ``migrations`` (K, P) i32."""
+    out["region"] = torch.stack(cur_hist, dim=2).to(_I32)
+    out["migrations"] = torch.stack(sw_hist, dim=2).to(_I32).sum(
+        dim=2, dtype=_I32)
+    if keys:
+        out.update(_telemetry_out(keys, tel))
+    return out
+
+
+def _simulate_lanes_ahap_regions(omega, v, sigma, rho, rsel, rmargin,
+                                 jobs: JobArrays, tput, prices, avail, pred,
+                                 backend, device, delta_mig: int,
+                                 collect: bool = False, fallback=None,
+                                 p_od=None):
+    """Region-aware :func:`_simulate_lanes_ahap`: prices/avail are
+    (K, R, T), pred (K, R, T, W1MAX, 2). Each slot selects a region per
+    lane, gathers that region's AHAP scaffolding (built for every (job,
+    region) row, the region's on-demand price in its thresholds) and runs
+    the unchanged rule: ONE window solve over the (K * P) rows a slot, each
+    row with its region's p_o when ``p_od`` is set.
+
+    ``collect`` adds the ``_TEL_SLOTS`` + ``_TEL_REGION`` series. ``fallback``
+    arms the monitor with one error EWMA per lane (K, P): lanes occupy
+    different regions, so each scores its region's 1-step-ahead forecast
+    against that region's market. ``p_od`` ((R,) f32 multipliers, or None)
+    scales the on-demand price by region; termination bills the lane's
+    final region."""
+    k, r, dmax = prices.shape
+    p = omega.shape[0]
+    j = _columns(jobs)
+    # (job, region) rows of the scaffolding, p_o scaled per region
+    jr = JobArrays(*[f[:, None].expand(k, r).reshape(k * r) for f in jobs])
+    if p_od is not None:
+        jr = jr._replace(p_o=(jobs.p_o[:, None] * p_od[None, :]).reshape(
+            k * r))
+    jr3 = _columns(jr, 2)
+    flat = lambda f: f[:, None].expand(k, p).reshape(k * p)
+    rows = _job_cfg(JobArrays(*[flat(f) for f in jobs]))
+    sc = _region_scores(jobs.n_min, prices, avail, pred)[:, :, rsel]
+    kk = torch.arange(k, device=device)[:, None]
+    lane = torch.arange(p, device=device)[None, :]
+    z, n_prev, cost, done, T = _init_state(k, p, device)
+    plans = torch.zeros((k, p, VMAX, W1MAX, 2), dtype=_F32, device=device)
+    cur = torch.argmin(sc[:, 0], dim=-1)        # free initial placement
+    mig_left = torch.zeros((k, p), dtype=_I32, device=device)
+    margin = rmargin[None, :]
+    if fallback is not None:
+        thr = _f32(fallback.threshold)
+        prev1 = _fallback_prev1(pred.reshape(k * r, dmax, W1MAX, 2)).reshape(
+            k, r, dmax, 2)
+        prev_av = torch.cat([avail[:, :, :1], avail[:, :, :-1]], dim=2)
+        err = torch.zeros((k, p), dtype=_F32, device=device)
+        lane_sigma = sigma[None, :]
+    no_hist, ns_hist, cur_hist, sw_hist, tel = [], [], [], [], []
+    for t in range(dmax):
+        cur, mig_left, migrating, switch = _region_step(
+            cur, mig_left, sc[:, t], margin, delta_mig,
+            done | (t >= j.deadline))
+        price, av = _at(prices, t, cur), _at(avail, t, cur)
+        j_t = _region_od(j, p_od, cur)
+        if p_od is not None:
+            rows = dataclasses.replace(rows,
+                                       on_demand_price=j_t.p_o.reshape(k * p))
+        if fallback is not None:
+            # each lane scores its own region's forecast: (K * P) rows
+            col = lambda x: x.reshape(k * p, 1)
+            err = _fallback_error(fallback, col(err), col(price), col(av),
+                                  prev1[kk, cur, t].reshape(k * p, 2)
+                                  ).reshape(k, p)
+            fb = err > thr
+        pr_all, thr_all, zee_all, eff_all = _ahap_precompute(
+            jr3, omega, sigma, rho, t, pred[:, :, t].reshape(k * r, W1MAX, 2))
+        pr_t = pr_all.reshape(2, k, r, p, W1MAX)[:, kk, cur, lane]
+        thr_t = thr_all.reshape(k, r, p, W1MAX)[kk, cur, lane]
+        zee_t = zee_all.reshape(k, r, p)[:, 0]
+        eff_t = eff_all.reshape(k, r, p)[:, 0]
+        n_o, n_s, plans = _ahap_rule_batch(
+            rows, j_t, tput, v, backend, device, z, t, price, av, plans,
+            pr_t, thr_t, zee_t, eff_t,
+        )
+        if fallback is not None:
+            an_o, an_s = _ahanp_rule(j_t, lane_sigma, z, t, price, av,
+                                     n_prev, _at(prev_av, t, cur))
+            n_o = torch.where(fb, an_o, n_o)
+            n_s = torch.where(fb, an_s, n_s)
+        n_o = torch.where(migrating, 0, n_o)
+        n_s = torch.where(migrating, 0, n_s)
+        n_prev0 = n_prev
+        z, n_prev, cost, done, T, n_o, n_s, active = _execute(
+            j_t, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av
+        )
+        no_hist.append(n_o)
+        ns_hist.append(n_s)
+        cur_hist.append(cur)
+        sw_hist.append(switch)
+        if collect:
+            sample = _slot_telemetry(j_t, n_prev0, z, n_o, n_s, active, price,
+                                     av) + (cur.to(_I32), switch)
+            if fallback is not None:
+                sample += (fb, err)
+            tel.append(sample)
+    out = _finalize(_region_od(j, p_od, cur), tput, z, cost, done, T,
+                    no_hist, ns_hist)
+    keys = ()
+    if collect:
+        keys = (_TEL_SLOTS + _TEL_REGION
+                + (_TEL_FALLBACK if fallback is not None else ()))
+    return _region_finish(out, cur_hist, sw_hist, keys, tel)
+
+
+def _simulate_one_cheap_regions(kind, sigma, cfrac, rsel, rmargin,
+                                jobs: JobArrays, tput, prices, avail, pred,
+                                delta_mig: int, collect: bool = False,
+                                fallback=None, p_od=None):
+    """Region-aware :func:`_simulate_one_cheap`: the same DP-free rules fed
+    each lane's selected region's (price, avail). ``collect`` adds the
+    ``_TEL_SLOTS`` + ``_TEL_REGION`` series; cheap lanes read no
+    forecasts, so ``fallback`` (with collect) only adds the all-zero
+    ``_TEL_FALLBACK`` placeholders. ``p_od`` scales the on-demand price by
+    the occupied region, as in :func:`_simulate_lanes_ahap_regions`."""
+    k, r, dmax = prices.shape
+    p = kind.shape[0]
+    dev = prices.device
+    j = _columns(jobs)
+    kind, sigma, cfrac = kind[None, :], sigma[None, :], cfrac[None, :]
+    sc = _region_scores(jobs.n_min, prices, avail, pred)[:, :, rsel]
+    z, n_prev, cost, done, T = _init_state(k, p, dev)
+    cur = torch.argmin(sc[:, 0], dim=-1)
+    prev_avail = _at(avail, 0, cur)
+    mig_left = torch.zeros((k, p), dtype=_I32, device=dev)
+    margin = rmargin[None, :]
+    no_hist, ns_hist, cur_hist, sw_hist, tel = [], [], [], [], []
+    for t in range(dmax):
+        cur, mig_left, migrating, switch = _region_step(
+            cur, mig_left, sc[:, t], margin, delta_mig,
+            done | (t >= j.deadline))
+        price, av = _at(prices, t, cur), _at(avail, t, cur)
+        j_t = _region_od(j, p_od, cur)
+        n_o, n_s = _cheap_rules(kind, sigma, cfrac, j_t, tput, z, t, price,
+                                av, n_prev, prev_avail)
+        n_o = torch.where(migrating, 0, n_o)
+        n_s = torch.where(migrating, 0, n_s)
+        n_prev0 = n_prev
+        z, n_prev, cost, done, T, n_o, n_s, active = _execute(
+            j_t, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av
+        )
+        prev_avail = torch.where(active, av, prev_avail)
+        no_hist.append(n_o)
+        ns_hist.append(n_s)
+        cur_hist.append(cur)
+        sw_hist.append(switch)
+        if collect:
+            sample = _slot_telemetry(j_t, n_prev0, z, n_o, n_s, active, price,
+                                     av) + (cur.to(_I32), switch)
+            if fallback is not None:
+                sample += (torch.zeros_like(switch),
+                           torch.zeros_like(z))
+            tel.append(sample)
+    out = _finalize(_region_od(j, p_od, cur), tput, z, cost, done, T,
+                    no_hist, ns_hist)
+    keys = ()
+    if collect:
+        keys = (_TEL_SLOTS + _TEL_REGION
+                + (_TEL_FALLBACK if fallback is not None else ()))
+    return _region_finish(out, cur_hist, sw_hist, keys, tel)
+
+
+def simulate_pool_regions(pool_arrays: dict, jobs: JobArrays,
+                          tput: ThroughputConfig, prices, avail, pred,
+                          backend: Optional[str] = None, device=None, *,
+                          delta_mig: int, collect: bool = False,
+                          fallback=None, p_od=None) -> dict:
+    """Multi-region :func:`simulate_pool_jobs`: jobs x pool over an R-region
+    market. ``prices``/``avail`` are (K, R, d_max), ``pred``
+    (K, R, d_max, W1MAX, 2) (see :func:`prepare_inputs_regions`);
+    ``delta_mig`` is the checkpoint-transfer cost in lost slots (required:
+    pass ``market.delta_mig``). Lanes read their region strategy from the
+    pool's ``rsel`` / ``rmargin`` (policy_pool.region_pool; absent keys
+    mean every lane stays put).
+
+    Returns the ``simulate_pool_jobs`` leaves (K, P, ...) plus ``region``
+    (each lane's region each slot) and ``migrations`` (committed switches).
+    With R == 1 the shared leaves equal ``simulate_pool_jobs``'s bit for
+    bit. The AHAP lanes issue ONE window solve a slot (one K1 launch on the
+    card). ``collect=True`` adds the (K, P, T) ``tel_*`` series with
+    ``tel_region`` / ``tel_migration`` (obs.ledger.migration_reconciliation
+    reconciles them); ``fallback`` arms the AHAP lanes' per-lane monitor;
+    ``p_od`` (scalar or (R,)) multiplies the jobs' on-demand price by the
+    occupied region (``market.p_od``)."""
+    dev = resolve_device(device)
+    jobs = jobs_to(jobs, dev)
+    prices = to_device(prices, _F32, dev)
+    avail = to_device(avail, _I32, dev)
+    pred = to_device(pred, _F32, dev)
+    if p_od is not None:
+        p_od = to_device(np.asarray(_host(p_od), np.float32).reshape(-1),
+                         _F32, dev).expand(prices.shape[1])
+    ahap_idx, other_idx, ahap_args, cheap_args = _partition_lane_args(
+        pool_arrays, with_regions=True
+    )
+    lane = lambda a, dt: to_device(a, dt, dev)
+    dts = (_I32, _I32, _F32, _F32, _I32, _F32)
+    parts, idxs = [], []
+    if ahap_idx.size:
+        parts.append(_simulate_lanes_ahap_regions(
+            *[lane(a, dt) for a, dt in zip(ahap_args, dts)], jobs, tput,
+            prices, avail, pred, backend, dev, int(delta_mig),
+            collect=collect, fallback=fallback, p_od=p_od,
+        ))
+        idxs.append(ahap_idx)
+    if other_idx.size:
+        parts.append(_simulate_one_cheap_regions(
+            *[lane(a, dt) for a, dt in zip(cheap_args, (_I32,) + dts[2:])],
+            jobs, tput, prices, avail, pred, int(delta_mig),
+            collect=collect, fallback=fallback, p_od=p_od,
+        ))
+        idxs.append(other_idx)
+    return _scatter_merge(parts, idxs, dev)
+
+
 def prepare_inputs(trace, pred_matrix, d_max: int):
     """Pad/trim a trace + prediction matrix to (d_max, ...) numpy arrays:
     prices f32, avail i32, pred (d_max, W1MAX, 2) f32 (None broadcasts the
@@ -704,4 +1032,22 @@ def prepare_inputs(trace, pred_matrix, d_max: int):
         if pm.shape[1] < W1MAX:
             pad = np.repeat(pm[:, -1:], W1MAX - pm.shape[1], axis=1)
             pm = np.concatenate([pm, pad], axis=1)
+    return prices, avail, pm
+
+
+def prepare_inputs_regions(market, pred_matrix, d_max: int):
+    """Regional :func:`prepare_inputs`: (R, d_max) prices f32 / avail i32
+    and an (R, d_max, W1MAX, 2) f32 prediction stack (pad / trim per
+    region; None broadcasts the observed present), as numpy arrays."""
+    prices = np.asarray(market.prices[:, :d_max], np.float32)
+    avail = np.asarray(market.avail[:, :d_max], np.int32)
+    if pred_matrix is None:
+        pm = np.zeros(market.prices[:, :d_max].shape + (W1MAX, 2), np.float32)
+        pm[..., 0] = np.asarray(market.prices[:, :d_max])[..., None]
+        pm[..., 1] = np.asarray(market.avail[:, :d_max])[..., None]
+    else:
+        pm = np.asarray(pred_matrix[:, :d_max, :W1MAX], np.float32)
+        if pm.shape[2] < W1MAX:
+            pad = np.repeat(pm[:, :, -1:], W1MAX - pm.shape[2], axis=2)
+            pm = np.concatenate([pm, pad], axis=2)
     return prices, avail, pm

@@ -29,6 +29,16 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, _f32(lo, x)), _f32(hi, x))
 
 
+def exact_div(x: torch.Tensor, y) -> torch.Tensor:
+    """``x / y`` rounded once, on the card as on the CPU and in the
+    reference. PyTorch's CUDA division by a Python scalar multiplies by the
+    scalar's reciprocal (two roundings), so a Python ``y`` becomes a 0-dim
+    tensor of ``x``'s dtype on ``x``'s device first (a fill, no copy)."""
+    if not torch.is_tensor(y):
+        y = torch.full((), y, dtype=x.dtype, device=x.device)
+    return x / y
+
+
 def expected_progress(job: JobConfig, t):
     """Uniform workload slicing Z^exp_t = (L/d) * t (Eq. 6)."""
     return job.workload / job.deadline * t
@@ -38,7 +48,7 @@ def value_fn(job: JobConfig, T):
     """V(T), Eq. 4: full value v until d, linear decay to 0 at gamma*d."""
     v, d, g = job.value, job.deadline, job.gamma
     T = torch.as_tensor(T).to(torch.float32)
-    decay = v * (1.0 - (T - d) / ((g - 1.0) * d))
+    decay = v * (1.0 - exact_div(T - d, (g - 1.0) * d))
     return torch.where(T <= d, _f32(v, T), _clip(decay, 0.0, v))
 
 
@@ -48,7 +58,7 @@ def termination_time(job: JobConfig, tput: ThroughputConfig, z_ddl):
     rate = tput.alpha * job.n_max + tput.beta
     z = torch.as_tensor(z_ddl).to(torch.float32)
     remaining = torch.clamp_min(job.workload - z, 0.0)
-    return remaining / rate
+    return exact_div(remaining, rate)
 
 
 def tilde_value(job: JobConfig, tput: ThroughputConfig, z_ddl):
@@ -77,7 +87,8 @@ def normalize_utility(job: JobConfig, u) -> torch.Tensor:
     u = torch.as_tensor(u)
     if not u.is_floating_point():
         u = u.to(torch.float32)
-    return torch.clamp((u - lo) / (hi - lo), 0.0, 1.0).to(torch.float32)
+    return torch.clamp(exact_div(u - lo, hi - lo), 0.0, 1.0).to(
+        torch.float32)
 
 
 def normalization_bounds_batch(jobs):

@@ -1,22 +1,46 @@
-"""Policy pool construction (paper Sec. V-A / VI-A), copied from the JAX
-package's ``core/policy_pool.py`` without the python reference policies
-(``PolicySpec.build`` waits for the port of ``core/policies.py``) and
-without the region-selection slots (the regional engine is not ported).
+"""Policy pool construction (paper Sec. V-A / VI-A), a copy of the JAX
+package's ``core/policy_pool.py``.
 
 The paper's pool: 105 AHAP policies (omega in 1..5, v in 1..omega, sigma in
 {0.3 .. 0.9}) + 7 AHANP policies (same sigmas) = 112. ``PolicySpec`` is the
-array encoding the simulator consumes (:func:`specs_to_arrays`).
+encoding shared by the python reference policies (``PolicySpec.build``,
+``build_selector``) and the vectorized simulator (:func:`specs_to_arrays`).
 
-Beyond the paper: Robust-AHAP (``robust_pool``, rho < 1) and RAND_DEADLINE
+Beyond the paper: Robust-AHAP (``robust_pool``, rho < 1), RAND_DEADLINE
 (``rand_deadline_pool``: the randomized commitment-threshold strategies of
-arXiv:2601.14612, one lane per quantile of the commitment CDF).
+arXiv:2601.14612, one lane per quantile of the commitment CDF) and region
+lanes (``region_pool``: scheduling policies crossed with region-selection
+strategies for ``fast_sim.simulate_pool_regions``, SkyNomad,
+arXiv:2601.06520).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from repro_torch.core.policies import (
+    AHANP,
+    AHANPParams,
+    AHAP,
+    AHAPParams,
+    BasePolicy,
+    MSU,
+    ODOnly,
+    RSEL_AVAIL,
+    RSEL_FIXED,
+    RSEL_NAMES,
+    RSEL_PRED,
+    RSEL_PRICE,
+    RandDeadline,
+    RandDeadlineParams,
+    RegionSelector,
+    RegionSelectorParams,
+    UP,
+    rand_commit_frac,
+    uniform_commit_frac,
+)
 
 KIND_AHAP, KIND_AHANP, KIND_OD, KIND_MSU, KIND_UP = 0, 1, 2, 3, 4
 KIND_RAND = 5
@@ -26,19 +50,6 @@ KIND_NAMES = {0: "ahap", 1: "ahanp", 2: "od_only", 3: "msu", 4: "up",
 SIGMAS = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
 OMEGAS = (1, 2, 3, 4, 5)
 RAND_QS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)
-
-
-def rand_commit_frac(q: float) -> float:
-    """Inverse CDF of the optimal randomized commitment distribution at
-    quantile q (float64; the simulator floors the f32 cast). The
-    ski-rental-optimal density on the normalized deadline is
-    p(x) = e^x/(e-1), so F^{-1}(q) = log(1 + q (e - 1))."""
-    return float(np.log1p(q * (np.e - 1.0)))
-
-
-def uniform_commit_frac(q: float) -> float:
-    """Uniform-commitment quantile function: F^{-1}(q) = q."""
-    return float(q)
 
 
 @dataclass(frozen=True)
@@ -51,18 +62,44 @@ class PolicySpec:
     # RAND_DEADLINE commitment-fraction override; < 0 derives the ski-rental
     # optimal fraction from sigma (the quantile) via rand_commit_frac.
     cfrac: float = -1.0
+    # multi-region selection: strategy (RSEL_*) + hysteresis margin. The
+    # defaults are a no-op for single-region simulation paths, which ignore
+    # both fields.
+    rsel: int = RSEL_FIXED
+    rmargin: float = 0.0
 
     @property
     def name(self) -> str:
         if self.kind == KIND_AHAP:
             r = f",r={self.rho:.2f}" if self.rho < 1.0 else ""
-            return f"ahap(w={self.omega},v={self.v},s={self.sigma:.1f}{r})"
-        if self.kind == KIND_AHANP:
-            return f"ahanp(s={self.sigma:.1f})"
-        if self.kind == KIND_RAND:
+            base = f"ahap(w={self.omega},v={self.v},s={self.sigma:.1f}{r})"
+        elif self.kind == KIND_AHANP:
+            base = f"ahanp(s={self.sigma:.1f})"
+        elif self.kind == KIND_RAND:
             f = f",f={self.cfrac:.2f}" if self.cfrac >= 0 else ""
-            return f"rand_ddl(q={self.sigma:.2f}{f})"
-        return KIND_NAMES[self.kind]
+            base = f"rand_ddl(q={self.sigma:.2f}{f})"
+        else:
+            base = KIND_NAMES[self.kind]
+        if self.rsel != RSEL_FIXED:
+            m = f",m={self.rmargin:g}" if self.rmargin > 0 else ""
+            base += f"@{RSEL_NAMES[self.rsel]}{m}"
+        return base
+
+    def build(self, device=None) -> BasePolicy:
+        """The spec's python reference policy; an AHAP solves its windows
+        on ``device`` (None: the card)."""
+        if self.kind == KIND_AHAP:
+            return AHAP(AHAPParams(self.omega, self.v, self.sigma, self.rho),
+                        device=device)
+        if self.kind == KIND_AHANP:
+            return AHANP(AHANPParams(self.sigma))
+        if self.kind == KIND_RAND:
+            cf = self.cfrac if self.cfrac >= 0 else None
+            return RandDeadline(RandDeadlineParams(self.sigma, cf))
+        return {KIND_OD: ODOnly, KIND_MSU: MSU, KIND_UP: UP}[self.kind]()
+
+    def build_selector(self) -> RegionSelector:
+        return RegionSelector(RegionSelectorParams(self.rsel, self.rmargin))
 
 
 def paper_pool(
@@ -134,10 +171,38 @@ def robust_pool(
     ]
 
 
+def region_pool(
+    base: Optional[Sequence[PolicySpec]] = None,
+    strategies: Sequence[int] = (RSEL_PRICE, RSEL_AVAIL, RSEL_PRED),
+    margins: Sequence[float] = (0.0, 0.05),
+) -> List[PolicySpec]:
+    """Scheduling policies crossed with region-selection strategies, so the
+    selector learns region strategy and scheduling policy jointly (Thm. 2's
+    sqrt(log M) regret keeps the expansion cheap). ``base`` defaults to a
+    compact slate (three AHAP corners, one AHANP, MSU, UP); each base spec
+    is crossed with every (strategy, hysteresis margin) pair: margin 0 is
+    plain greedy, margin > 0 the sticky variant. 36 lanes by default."""
+    if base is None:
+        base = [
+            PolicySpec(KIND_AHAP, 3, 1, 0.5),
+            PolicySpec(KIND_AHAP, 3, 1, 0.9),
+            PolicySpec(KIND_AHAP, 5, 2, 0.7),
+            PolicySpec(KIND_AHANP, 0, 0, 0.7),
+            PolicySpec(KIND_MSU),
+            PolicySpec(KIND_UP),
+        ]
+    return [
+        replace(spec, rsel=s, rmargin=m)
+        for spec in base for s in strategies for m in margins
+    ]
+
+
 def specs_to_arrays(pool: Sequence[PolicySpec]) -> dict:
     """Array encoding for the simulator (numpy; the simulator moves it to
     its device). ``cfrac`` is the RAND_DEADLINE commitment fraction,
-    precomputed in float64 so every simulator floors identical f32 bits."""
+    precomputed in float64 so every simulator floors identical f32 bits.
+    ``rsel``/``rmargin`` encode the region-selection strategy; the
+    single-region entry points ignore them."""
     return {
         "kind": np.array([p.kind for p in pool], np.int32),
         "omega": np.array([p.omega for p in pool], np.int32),
@@ -149,4 +214,6 @@ def specs_to_arrays(pool: Sequence[PolicySpec]) -> dict:
              if p.kind == KIND_RAND else 0.0
              for p in pool], np.float32,
         ),
+        "rsel": np.array([p.rsel for p in pool], np.int32),
+        "rmargin": np.array([p.rmargin for p in pool], np.float32),
     }

@@ -239,6 +239,21 @@ def solve_window(job: JobConfig, tput: ThroughputConfig, z0,
     return n_o[0], n_s[0], obj[0]
 
 
+def solve_window_numpy(job: JobConfig, tput: ThroughputConfig, z0,
+                       slots_to_deadline, prices, avail, p_o: float,
+                       device=None):
+    """The python policies' window solve: one window through
+    :func:`solve_window` on ``device`` (None: the card, where it is one
+    launch of K1's table entry), the plan brought back to the host.
+    Returns (n_o (w1,) numpy i32, n_s (w1,) numpy i32, objective float)."""
+    n_o, n_s, obj = solve_window(
+        job, tput, np.float32(z0), np.int32(slots_to_deadline),
+        np.asarray(prices, np.float32), np.asarray(avail, np.int32),
+        float(p_o), device=device,
+    )
+    return n_o.cpu().numpy(), n_s.cpu().numpy(), float(obj)
+
+
 def brute_force_window(job, tput, z0, slots_to_deadline, prices, avail, p_o):
     """Exponential-time exact reference (tests only): enumerates per-slot
     totals in {0} u [Nmin, Nmax], spot-first split. Returns (objective,

@@ -232,6 +232,123 @@ def test_engine_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(got.max_weight, want.max_weight, atol=1e-6)
 
 
+def _regional_workload(n_jobs):
+    from repro_torch.core.region_market import vast_like_regions
+
+    market = vast_like_regions(3, seed=13, days=2, delta_mig=1)
+    rng = np.random.default_rng(7)
+    jobs = job_stream_arrays(rng, n_jobs, 16)
+    t0s = rng.integers(0, len(market) - 17, size=n_jobs)
+    seeds = 700021 + np.arange(n_jobs)
+    prep = lambda lo, hi: engine.prepare_noisy_inputs_regions(
+        market, t0s[lo:hi], 16, "fixed_uniform", 0.2, seeds[lo:hi])
+    return market, jobs, prep
+
+
+@pytest.mark.parametrize("p_od", [None, (1.0, 1.3, 0.8)])
+def test_regional_scan_k1_equals_plain_on_card(cuda, p_od):
+    """The region scans on the card through K1's forecast entry, one launch
+    a slot, against the same scans on the card with the plain chain
+    (backend="torch"): every leaf bit-equal, per-row p_o included."""
+    from repro_torch.core import fast_sim
+    from repro_torch.core.policy_pool import region_pool
+
+    market, jobs, prep = _regional_workload(40)
+    pool = specs_to_arrays(region_pool())
+    before = (window_dp.launches, window_dp_rows.launches)
+    got = fast_sim.simulate_pool_regions(pool, jobs, PAPER_TPUT,
+                                         *prep(0, 40), delta_mig=1,
+                                         p_od=p_od, collect=True)
+    assert (window_dp.launches, window_dp_rows.launches) == \
+        (before[0] + 16, before[1] + 16)
+    want = fast_sim.simulate_pool_regions(pool, jobs, PAPER_TPUT,
+                                          *prep(0, 40), delta_mig=1,
+                                          p_od=p_od, collect=True,
+                                          backend="torch")
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_side_stream_prep_bit_equal_to_arrays(cuda):
+    """``prep=`` on the card (pinned host buffers copied on a side stream,
+    the compute stream waiting on their event) against the prebuilt arrays
+    sliced per chunk: the same result bit for bit, with the recorder on."""
+    from repro_torch.core.policy_pool import region_pool
+
+    market, jobs, prep = _regional_workload(50)
+    pool = specs_to_arrays(region_pool())
+    kw = dict(delta_mig=1, job_chunk=16, collect=True, p_od=(1.0, 1.3, 0.8))
+    base = engine.simulate_and_select(pool, jobs, PAPER_TPUT, *prep(0, 50),
+                                      **kw)
+    streamed = engine.simulate_and_select(pool, jobs, PAPER_TPUT, None, None,
+                                          None, prep=prep, **kw)
+    assert torch.equal(base.state.weights, streamed.state.weights)
+    np.testing.assert_array_equal(base.max_weight, streamed.max_weight)
+    np.testing.assert_array_equal(base.regret, streamed.regret)
+    np.testing.assert_array_equal(base.mean_utility, streamed.mean_utility)
+    for k in base.sim_out:
+        np.testing.assert_array_equal(base.sim_out[k], streamed.sim_out[k],
+                                      err_msg=k)
+
+
+def test_device_drawn_prep_through_prep_bit_equal_to_arrays(cuda):
+    """The device-drawn forecast stack: its uniforms (integer hashes) have
+    the CPU's bits, and a ``prep=`` closure returning card tensors, each
+    chunk cast on the compute stream, gives the whole stack's result bit
+    for bit."""
+    from repro_torch.core.policy_pool import region_pool
+    from repro_torch.core.predictor import _row_uniforms
+    from repro_torch.core.region_market import vast_like_regions
+
+    seeds = 700021 + np.arange(300)
+    assert torch.equal(_row_uniforms(seeds, 500, cuda).cpu(),
+                       _row_uniforms(seeds, 500, torch.device("cpu")))
+    market = vast_like_regions(3, seed=13, days=2, delta_mig=1)
+    rng = np.random.default_rng(7)
+    jobs = job_stream_arrays(rng, 50, 16)
+    t0s = rng.integers(0, len(market) - 17, size=50)
+    prep = lambda lo, hi: engine.prepare_noisy_inputs_regions(
+        market, t0s[lo:hi], 16, "magdep_heavytail", 0.2,
+        700021 + np.arange(lo, hi), prep_backend="torch")
+    assert prep(0, 50)[2].is_cuda
+    pool = specs_to_arrays(region_pool())
+    kw = dict(delta_mig=1, job_chunk=16, collect=True)
+    base = engine.simulate_and_select(pool, jobs, PAPER_TPUT, *prep(0, 50),
+                                      **kw)
+    streamed = engine.simulate_and_select(pool, jobs, PAPER_TPUT, None, None,
+                                          None, prep=prep, **kw)
+    assert torch.equal(base.state.weights, streamed.state.weights)
+    np.testing.assert_array_equal(base.regret, streamed.regret)
+    for k in base.sim_out:
+        np.testing.assert_array_equal(base.sim_out[k], streamed.sim_out[k],
+                                      err_msg=k)
+
+
+def test_solve_window_numpy_cuda_equals_cpu(cuda):
+    """The python AHAP's window solve: K1's table entry on the card gives
+    the CPU plain DP's plan and objective."""
+    rng = np.random.default_rng(3)
+    from repro_torch.configs.base import JobConfig
+    for i in range(50):
+        w1 = int(rng.integers(1, 7))
+        job = JobConfig(workload=float(rng.uniform(20, 150)),
+                        deadline=int(rng.integers(3, 15)),
+                        n_min=int(rng.integers(1, 4)),
+                        n_max=int(rng.integers(4, 17)),
+                        value=float(rng.uniform(40, 150)))
+        args = (job, PAPER_TPUT, float(rng.uniform(0, job.workload)),
+                int(rng.integers(0, w1 + 2)), rng.uniform(0.1, 1.4, w1),
+                rng.integers(0, 14, w1), 1.0)
+        before = window_dp.launches
+        got = window_opt.solve_window_numpy(*args)
+        assert window_dp.launches == before + 1
+        want = window_opt.solve_window_numpy(*args, device="cpu")
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[2] == want[2], i
+
+
 # K2 tolerances: f32 accumulates in full f32 in both versions, so only the
 # order of the K-sums differs (1e-4); bf16 rounds one f32 sum once in both,
 # so an output may differ by one bf16 ulp (2^-7 relative at most) where the

@@ -72,3 +72,40 @@ def test_example_matches_reference_loop():
     assert float(final.group(2)) == round(regret_bound(len(pool), N_JOBS), 2)
     assert final.group(3) == str(regret(st) <= regret_bound(len(pool),
                                                              N_JOBS))
+
+
+def _table(stdout):
+    """The policy table quickstart prints: {name: (utility, cost, T, done,
+    allocation)} as strings, and the OPT row."""
+    rows = {}
+    for line in stdout.splitlines():
+        m = re.match(r"(\w+)\s+(-?[0-9.]+)\s+(-?[0-9.]+)\s+([0-9.]+)\s+"
+                     r"(True|False)\s+(\[.*\])$", line)
+        if m:
+            rows[m.group(1)] = m.groups()[1:]
+        m = re.match(r"OPT\s+(-?[0-9.]+)\s+(-?[0-9.]+)\s+(\[.*\])$", line)
+        if m:
+            rows["OPT"] = m.groups()
+    return rows
+
+
+def test_quickstart_matches_reference_quickstart():
+    """``examples/quickstart_torch.py --device cpu`` against the JAX
+    package's ``examples/quickstart.py``: ARIMA, the five python policies
+    through the reference simulator and the offline optimum print the same
+    market statistics and the same table."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for script, args in (("quickstart_torch.py", ["--device", "cpu"]),
+                         ("quickstart.py", [])):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / script), *args],
+            env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        runs[script] = proc.stdout
+    got, want = runs["quickstart_torch.py"], runs["quickstart.py"]
+    assert got.splitlines()[0].startswith("market: TraceStats(")
+    assert got.splitlines()[0] == want.splitlines()[0]
+    table = _table(got)
+    assert set(table) == {"ahap", "ahanp", "od_only", "msu", "up", "OPT"}
+    assert table == _table(want)

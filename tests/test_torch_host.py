@@ -184,7 +184,8 @@ def test_numpy_selector_loop_matches_reference():
 def test_convert_round_trips():
     pool = ref_pool.specs_to_arrays(ref_pool.paper_pool()[:9])
     tp = convert.pool_arrays(pool, "cpu")
-    assert set(tp) == {"kind", "omega", "v", "sigma", "rho", "cfrac"}
+    assert set(tp) == {"kind", "omega", "v", "sigma", "rho", "cfrac", "rsel",
+                       "rmargin"}
     for k, v in tp.items():
         _eq(pool[k], v.numpy())
     jobs = ref_common.job_stream_arrays(np.random.default_rng(4), 6)

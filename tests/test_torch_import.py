@@ -57,6 +57,26 @@ def test_host_packages_load_neither_jax_nor_reference(module):
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.policies", "repro_torch.core.simulator",
+    "repro_torch.core.offline_opt", "repro_torch.core.region_market",
+    "repro_torch.core.predictor", "repro_torch.core.policy_pool",
+    "repro_torch.core.fast_sim", "repro_torch.core.engine",
+])
+def test_reference_chain_modules_load_neither_jax_nor_reference(module):
+    """The host reference chain (python policies, simulator, offline
+    optimum, regional market and forecasters) and the regional engine
+    stand alone, each imported first in a fresh process."""
+    proc = _run(
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or"
+        " k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_kernel_module_imports_without_nvcc(tmp_path):
     """Importing the kernel module builds nothing; without a compiler the
     build raises (no fallback), while CPU tensors still take the plain
@@ -104,6 +124,47 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # an explicit device still runs
     res = engine.simulate_and_select(pool, jobs, PAPER_TPUT, prices, avail,
                                      preds, device="cpu")
+    assert res.max_weight.shape == (2,)
+
+
+def test_reference_chain_entry_points_raise_without_cuda(monkeypatch):
+    """The python AHAP's window solve, the regional scans and engine, and
+    the device forecast stacks run on the card unless told otherwise."""
+    from repro_torch.core import engine, fast_sim, predictor, window_opt
+    from repro_torch.core.market import vast_like_trace
+    from repro_torch.core.policies import AHAP, AHAPParams, Obs
+    from repro_torch.core.policy_pool import region_pool, specs_to_arrays
+    from repro_torch.workload import PAPER_JOB, PAPER_TPUT, job_stream_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jobs = job_stream_arrays(np.random.default_rng(0), 2)
+    prices = np.full((2, 3, 10), 0.5, np.float32)
+    avail = np.full((2, 3, 10), 4, np.int64)
+    preds = np.zeros((2, 3, 10, fast_sim.W1MAX, 2), np.float32)
+    pool = specs_to_arrays(region_pool()[:4])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        window_opt.solve_window_numpy(PAPER_JOB, PAPER_TPUT, 0.0, 3,
+                                      prices[0, 0, :4], avail[0, 0, :4], 1.0)
+    ahap = AHAP(AHAPParams(3, 1, 0.7))
+    ahap.reset(PAPER_JOB, PAPER_TPUT)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ahap.decide(Obs(t=0, price=0.5, avail=4, z_prev=0.0, n_prev=0,
+                        pred=preds[0, 0, 0]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fast_sim.simulate_pool_regions(pool, jobs, PAPER_TPUT, prices, avail,
+                                       preds, delta_mig=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.simulate_and_select(pool, jobs, PAPER_TPUT, prices, avail,
+                                   preds, delta_mig=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predictor.noisy_matrix_batch_torch(prices[:, 0], avail[:, 0],
+                                           "fixed_uniform", 0.1, [1, 2], 5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.prepare_noisy_inputs(vast_like_trace(seed=0, days=1), [0, 5],
+                                    10, "fixed_uniform", 0.1, [1, 2],
+                                    prep_backend="torch")
+    res = engine.simulate_and_select(pool, jobs, PAPER_TPUT, prices, avail,
+                                     preds, delta_mig=1, device="cpu")
     assert res.max_weight.shape == (2,)
 
 
