@@ -48,7 +48,19 @@ sm_90a each, all started together, and then drives four paths on the card:
 - the host reference chain (``[oracle]``: the python policies, the
   regional and single-region reference simulators, the offline optimum)
   against the vectorized lanes on the card, each python AHAP window on
-  K1's table entry.
+  K1's table entry;
+- fleet contention (``[fleet]``: benchmarks/fleet_sim.py's full size, an
+  EG pilot admitting 1000 jobs onto one spot pool for 15 slots through
+  ``fleet.simulate_fleet``, one K1 forecast-entry launch a slot), held
+  against the JAX reference's admission, grants and utilities, the
+  plain-DP run bit for bit (K1 on every slot's real rows) and the port's
+  ``MultiJobScheduler`` (each python AHAP window on K1's table entry);
+- MoE serving: the mixtral-8x7b smoke config token for token against the
+  JAX engine (``[serve-moe-ref]``, prompts past its window), then
+  mixtral-8x7b at its published width, 16 of its 32 layers, bf16
+  (``[serve-moe]``: K2 on q and v, K3 with the sliding window, the experts
+  on cuBLAS), its routing swaps against the plain run counted and its
+  logits held where the routing agrees, and the first 4 layers in f32.
 
 It times each kernel beside its bound, its plain version and a PyTorch
 yardstick. Any failed phase raises and the script exits nonzero. Without a
@@ -177,6 +189,45 @@ TORCH_PREP_REGRET_ATOL = 0.05
 ORACLE_JOBS = 6
 ORACLE_RTOL, ORACLE_ATOL = 1e-5, 1e-4
 
+# ---- [fleet]: fleet contention at benchmarks/fleet_sim.py's full size ----
+# An EG pilot (128 jobs on paper_market(seed=31, days=40), the 124-lane pool,
+# fixed_uniform 0.1, seed 13) admits 1000 jobs (SelectionResult.
+# admission_rows) that arrive in slots [0, 5) of paper_market(seed=29,
+# days=3).window(0, 16) and contend for its spot pool for 15 slots
+# (fleet.simulate_fleet: one K1 forecast-entry launch a slot), drawn as
+# fleet_sim._workload draws them. The JAX reference on these inputs,
+# recorded on the CPU by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_fleet_refs.py
+# "pilot": (best_policy, iters_to_half); per admission ("sampled" from the
+# pilot's weights, "greedy" on its leader): (bincount of the admitted lanes,
+# their CRC32, per-slot sum of spot grants, jobs finished by the deadline,
+# sum of the per-job utilities).
+JAX_FLEET = {
+    'pilot': (70, 128),
+    'sampled': ((6, 9, 12, 14, 10, 6, 9, 13, 8, 12, 11, 8, 5, 10, 13, 5, 4,
+                 11, 6, 8, 5, 9, 9, 10, 12, 11, 13, 5, 11, 14, 4, 6, 4, 10, 4,
+                 8, 5, 10, 13, 13, 9, 11, 6, 13, 9, 10, 9, 9, 10, 9, 9, 11, 8,
+                 7, 5, 6, 14, 9, 4, 7, 11, 11, 16, 10, 8, 5, 5, 9, 10, 5, 10,
+                 8, 11, 16, 16, 9, 10, 12, 13, 8, 9, 6, 12, 9, 13, 14, 15, 10,
+                 9, 9, 7, 10, 10, 11, 6, 6, 8, 12, 7, 11, 8, 9, 10, 4, 11, 2,
+                 1, 0, 1, 0, 2, 1, 2, 0, 1, 2, 3, 1, 2, 1, 0, 1, 7, 3),
+                1333721207, (2, 2, 2, 3, 3, 3, 5, 4, 3, 4, 5, 6, 7, 9, 0), 3,
+                23575.93614578247),
+    'greedy': (tuple(1000 if i == 70 else 0 for i in range(124)), 1026362627,
+               (2, 2, 2, 3, 3, 3, 5, 4, 3, 4, 5, 6, 7, 9, 0), 0,
+               27522.634742736816),
+}
+FLEET_JOBS, FLEET_SPAN, FLEET_DEADLINE = 1000, 5, 10
+FLEET_SLOTS = FLEET_SPAN + FLEET_DEADLINE
+FLEET_PILOT, FLEET_SEED = 128, 13
+FLEET_NOISE = ("fixed_uniform", 0.1)
+# the utility sum is an f32 sum over 1000 jobs whose bills round per slot as
+# torch rounds them (ROADMAP Queue 3, entry 3); the oracle (python f64
+# around the engine's f32 execution) matches each job to 1e-2, the JAX
+# bench's fleet_sim_utility_match tolerance
+FLEET_USUM_RTOL = 1e-5
+FLEET_ORACLE_ATOL = 1e-2
+
 # ---- dense-model serving ----
 # [serve-ref]: the llama2-7b smoke config (2 layers, d 256, f32) with
 # ``convert.random_model_params(cfg, SERVE_REF_SEED)`` (LoRA B non-zero),
@@ -278,12 +329,52 @@ FAMILY_RUNS = {
     "serve-hybrid": ("zamba2-2.7b", 8, 1024, 32, 2048),
 }
 
+# ---- MoE serving ----
+# [serve-moe-ref]: the mixtral-8x7b smoke config (2 layers, d 256, 4 experts
+# top-2, sliding window 64, f32) with ``convert.random_model_params(cfg,
+# seed)``, 4 prompts of 72 tokens from ``serve_ref_prompts(np, vocab, seed,
+# 72)`` (past the window: K3's window masks the prefill and the decode ring
+# buffer wraps), 8 greedy new tokens, max_len 96. The tokens are the JAX
+# ServingEngine's on the same numpy weights, run on the CPU with
+# JAX_PLATFORMS=cpu (tests/test_torch_moe.py recomputes them).
+MOE_REF = ("mixtral-8x7b", 18, 72, (
+    (485, 425, 201, 96, 129, 169, 129, 486),
+    (17, 220, 327, 312, 144, 232, 415, 350),
+    (369, 130, 17, 8, 146, 130, 256, 66),
+    (267, 104, 405, 89, 457, 82, 362, 205),
+))
+MOE_REF_MAX_LEN = 96
+# [serve-moe]: mixtral-8x7b (arXiv:2401.04088) at its published width, 8
+# experts top-2, heads, window and vocabulary, bf16, LoRA rank 16 on q and v,
+# weights drawn on the card tensor by tensor; depth cut to MOE_LAYERS of its
+# 32 layers (32 layers of 1,451.3 M parameters are 92.9 GB in bf16, more
+# than the card holds). (arch, batch, prompt, new tokens, max_len).
+MOE_RUN = ("mixtral-8x7b", 8, 1024, 32, 2048)
+MOE_LAYERS = 16
+# The kernel run and the plain run differ in the router's input by K2's and
+# K3's roundings, so a token whose 2nd and 3rd largest router logits nearly
+# tie may take another expert: a swap. Every swap must follow from the two
+# runs' router logits (the plain run's 2nd - 3rd gap at most twice their
+# largest difference at that token), and at the first layer, where only one
+# layer's K2 and K3 roundings separate the runs, within ROUTE_SWAP_MARGIN of
+# a tie. Deeper, the reference's random init (experts' std 1/sqrt(E), a
+# gated product of two ~22-sigma projections) amplifies any difference from
+# layer to layer, so at 16 layers the logits are reported, not bounded. They
+# are held at MOE_F32_LAYERS layers (full width, f32 23 GB beside the bf16
+# ones), at forwards whose last token took the same experts in every layer
+# in all four runs: f32 kernel run against f32 plain run within
+# F32_LOGIT_ATOL; bf16 kernel run against bf16 plain run within twice the
+# bf16 plain run's distance from the f32 plain run (FAMILY_RUNS' rule).
+ROUTE_SWAP_MARGIN = 0.1
+MOE_F32_LAYERS = 4
 
-def serve_ref_prompts(np, vocab: int, seed: int = SERVE_REF_SEED):
-    """The [serve-ref] (and [serve-ssm-ref], [serve-hybrid-ref]) prompts:
-    4 x 16 tokens from a numpy seed."""
+
+def serve_ref_prompts(np, vocab: int, seed: int = SERVE_REF_SEED,
+                      length: int = 16):
+    """The [serve-ref] (and [serve-ssm-ref], [serve-hybrid-ref],
+    [serve-moe-ref]) prompts: 4 x ``length`` tokens from a numpy seed."""
     rng = np.random.default_rng(seed + 1)
-    return rng.integers(0, vocab, (4, 16)).astype(np.int32)
+    return rng.integers(0, vocab, (4, length)).astype(np.int32)
 
 
 def _fail(msg: str) -> None:
@@ -1163,6 +1254,274 @@ def _phase_oracle(torch, np, engine, fast_sim, k1, fig9_inputs):
     return counts[1], table
 
 
+def _fleet_workload(np, engine, arrs):
+    """benchmarks/fleet_sim.py's workload, drawn as its ``_workload`` draws
+    it (tools/jax_fleet_refs.py's ``workload``): (trace, prices, avail,
+    pred, arrivals, pilot SelectionResult, rows, idx, generator)."""
+    from repro_torch.core import fast_sim
+    from repro_torch.core.predictor import NoisyPredictor
+    from repro_torch.workload import (PAPER_TPUT, job_stream_arrays,
+                                      paper_market)
+
+    kind, level = FLEET_NOISE
+    rng = np.random.default_rng(FLEET_SEED)
+    trace = paper_market(seed=29, days=3).window(0, FLEET_SLOTS + 1)
+    pred = NoisyPredictor(trace, kind, level, seed=FLEET_SEED).matrix(
+        fast_sim.W1MAX - 1)[:FLEET_SLOTS].astype(np.float32)
+    prices = trace.prices[:FLEET_SLOTS].astype(np.float32)
+    avail = trace.avail[:FLEET_SLOTS].astype(np.int64)
+    arrivals = rng.integers(0, FLEET_SPAN, size=FLEET_JOBS)
+    pilot_trace = paper_market(seed=31, days=40)
+    pilot_jobs = job_stream_arrays(rng, FLEET_PILOT, FLEET_DEADLINE)
+    t0s = rng.integers(0, len(pilot_trace) - FLEET_DEADLINE - 1,
+                       size=FLEET_PILOT)
+    seeds = FLEET_SEED * 100003 + np.arange(FLEET_PILOT)
+    res = engine.simulate_and_select(
+        arrs, pilot_jobs, PAPER_TPUT,
+        *engine.prepare_noisy_inputs(pilot_trace, t0s, FLEET_DEADLINE, kind,
+                                     level, seeds))
+    rows, idx = res.admission_rows(arrs, FLEET_JOBS, rng=rng)
+    return trace, prices, avail, pred, arrivals, res, rows, idx
+
+
+def _fleet_summary(np, idx, out, n_pol):
+    """tools/jax_fleet_refs.py's ``summary``: (bincount of the admitted
+    lanes, their CRC32, per-slot spot grants, jobs finished by the
+    deadline, sum of the utilities)."""
+    import zlib
+
+    idx = np.asarray(idx, np.int32)
+    host = {k: out[k].cpu().numpy() for k in ("n_spot", "completed",
+                                               "utility")}
+    return (tuple(int(c) for c in np.bincount(idx, minlength=n_pol)),
+            zlib.crc32(idx.tobytes()),
+            tuple(int(g) for g in host["n_spot"].sum(axis=0)),
+            int(host["completed"].sum()),
+            float(host["utility"].astype(np.float64).sum()))
+
+
+def _check_fleet(name, got, want):
+    """A fleet summary against JAX_FLEET: everything exact but the utility
+    sum (FLEET_USUM_RTOL)."""
+    labels = ("admitted lanes' bincount", "admitted lanes' CRC32",
+              "per-slot spot grants", "jobs finished by the deadline")
+    for label, g, w in zip(labels, got[:4], want[:4]):
+        if g != w:
+            _fail(f"[fleet] {name}: {label} {g} != JAX {w}")
+    if abs(got[4] - want[4]) > FLEET_USUM_RTOL * abs(want[4]):
+        _fail(f"[fleet] {name}: utility sum {got[4]} vs JAX {want[4]}")
+
+
+def _phase_fleet(torch, np, engine, fast_sim, window_opt, k1,
+                 window_dp_rows_ref):
+    """Fleet contention on the card at benchmarks/fleet_sim.py's full size:
+    the EG pilot, the select -> admit loop, then simulate_fleet on the
+    card: FLEET_SLOTS forecast-entry K1 launches a call; bit-equal to the
+    backend="torch" run on the card (every slot's real K1 rows captured
+    there and held bit for bit, past-deadline and pre-arrival rows among
+    them); JAX_FLEET held for sampled and greedy admission; collect=True
+    (fleet_ledger: no slot granted above its supply) and the monitor armed
+    once; the port's MultiJobScheduler on the card (each python AHAP
+    window on K1's table entry) matching every job to FLEET_ORACLE_ATOL;
+    one engine call traced. Returns (forecast-entry launches, table-entry
+    launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.chaos import FallbackConfig
+    from repro_torch.core import fleet, policies
+    from repro_torch.core.multi_job import MultiJobScheduler
+    from repro_torch.obs import fleet_ledger
+    from repro_torch.workload import PAPER_JOB, PAPER_TPUT
+
+    t_start = time.perf_counter()
+    specs, arrs = _pool124()
+    n_pol = len(specs)
+    c0 = _k1_counts(k1)
+    t0 = time.perf_counter()
+    trace, prices, avail, pred, arrivals, res, rows, idx = _fleet_workload(
+        np, engine, arrs)
+    pilot_s = time.perf_counter() - t0
+    got = (res.best_policy(), res.iters_to_half())
+    if got != JAX_FLEET["pilot"]:
+        _fail(f"[fleet] pilot (best, iters_to_half) {got} != JAX "
+              f"{JAX_FLEET['pilot']}")
+    jobs = fast_sim.stack_jobs([PAPER_JOB] * FLEET_JOBS)
+
+    def run(rows_=rows, **kw):
+        return fleet.simulate_fleet(rows_, jobs, arrivals, PAPER_TPUT, prices,
+                                    avail, pred, **kw)
+
+    def counted(what, fn):
+        before = _k1_counts(k1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = tuple(a - b for a, b in zip(_k1_counts(k1), before))
+        if n != (FLEET_SLOTS, FLEET_SLOTS):
+            _fail(f"[fleet] {what}: K1 launched {n[0]} times, {n[1]} of "
+                  f"them the forecast entry; expected {FLEET_SLOTS} "
+                  "forecast-entry launches (one a slot)")
+        return out, wall
+
+    run()                                                   # warm-up
+    out, engine_s = counted("engine", run)
+    engine_s2 = counted("engine", run)[1]
+    summary = _fleet_summary(np, idx, out, n_pol)
+    _check_fleet("sampled admission", summary, JAX_FLEET["sampled"])
+    kinds = np.bincount(np.asarray(rows["kind"]), minlength=6)
+
+    # the plain chain on the card, every slot's real rows captured
+    captured = []
+    plain_rows = window_opt._solve_rows
+
+    def capture(job, tput, z0, std, p, a, tn, backend):
+        captured.append((
+            type(job)(**{f: getattr(job, f).clone()
+                         for f in job.__dataclass_fields__}),
+            z0.clone(), std.clone(), p.clone(), a.clone()))
+        return plain_rows(job, tput, z0, std, p, a, tn, backend)
+
+    window_opt._solve_rows = capture
+    try:
+        t0 = time.perf_counter()
+        plain = run(backend="torch")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        window_opt._solve_rows = plain_rows
+    for key in out:
+        if not torch.equal(out[key], plain[key]):
+            _fail(f"[fleet] {key} of the K1 run differs from the plain-DP "
+                  "run on the card; they must be bit-equal")
+    if len(captured) != FLEET_SLOTS:
+        _fail(f"[fleet] captured {len(captured)} slots of K1 rows, expected "
+              f"{FLEET_SLOTS}")
+    past = pre = 0
+    arr_ahap = arrivals[np.asarray(rows["kind"]) == 0]
+    for slot, rows_t in enumerate(captured):
+        past += int((rows_t[2] <= 0).sum())
+        pre += int((arr_ahap > slot).sum())
+        _compare_k1_rows(f"fleet slot {slot} real rows", rows_t, PAPER_TPUT,
+                         TN, torch, k1, window_dp_rows_ref)
+    ahap_rows = captured[0][1].shape[0]
+    print(f"[fleet] K1 on the fleet's real rows: {FLEET_SLOTS} slots x "
+          f"{ahap_rows} AHAP jobs bit-equal to the plain chain, "
+          f"{pre} rows before their job's arrival and {past} past its "
+          "deadline (eff_slots <= 0) among them")
+
+    # the recorder and the monitor
+    tel, _ = counted("collect", lambda: run(collect=True))
+    for key in out:
+        if not torch.equal(out[key], tel[key]):
+            _fail(f"[fleet] collect=True changed {key}")
+    ledger = fleet_ledger({k: v.cpu().numpy() for k, v in tel.items()},
+                          jobs, PAPER_TPUT, supply=avail)
+    over = ledger["waterfall"]["max_oversubscription"]
+    grants = tel["tel_grant"].sum(dim=0).cpu().numpy()
+    if over > 0 or (grants > avail).any():
+        _fail(f"[fleet] a slot granted above its supply: grants "
+              f"{grants.tolist()}, supply {avail.tolist()}")
+    fb, fb_s = counted("fallback", lambda: run(
+        collect=True, fallback=FallbackConfig(0.5, lam=0.5)))
+    if not bool(torch.isfinite(fb["utility"]).all()):
+        _fail("[fleet] non-finite utilities with the monitor armed")
+
+    # greedy admission
+    rows_g, idx_g = res.admission_rows(arrs, FLEET_JOBS, greedy=True)
+    out_g, greedy_s = counted("greedy", lambda: run(rows_g))
+    _check_fleet("greedy admission", _fleet_summary(np, idx_g, out_g, n_pol),
+                 JAX_FLEET["greedy"])
+
+    # the host oracle on the card: each python AHAP window solve is one
+    # launch of K1's table entry
+    solves = [0]
+    solve = policies.solve_window_numpy
+
+    def count_solve(*args, **kwargs):
+        solves[0] += 1
+        return solve(*args, **kwargs)
+
+    before = _k1_counts(k1)
+    policies.solve_window_numpy = count_solve
+    try:
+        t0 = time.perf_counter()
+        sched = MultiJobScheduler(PAPER_TPUT, trace)
+        for i in range(FLEET_JOBS):
+            sched.submit(int(arrivals[i]), PAPER_JOB,
+                         specs[int(idx[i])].build(), pred=pred)
+        done = {r.job_id: r for r in sched.run(FLEET_SLOTS)}
+        oracle_s = time.perf_counter() - t0
+    finally:
+        policies.solve_window_numpy = solve
+    n = tuple(a - b for a, b in zip(_k1_counts(k1), before))
+    table = n[0] - n[1]
+    if n[1] != 0 or table != solves[0] or table == 0:
+        _fail(f"[fleet] oracle: {table} table-entry and {n[1]} "
+              f"forecast-entry launches for {solves[0]} python-AHAP window "
+              "solves; expected one table-entry launch a solve")
+    u_loop = np.array([done[i].utility for i in range(FLEET_JOBS)])
+    u_dev = out["utility"].cpu().numpy().astype(np.float64)
+    diff = np.abs(u_dev - u_loop)
+    match = float(np.mean(diff <= FLEET_ORACLE_ATOL))
+    if match != 1.0:
+        bad = int(np.argmax(diff > FLEET_ORACLE_ATOL))
+        _fail(f"[fleet] engine and MultiJobScheduler differ on "
+              f"{int((diff > FLEET_ORACLE_ATOL).sum())} jobs (first: job "
+              f"{bad}, {u_dev[bad]} vs {u_loop[bad]})")
+
+    # one engine call traced
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    k1_ev = [e for e in events if "window_dp" in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1_ev) / 1e3
+    launches = _k1_counts(k1)[1] - c0[1]
+    table_all = (_k1_counts(k1)[0] - c0[0]) - launches
+    print(f"[fleet] pilot ({FLEET_PILOT} jobs x {n_pol} lanes) and "
+          f"admission {pilot_s:.3f} s: best={JAX_FLEET['pilot'][0]} "
+          f"iters_to_half={JAX_FLEET['pilot'][1]}; {FLEET_JOBS} jobs admitted "
+          f"(kinds 0-5: {kinds.tolist()}), the same lanes as JAX (CRC32 "
+          f"{summary[1]})")
+    print(f"[fleet] simulate_fleet on the card: {FLEET_JOBS} jobs x "
+          f"{FLEET_SLOTS} slots, {engine_s:.4f} / {engine_s2:.4f} s a call "
+          f"({FLEET_JOBS / engine_s:.0f} jobs/s), {FLEET_SLOTS} K1 "
+          f"forecast-entry launches a call at B = {ahap_rows}; plain DP on "
+          f"the card {plain_s:.4f} s (bit-equal); collect bit-equal, max "
+          f"oversubscription {over}, starvation incidence "
+          f"{ledger['waterfall']['starvation_incidence']:.3f}; monitor "
+          f"armed {fb_s:.4f} s, {int(fb['tel_fallback'].sum())} fallback "
+          f"job-slots; greedy {greedy_s:.4f} s; JAX_FLEET held (spot "
+          f"grants a slot {list(summary[2])}, {summary[3]} finished by the "
+          f"deadline, utility sum {summary[4]:.6f} against "
+          f"{JAX_FLEET['sampled'][4]:.6f})")
+    print(f"[fleet] MultiJobScheduler on the card (python policies, each "
+          f"AHAP window on K1's table entry): {oracle_s:.3f} s, "
+          f"{table} table-entry launches for {solves[0]} window solves "
+          f"({oracle_s / max(table, 1) * 1e3:.3f} ms of host wall a solve); "
+          f"utility match {match:.3f} (max |diff| {diff.max():.3e}, atol "
+          f"{FLEET_ORACLE_ATOL}); the oracle takes "
+          f"{oracle_s / engine_s:.1f}x the engine's wall")
+    if busy == 0:
+        print(f"[trace] fleet: profiled wall {pwall:.4f} s; device time not "
+              "measured (the profiler recorded no device events)")
+    else:
+        print(f"[trace] fleet engine call: profiled wall {pwall:.4f} s; "
+              f"device busy {busy:.2f} ms = {busy / (pwall * 1e3):.1%} (idle "
+              f"{1 - busy / (pwall * 1e3):.1%}); K1 {k1_ms:.3f} ms "
+              f"({k1_ms / busy:.1%} of busy, "
+              f"{sum(e.count for e in k1_ev)} launches); "
+              f"{sum(e.count for e in events)} device events")
+    print(f"[fleet] phase {time.perf_counter() - t_start:.1f} s")
+    return launches, table_all
+
+
 def _phase_time_k1_region(torch, k1, tput, window_dp_ref,
                           window_dp_rows_ref, clock):
     """K1 at the shapes this slice launches it with: the forecast entry at
@@ -1294,7 +1653,10 @@ def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
               ((3, 200, 200, 128), "bfloat16", True, None),
               ((3, 200, 200, 128), "float32", True, 37),
               ((SERVE_BATCH * 32, SERVE_PROMPT, SERVE_PROMPT, 128),
-               "bfloat16", True, None)]
+               "bfloat16", True, None),
+              # mixtral-8x7b's prefill: its window (4096) is past S
+              ((MOE_RUN[1] * 32, MOE_RUN[2], MOE_RUN[2], 128), "bfloat16",
+               True, 4096)]
     # head_dim 80 (zamba2-2.7b's shared block), up to its prefill shape
     cases += [((4, 256, 256, 80), "float32", True, None),
               ((2, 128, 300, 80), "float32", False, None),
@@ -1444,7 +1806,7 @@ def _phase_k4(torch, gen, k4, ssd_scan_ref, ssd_scan_grouped_ref) -> float:
 def _launches_per_forward(cfg):
     """(K2 launches of one forward, K3 and K4 launches of one prefill)."""
     attn_k2 = len(cfg.lora.targets)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         return attn_k2 * cfg.num_layers, cfg.num_layers, 0
     if cfg.arch_type == "ssm":
         return 2 * cfg.num_layers, 0, cfg.num_layers
@@ -1454,7 +1816,8 @@ def _launches_per_forward(cfg):
 
 def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
                      arch=SERVE_REF_ARCH, seed=SERVE_REF_SEED,
-                     tokens=SERVE_REF_TOKENS):
+                     tokens=SERVE_REF_TOKENS, prompt_len=16,
+                     max_len=SERVE_REF_MAX_LEN):
     """The port's serving engine on the card against the JAX package's
     tokens on the same numpy weights (a smoke config, f32)."""
     from repro_torch import convert
@@ -1465,8 +1828,8 @@ def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
     cfg = get_smoke_config(arch)
     params = convert.model_params(
         convert.random_model_params(cfg, seed), cfg, dev)
-    prompts = serve_ref_prompts(np, cfg.vocab_size, seed)
-    eng = ServingEngine(cfg, params, max_len=SERVE_REF_MAX_LEN, device=dev)
+    prompts = serve_ref_prompts(np, cfg.vocab_size, seed, prompt_len)
+    eng = ServingEngine(cfg, params, max_len=max_len, device=dev)
     k2.lora_matmul.launches = 0
     k3.flash_attention.launches = 0
     k4.ssd_scan.launches = 0
@@ -1480,8 +1843,9 @@ def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
     want = (per_fwd * (1 + SERVE_REF_NEW), n_k3, n_k4)
     if launches != want:
         _fail(f"[{tag}] K2/K3/K4 launches {launches}, expected {want}")
-    print(f"[{tag}] {cfg.name}: {len(got)} requests x {SERVE_REF_NEW} "
-          f"greedy tokens equal the JAX ServingEngine's; K2 launched "
+    print(f"[{tag}] {cfg.name}: {len(got)} requests of {prompt_len} tokens x "
+          f"{SERVE_REF_NEW} greedy tokens equal the JAX ServingEngine's; K2 "
+          f"launched "
           f"{launches[0]} times, K3 {launches[1]}, K4 {launches[2]}")
 
 
@@ -1525,18 +1889,24 @@ def _lora_pairs(tree):
 
 def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
                  batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=SERVE_NEW,
-                 max_len=SERVE_MAX_LEN):
-    """A config at full width and depth, bf16, on the card: ``batch``
-    prompts of ``prompt`` tokens, ``new`` greedy new tokens each, through
-    ServingEngine. Returns the launches of K2 at prefill, of K2 at decode,
-    of K3 and of K4."""
+                 max_len=SERVE_MAX_LEN, layers=None):
+    """A config at full width (and full depth, unless ``layers`` cuts it),
+    bf16, on the card: ``batch`` prompts of ``prompt`` tokens, ``new``
+    greedy new tokens each, through ServingEngine. Returns the launches of
+    K2 at prefill, of K2 at decode, of K3 and of K4."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
     from repro_torch.serve import Request, ServingEngine
 
     k2, k3, k4 = kernels
     cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     torch.cuda.synchronize()
@@ -1586,7 +1956,10 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
     if tokens.shape != (batch, new) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         _fail(f"[{tag}] tokens of shape {tokens.shape} out of range")
-    print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+    depth = (f"{cfg.num_layers} of its {full_layers} layers: depth cut, "
+             "width as published" if cfg.num_layers < full_layers
+             else f"{cfg.num_layers} layers")
+    print(f"[{tag}] {cfg.name} ({depth}, d {cfg.d_model}, "
           f"{(cfg.param_count() + cfg.lora_param_count()) / 1e9:.3f} G "
           f"parameters, bf16) drawn on the card in "
           f"{init_s:.2f} s; {batch} x {prompt}-token prompts, "
@@ -1598,20 +1971,28 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
 
     prompts_t = torch.from_numpy(prompts.astype(np.int64))
     tokens_t = torch.from_numpy(tokens.astype(np.int64)).to(dev)
-    kern, pre_s, dec_s = _teacher_forced(torch, tf, cfg, params, prompts_t,
-                                         tokens_t, max_len,
-                                         KernelConfig(True))
-    plain, pre_p, dec_p = _teacher_forced(torch, tf, cfg, params, prompts_t,
-                                          tokens_t, max_len,
-                                          KernelConfig(False))
+    with _Routes(torch, moe_lib) as kern_routes:
+        kern, pre_s, dec_s = _teacher_forced(torch, tf, cfg, params,
+                                             prompts_t, tokens_t, max_len,
+                                             KernelConfig(True))
+    with _Routes(torch, moe_lib) as plain_routes:
+        plain, pre_p, dec_p = _teacher_forced(torch, tf, cfg, params,
+                                              prompts_t, tokens_t, max_len,
+                                              KernelConfig(False))
     if not bool(torch.isfinite(kern).all()):
         _fail(f"[{tag}] non-finite logits in the kernel run")
     print(f"[{tag}] teacher-forced on the engine's tokens: kernel run "
           f"prefill {pre_s:.3f} s, decode {dec_s * 1e3:.2f} ms/step; plain "
           f"run prefill {pre_p:.3f} s, decode {dec_p * 1e3:.2f} ms/step")
-    if tag in ("serve", "serve-ssm"):
+    if tag in ("serve", "serve-ssm", "serve-moe"):
         _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, max_len,
                      cfg.name)
+    if cfg.arch_type == "moe":
+        del eng
+        _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len,
+                    tag, (kern, kern_routes.calls),
+                    (plain, plain_routes.calls))
+        return launches
     if tag == "serve":
         bound = SERVE_LOGIT_ATOL
     else:
@@ -1643,6 +2024,181 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
     return launches
 
 
+class _Routes:
+    """Records a run's MoE routing: every ``moe.route`` call's top-k expert
+    set (sorted) and router logits, in call order (layer by layer, prefill
+    then each decode step). Records nothing for a model without MoE."""
+
+    def __init__(self, torch, moe_lib):
+        self.torch, self.mod, self.calls = torch, moe_lib, []
+
+    def __enter__(self):
+        self.route = self.mod.route
+
+        def record(cfg, router_w, x):
+            out = self.route(cfg, router_w, x)
+            logits = x.float() @ router_w.float()
+            self.calls.append((self.torch.sort(out[0], dim=-1).values,
+                               logits))
+            return out
+
+        self.mod.route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+
+def _route_swaps(torch, cfg, a_calls, b_calls, prompt):
+    """Compare two runs' routing (``_Routes.calls``, the same forwards in
+    the same order; run b is the baseline). Returns a dict: ``swaps`` and
+    ``first`` (a token's swap at its lowest layer) a layer, ``first_gap``
+    (b's largest 2nd - 3rd router-logit gap at a first swap, a layer),
+    ``diff`` (the largest router-logit difference at tokens with no swap at
+    this layer or below, a layer) and ``swapped`` (layers, B, positions)
+    bool. Fails if a swap
+    does not follow from the logits: b's 2nd - 3rd gap over twice the two
+    runs' largest logit difference at that token."""
+    n_layers = cfg.num_layers
+    if len(a_calls) != len(b_calls) or len(a_calls) % n_layers:
+        _fail(f"routing calls {len(a_calls)} / {len(b_calls)} for "
+              f"{n_layers} layers")
+    n_fwd = len(a_calls) // n_layers
+    b = a_calls[0][0].shape[0]
+    dev = a_calls[0][0].device
+    n_pos = prompt + n_fwd - 1
+    swapped = torch.zeros((n_layers, b, n_pos), dtype=torch.bool, device=dev)
+    gap = torch.zeros((n_layers, b, n_pos), device=dev)
+    diff = [0.0] * n_layers
+    for c, ((ia, la), (ib, lb)) in enumerate(zip(a_calls, b_calls)):
+        f, layer = divmod(c, n_layers)
+        at = slice(0, prompt) if f == 0 else slice(prompt + f - 1,
+                                                   prompt + f)
+        sw = (ia != ib).any(-1)
+        top3 = lb.topk(3, dim=-1).values
+        g = top3[..., 1] - top3[..., 2]
+        d = (la - lb).abs().amax(-1)
+        if bool((g[sw] > 2 * d[sw]).any()):
+            _fail(f"a routing swap at layer {layer} of forward {f} that the "
+                  "router logits do not explain")
+        swapped[layer, :, at] = sw
+        gap[layer, :, at] = g
+        clean = ~swapped[:layer + 1, :, at].any(0)
+        if bool(clean.any()):
+            diff[layer] = max(diff[layer], float(d[clean].max()))
+    before = torch.cumsum(swapped.int(), dim=0) - swapped.int()
+    first = swapped & (before == 0)
+    first_gap = [float(gap[i][first[i]].max()) if bool(first[i].any())
+                 else 0.0 for i in range(n_layers)]
+    return {"swaps": swapped.sum(dim=(1, 2)).tolist(),
+            "first": first.sum(dim=(1, 2)).tolist(),
+            "first_gap": first_gap, "diff": diff, "swapped": swapped}
+
+
+def _agree(swaps, prompt):
+    """(F, B) bool: forwards whose last token took the same experts in every
+    layer in every compared pair of runs."""
+    tok = None
+    for sw in swaps:
+        one = sw["swapped"].any(0)
+        tok = one if tok is None else tok | one
+    return ~tok[:, prompt - 1:].T
+
+
+def _print_swaps(tag, what, sw):
+    print(f"[{tag}] {what}: routing swaps a layer {sw['swaps']}, first "
+          f"swaps {sw['first']}; the largest 2nd - 3rd router-logit gap at "
+          f"a first swap, a layer: "
+          f"{[round(g, 4) for g in sw['first_gap']]}; router logits at "
+          "tokens not swapped up to the layer differ by at most, a layer: "
+          f"{[float(f'{d:.3g}') for d in sw['diff']]}")
+
+
+def _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len, tag,
+                kern_run, plain_run):
+    """[serve-moe]'s routing and logit checks (see ROUTE_SWAP_MARGIN): the
+    bf16 runs at the served depth; then the first MOE_F32_LAYERS layers
+    (the others freed), bf16 and widened to f32, each run with the kernels
+    and plain."""
+    import dataclasses
+
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import moe as moe_lib
+
+    prompt = prompts_t.shape[1]
+    sw = _route_swaps(torch, cfg, kern_run[1], plain_run[1], prompt)
+    _print_swaps(tag, f"bf16, {cfg.num_layers} layers", sw)
+    if sw["first_gap"][0] > ROUTE_SWAP_MARGIN:
+        _fail(f"[{tag}] a first-layer routing swap where the plain run's 2nd "
+              f"and 3rd router logits were {sw['first_gap'][0]} apart "
+              f"(> {ROUTE_SWAP_MARGIN})")
+    agree = _agree([sw], prompt)
+    diff = (kern_run[0] - plain_run[0]).abs().amax(-1)            # (F, B)
+    print(f"[{tag}] bf16, {cfg.num_layers} layers: last-position logits, "
+          f"kernel run against plain run: max "
+          f"{float(diff.max()):.4f} over all {diff.numel()} (forward, row) "
+          f"pairs, {float(diff[agree].max()) if bool(agree.any()) else 0:.4f}"
+          f" over the {int(agree.sum())} whose last token's routing agrees "
+          "(reported: the random init amplifies differences with depth)")
+
+    del params["layers"][MOE_F32_LAYERS:]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cut = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS)
+    cfg32 = dataclasses.replace(cut, dtype="float32")
+    p32 = _widen(params)
+    runs = {}
+    for name, c, p, use_cuda in (("bf16 kernel", cut, params, True),
+                                 ("bf16 plain", cut, params, False),
+                                 ("f32 kernel", cfg32, p32, True),
+                                 ("f32 plain", cfg32, p32, False)):
+        with _Routes(torch, moe_lib) as routes:
+            logits = _teacher_forced(torch, tf, c, p, prompts_t, tokens_t,
+                                     max_len, KernelConfig(use_cuda))[0]
+        if not bool(torch.isfinite(logits).all()):
+            _fail(f"[{tag}] non-finite logits in the {name} run")
+        runs[name] = (logits, routes.calls)
+    pairs = {what: _route_swaps(torch, cut, runs[a][1], runs[b][1], prompt)
+             for what, a, b in (("bf16", "bf16 kernel", "bf16 plain"),
+                                ("f32", "f32 kernel", "f32 plain"),
+                                ("bf16 plain / f32", "bf16 plain",
+                                 "f32 plain"))}
+    for what, pair in pairs.items():
+        _print_swaps(tag, f"{MOE_F32_LAYERS} layers, {what} runs", pair)
+    agree = _agree(pairs.values(), prompt)
+    if not bool(agree.any()):
+        _fail(f"[{tag}] no forward whose routing agrees in all four runs")
+
+    def dist(a, b):
+        return float((runs[a][0] - runs[b][0]).abs().amax(-1)[agree].max())
+
+    d32 = dist("f32 kernel", "f32 plain")
+    floor = dist("bf16 plain", "f32 plain")
+    d16 = dist("bf16 kernel", "bf16 plain")
+    print(f"[{tag}] {MOE_F32_LAYERS} layers, the {int(agree.sum())} of "
+          f"{agree.numel()} (forward, row) pairs whose last token's routing "
+          f"agrees in all four runs: f32 max |kernel - plain| {d32:.3e} "
+          f"(bound {F32_LOGIT_ATOL}); bf16 max |kernel - plain| {d16:.4f} "
+          f"(bound twice the bf16 plain run's drift from the f32 plain run, "
+          f"{2 * floor:.4f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not d32 <= F32_LOGIT_ATOL:
+        _fail(f"[{tag}] f32 logits of the kernel and plain runs differ by "
+              f"{d32} > {F32_LOGIT_ATOL}")
+    if not d16 <= 2 * floor:
+        _fail(f"[{tag}] bf16 logits of the kernel and plain runs differ by "
+              f"{d16} > {2 * floor}")
+
+
+def _widen(tree):
+    """A parameter tree with every tensor widened to f32."""
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_widen(v) for v in tree]
+    return tree.float()
+
+
 def _f32_logits(torch, tf, cfg, params, prompts_t, tokens_t, max_len):
     """The model with its weights widened to f32, teacher-forced on the same
     tokens: (kernel run's logits, plain run's logits)."""
@@ -1650,15 +2206,8 @@ def _f32_logits(torch, tf, cfg, params, prompts_t, tokens_t, max_len):
 
     from repro_torch.kernels.ops import KernelConfig
 
-    def widen(tree):
-        if isinstance(tree, dict):
-            return {k: widen(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [widen(v) for v in tree]
-        return tree.float()
-
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = widen(params)
+    p32 = _widen(params)
     return tuple(_teacher_forced(torch, tf, cfg32, p32, prompts_t, tokens_t,
                                  max_len, KernelConfig(use_cuda))[0]
                  for use_cuda in (True, False))
@@ -1673,19 +2222,24 @@ def _trace_line(torch, what, prof, wall_s):
     events' self time: one stream, so they do not overlap; the host-side ops
     that launched them are left out, or each kernel would count twice)
     beside its wall time, the kernels that took most of it, and the device
-    time under ops.ssd's named range (its copies of x, dt, B and C into
-    K4's (B*H, ...) layout, B and C repeated from groups to heads)."""
+    time under each named range that ran: ops.ssd's (empty since K4 reads
+    the model's layout), ops.attention's K / V repeat to every query head
+    (GQA), and the MoE layer's route, dispatch, expert products and
+    combine."""
     from torch.autograd import DeviceType
 
-    from repro_torch.kernels.ops import SSD_COPIES
+    from repro_torch.kernels.ops import KV_REPEAT, SSD_COPIES
+    from repro_torch.models import moe as moe_lib
 
+    ranges = (SSD_COPIES, KV_REPEAT, moe_lib.ROUTE, moe_lib.DISPATCH,
+              moe_lib.EXPERTS, moe_lib.COMBINE)
     averages = prof.key_averages()
     # a named range may also appear as a device-side annotation spanning
     # its kernels: not a kernel, so not counted
     events = [e for e in averages
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
-              and e.key != SSD_COPIES]
+              and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us == 0:
         print(f"[trace] {what}: wall {wall_s * 1e3:.1f} ms; device time not "
@@ -1704,11 +2258,21 @@ def _trace_line(torch, what, prof, wall_s):
     print(f"[trace] {what}: " + "; ".join(
         f"{name} {us / 1e3:.1f} ms ({us / busy_us:.1%} of busy)"
         for name, us in shares.items()))
+    # each range's span on the device (its device-side annotation: first
+    # kernel start to last kernel end, one stream); a CPU-side range's
+    # device_time_total counts that span and its kernels both
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and e.is_user_annotation()
+                and e.name() in ranges):
+            count, us = spans.get(e.name(), (0, 0.0))
+            spans[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
     for e in averages:
-        if e.key == SSD_COPIES and e.device_type == DeviceType.CPU:
-            print(f"[trace] {what}: kernels under '{e.key}' ({e.count}x): "
-                  f"{e.device_time_total / 1e3:.1f} ms of device time "
-                  f"({e.device_time_total / busy_us:.1%} of busy)")
+        if e.key in ranges and e.device_type == DeviceType.CPU:
+            count, us = spans.get(e.key, (0, 0.0))
+            print(f"[trace] {what}: '{e.key}' ({e.count}x on the host, "
+                  f"{count} device spans): {us / 1e3:.1f} ms on the device "
+                  f"({us / busy_us:.1%} of busy)")
 
 
 def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, max_len, name,
@@ -1796,20 +2360,26 @@ def _phase_time_k2(torch, gen, k2, lora_matmul_ref, shapes):
     return rows
 
 
-def _phase_time_k3(torch, gen, k3, flash_attention_ref, b, h, s, d):
-    """K3 at a serving prefill (BH = b x h, S, D, causal, bf16) beside the
-    plain version and F.scaled_dot_product_attention: kernel and SDPA by
-    ``_graph_ms``, the plain version (its (BH, S, S) f32 scores too large to
-    capture 25 times) by ``_event_ms``."""
+def _phase_time_k3(torch, gen, k3, flash_attention_ref, b, h, s, d,
+                   window=None):
+    """K3 at a serving prefill (BH = b x h, S, D, causal, bf16, the
+    config's window) beside the plain version and
+    F.scaled_dot_product_attention: kernel and SDPA by ``_graph_ms``, the
+    plain version (its (BH, S, S) f32 scores too large to capture 25 times)
+    by ``_event_ms``. A window of S or more masks nothing, so SDPA's causal
+    call computes the same function."""
     import torch.nn.functional as F
 
+    assert window is None or window >= s
     q, k, v = (_randn(torch, gen, (b * h, s, d), 1.0, torch.bfloat16)
                for _ in range(3))
-    ms = _graph_ms(torch, lambda: k3.flash_attention(q, k, v, causal=True))
+    ms = _graph_ms(torch, lambda: k3.flash_attention(q, k, v, causal=True,
+                                                     window=window))
     for _ in range(3):
-        flash_attention_ref(q[None], k[None], v[None], causal=True)
+        flash_attention_ref(q[None], k[None], v[None], causal=True,
+                            window=window)
     plain = _event_ms(torch, lambda: flash_attention_ref(
-        q[None], k[None], v[None], causal=True), TIME_REPS)
+        q[None], k[None], v[None], causal=True, window=window), TIME_REPS)
     q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
     lib = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True))
@@ -1884,7 +2454,24 @@ def _k2_shapes(launches=None):
         name = arch.split("-")[0]
         rows[f"{name}-prefill"] = (batch * prompt, d, di, count(tag, 0))
         rows[f"{name}-decode"] = (batch, d, di, count(tag, 1))
+    # mixtral-8x7b's q (N = h x hd = 4096) and v (N = kv x hd = 1024, GQA)
+    # projections: one launch each a layer a forward, half of each count
+    arch, batch, prompt, _, _ = MOE_RUN
+    cfg = get_config(arch)
+    for proj, n in (("q", cfg.num_heads * cfg.head_dim),
+                    ("v", cfg.num_kv_heads * cfg.head_dim)):
+        for phase, m, i in (("prefill", batch * prompt, 0),
+                            ("decode", batch, 1)):
+            c = count("serve-moe", i)
+            rows[f"mixtral-{proj}-{phase}"] = (
+                m, cfg.d_model, n, None if c is None else c // 2)
     return rows
+
+
+def _before(name) -> str:
+    """A row's time before its kernel's redesign, where one was taken."""
+    us = BEFORE_US.get(name)
+    return "not timed" if us is None else f"{us:,.1f} us"
 
 
 def _entry(name, source, replaces, launches, err, row):
@@ -1930,6 +2517,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     window_dp = k1.window_dp
+    t_main = time.perf_counter()
 
     # ---- phase 1: identity and build ----
     card = _card_line()
@@ -2172,6 +2760,13 @@ def main() -> int:
                                               k1, inputs[SETTINGS[0]])
     print(f"[launches] K1 forecast entry: region {region_launches}, oracle "
           f"{oracle_rows}; K1 table entry: oracle {oracle_table}")
+
+    # ---- phase 4d: fleet contention (the pilot, admission, the engine,
+    # the oracle) ----
+    fleet_rows, fleet_table = _phase_fleet(torch, np, engine, fast_sim,
+                                           window_opt, k1, window_dp_rows_ref)
+    print(f"[launches] K1 forecast entry: fleet {fleet_rows}; K1 table "
+          f"entry: fleet oracle {fleet_table}")
     for entry, row in _phase_time_k1_region(
             torch, k1, workload.PAPER_TPUT, window_dp_ref,
             window_dp_rows_ref, _max_sm_clock_mhz()).items():
@@ -2202,6 +2797,15 @@ def main() -> int:
                                      batch, prompt, new, max_len)
         torch.cuda.empty_cache()
 
+    # ---- phase 6b: MoE serving (K2 on q and v, K3 with a window) ----
+    arch, seed, length, tokens = MOE_REF
+    _phase_serve_ref(torch, np, dev, kernels, "serve-moe-ref", arch, seed,
+                     tokens, length, MOE_REF_MAX_LEN)
+    launches["serve-moe"] = _phase_serve(torch, np, dev, kernels,
+                                         "serve-moe", *MOE_RUN,
+                                         layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+
     # ---- phase 7: K2's, K3's and K4's time beside their bounds ----
     k2_shapes = _k2_shapes(launches)
     k2_rows = dict(zip(k2_shapes, _phase_time_k2(
@@ -2213,7 +2817,7 @@ def main() -> int:
               f"({row['M']}, {row['K']}, {row['N']}, {row['r']}) bf16 "
               f"({cold}): {row['ms'] * 1e3:.1f} us/launch "
               f"({row['launches']} launches on the serving path; before "
-              f"the redesign {BEFORE_US[phase]:,.1f} us); bound "
+              f"the redesign {_before(phase)}); bound "
               f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} = "
               f"{row['bound_ms'] / row['ms']:.1%} "
               f"of bound; plain {row['plain_ms'] * 1e3:.1f} us; "
@@ -2229,8 +2833,12 @@ def main() -> int:
         "flash_attention/zamba2": _phase_time_k3(
             torch, gen, k3, flash_attention_ref, FAMILY_RUNS["serve-hybrid"][1],
             zamba.num_heads, FAMILY_RUNS["serve-hybrid"][2], zamba.head_dim),
+        "flash_attention/mixtral": _phase_time_k3(
+            torch, gen, k3, flash_attention_ref, MOE_RUN[1], 32, MOE_RUN[2],
+            128, window=get_config(MOE_RUN[0]).sliding_window),
     }
     k3_rows["flash_attention"]["launches"] = launches["serve"][2]
+    k3_rows["flash_attention/mixtral"]["launches"] = launches["serve-moe"][2]
     k3_rows["flash_attention/zamba2"]["launches"] = \
         launches["serve-hybrid"][2]
     for name, row in k3_rows.items():
@@ -2239,7 +2847,7 @@ def main() -> int:
               f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
               f"on its serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
               f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
-              f"bound; before the redesign {BEFORE_US[name]:,.1f} us; plain "
+              f"bound; before the redesign {_before(name)}; plain "
               f"{row['plain_ms'] * 1e3:.1f} us; "
               f"F.scaled_dot_product_attention "
               f"{row['library_ms'] * 1e3:.1f} us (kernel / SDPA "
@@ -2283,8 +2891,9 @@ def main() -> int:
                k1_rows[entry])
         for entry, own in (
             ("forecast", rows_launches + chaos_launches + grid_launches
-             + region_launches + oracle_rows),
-            ("table", main_launches - rows_launches + oracle_table))]
+             + region_launches + oracle_rows + fleet_rows),
+            ("table", main_launches - rows_launches + oracle_table
+             + fleet_table))]
     print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'
@@ -2298,6 +2907,8 @@ def main() -> int:
         _entry(name, "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:23",
                rows["grouped"]["launches"], k4_err, rows["grouped"])
         for name, rows in k4_rows.items()]}))
+    print(f"[id] chip_smoke.py: {time.perf_counter() - t_main:.1f} s from "
+          "the build on")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

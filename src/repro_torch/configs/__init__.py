@@ -1,13 +1,13 @@
-"""Config registry of the port: the dense, SSM and hybrid model configs
-(copies of the reference's files) and the scheduling configs.
+"""Config registry of the port: the dense, MoE, SSM and hybrid model
+configs (copies of the reference's files) and the scheduling configs.
 
-The MoE, VLM and audio configs join with their model slices (ROADMAP
-Queue 1 items 10a, 10d and 10e)."""
+The VLM and audio configs join with their model slices (ROADMAP Queue 1
+items 10d and 10e)."""
 from repro_torch.configs.base import (JobConfig, LoRAConfig, ModelConfig,
                                       MoEConfig, SSMConfig, ThroughputConfig)
 from repro_torch.configs import (command_r_plus_104b, granite_20b, llama2_7b,
-                                 mamba2_370m, olmo_1b, qwen1_5_110b, tiny_100m,
-                                 zamba2_2_7b)
+                                 mamba2_370m, mixtral_8x7b, mixtral_8x22b,
+                                 olmo_1b, qwen1_5_110b, tiny_100m, zamba2_2_7b)
 
 _MODULES = {
     "olmo-1b": olmo_1b,
@@ -18,6 +18,8 @@ _MODULES = {
     "tiny-100m": tiny_100m,
     "mamba2-370m": mamba2_370m,
     "zamba2-2.7b": zamba2_2_7b,
+    "mixtral-8x7b": mixtral_8x7b,
+    "mixtral-8x22b": mixtral_8x22b,
 }
 
 

@@ -54,9 +54,9 @@ def eg_state_to_numpy(state: selector.EGState) -> dict:
             for f in selector.EGState._fields}
 
 
-# leaves the reference keeps in f32 whatever the model dtype: LoRA adapters
-# and the SSM's per-head decay, skip and step-size bias
-_F32_KEYS = ("lora", "A_log", "D", "dt_bias")
+# leaves the reference keeps in f32 whatever the model dtype: LoRA adapters,
+# the MoE router and the SSM's per-head decay, skip and step-size bias
+_F32_KEYS = ("lora", "router", "A_log", "D", "dt_bias")
 
 
 def _tree_map(fn, tree, keep_f32: bool = False):
@@ -69,9 +69,10 @@ def _tree_map(fn, tree, keep_f32: bool = False):
 def model_params(values: dict, cfg, device=None) -> dict:
     """The reference's parameter values (``repro.models.init_model(...)[0]``
     or :func:`random_model_params`, any array type numpy can read) -> the
-    port's model: base weights in the model dtype, adapters and the SSM's
-    ``A_log``, ``D`` and ``dt_bias`` in f32, layers a list of per-layer dicts
-    (a list of super-blocks, each a list of layers, for hybrid)."""
+    port's model: base weights (the MoE experts included) in the model
+    dtype, adapters, the MoE router and the SSM's ``A_log``, ``D`` and
+    ``dt_bias`` in f32, layers a list of per-layer dicts (a list of
+    super-blocks, each a list of layers, for hybrid)."""
     tf.require_ported(cfg)
     dev = resolve_device(device)
     dt = tf.model_dtype(cfg)
@@ -97,8 +98,8 @@ def model_params(values: dict, cfg, device=None) -> dict:
 
 
 def random_model_params(cfg, seed: int) -> dict:
-    """Random parameter values for a dense, SSM or hybrid config, as f32
-    numpy arrays in the reference's layout (layers stacked; (super-blocks,
+    """Random parameter values for a dense, MoE, SSM or hybrid config, as
+    f32 numpy arrays in the reference's layout (layers stacked; (super-blocks,
     layers) for hybrid), drawn from a numpy seed. Unlike the standard init,
     LoRA B, the norm parameters and the biases are non-zero and
     non-trivial, so the low-rank path and every parameter is exercised; the
@@ -139,16 +140,26 @@ def random_model_params(cfg, seed: int) -> dict:
               if t in cfg.lora.targets}
         if lt:
             att["lora"] = lt
-        mlp = {"w1": normal((d, f), 1.0 / math.sqrt(d)),
-               "w2": normal((f, d), 1.0 / math.sqrt(f))}
-        if cfg.mlp_act == "silu":
-            mlp["w3"] = normal((d, f), 1.0 / math.sqrt(d))
-        if cfg.mlp_bias:
-            mlp.update(b1=normal((f,), 0.1), b2=normal((d,), 0.1))
-        if "mlp" in cfg.lora.targets:
-            mlp["lora"] = lora_pair(d, (f,))
+        if cfg.arch_type == "moe":
+            e = cfg.moe.num_experts
+            ffn = ("moe", {"router": normal((d, e), 0.02),
+                           "w1": normal((e, d, f), 1.0 / math.sqrt(d)),
+                           "w3": normal((e, d, f), 1.0 / math.sqrt(d)),
+                           "w2": normal((e, f, d), 1.0 / math.sqrt(f))})
+        else:
+            mlp = {"w1": normal((d, f), 1.0 / math.sqrt(d)),
+                   "w2": normal((f, d), 1.0 / math.sqrt(f))}
+            if cfg.mlp_act == "silu":
+                mlp["w3"] = normal((d, f), 1.0 / math.sqrt(d))
+            if cfg.mlp_bias:
+                mlp.update(b1=normal((f,), 0.1), b2=normal((d,), 0.1))
+            if "mlp" in cfg.lora.targets:
+                mlp["lora"] = lora_pair(d, (f,))
+            ffn = ("mlp", mlp)
+        # the norms are drawn last, as they always were: a seed gives the
+        # dense configs the weights it gave them before MoE joined
         return {"attn_norm": norm(), "attn": att, "mlp_norm": norm(),
-                "mlp": mlp}
+                ffn[0]: ffn[1]}
 
     def mamba_layer():
         ssm = cfg.ssm
@@ -180,7 +191,7 @@ def random_model_params(cfg, seed: int) -> dict:
     vals = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": norm()}
     if not cfg.tie_embeddings:
         vals["head"] = normal((d, cfg.vocab_size), 0.02)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         vals["layers"] = stack(*[layer() for _ in range(cfg.num_layers)])
     elif cfg.arch_type == "ssm":
         vals["layers"] = stack(*[mamba_layer()

@@ -220,6 +220,17 @@ class SelectionResult:
             m, int(self.state.k)
         )
 
+    def admission_rows(self, pool_arrays: dict, n: int, rng=None,
+                       greedy: bool = False):
+        """Per-job policy rows for fleet admission, drawn from the final EG
+        weights: the select -> admit loop (``core.fleet`` takes the rows as
+        each arriving job's policy). Returns ``(rows, idx)`` like
+        :func:`fleet.policy_rows_from_weights`."""
+        from repro_torch.core import fleet  # fleet must not import engine
+
+        return fleet.policy_rows_from_weights(
+            pool_arrays, self.state.weights, n, rng=rng, greedy=greedy)
+
 
 def simulate_and_select(
     pool_arrays: dict,

@@ -166,14 +166,26 @@ def _sim_clip(n_o, n_s, avail, j: JobArrays):
 # ---------------------------------------------------------------------------
 # Decision rules. State tensors are (K, P); ``j`` holds (K, 1) job columns,
 # ``price``/``av`` are this slot's (K, 1) market and ``t`` the slot index.
+# ``t`` may also be an i32 tensor of per-row local clocks that broadcasts
+# against the state (the fleet engine's ``t - arrival``, as the reference
+# allows a scalar or a vector): an int takes the ops it always took, and a
+# tensor the same ops on its f32 values, so both give the same bits.
 # ---------------------------------------------------------------------------
 
-def _ahap_precompute(j3: JobArrays, omega, sigma, rho, t: int, pred_t):
+def _tf(t):
+    """The slot clock as the f32 operand of the rules' float arithmetic:
+    ``float(t)`` for an int (exact, and rounded to f32 by the op), the
+    tensor cast to f32 otherwise."""
+    return float(t) if isinstance(t, int) else t.to(_F32)
+
+
+def _ahap_precompute(j3: JobArrays, omega, sigma, rho, t, pred_t):
     """AHAP scaffolding for slot ``t``: omega/sigma/rho are (P,) lane
-    parameters, ``j3`` holds (K, 1, 1) job columns and pred_t is the
-    slot's (K, W1MAX, 2) forecast. Returns (pr (2, K, P, W1MAX): prices,
-    then availability, each dense, as K1 reads them; thr_s (K, P, W1MAX)
-    i32, z_exp_end (K, P), eff_slots (K, P) i32).
+    parameters, ``j3`` holds (K, 1, 1) job columns (or (1, P, 1), one job
+    per lane, as the fleet passes them) and pred_t is the slot's (K,
+    W1MAX, 2) forecast; a tensor ``t`` is (P,) or (1, P). Returns (pr (2,
+    K, P, W1MAX): prices, then availability, each dense, as K1 reads them;
+    thr_s (K, P, W1MAX) i32, z_exp_end (K, P), eff_slots (K, P) i32).
 
     Robust-AHAP discounts *predicted* availability (entries j >= 1 only)."""
     k, p = pred_t.shape[0], omega.shape[0]
@@ -198,12 +210,13 @@ def _ahap_precompute(j3: JobArrays, omega, sigma, rho, t: int, pred_t):
 
 
 def _ahap_rule_batch(rows: JobConfig, j: JobArrays, tput, v, backend, device,
-                     z, t: int, price, av, plans, pr_t, thr_t, zee_t, eff_t):
+                     z, t, price, av, plans, pr_t, thr_t, zee_t, eff_t):
     """AHAP (Alg. 1) for every (job, AHAP lane): CHC window solve when
     behind, threshold plan when ahead, v-step plan averaging. The window
     solve is ONE ``solve_window_batch`` call over the flattened
-    (K * P) rows (``rows`` holds the per-row job fields). Returns
-    (n_o, n_s, new_plans)."""
+    (K * P) rows (``rows`` holds the per-row job fields). A tensor ``t``
+    holds one local clock per lane (K = 1, the fleet's jobs as lanes).
+    Returns (n_o, n_s, new_plans)."""
     k, p = z.shape
     b = k * p
     ahead = z >= zee_t
@@ -221,7 +234,8 @@ def _ahap_rule_batch(rows: JobConfig, j: JobArrays, tput, v, backend, device,
     plans = torch.cat([plan[:, :, None], plans[:, :, :-1]], dim=2)
     kk = torch.arange(VMAX, device=z.device)
     # a plan only exists if it was actually made (k <= t)
-    valid = (kk[None, :] < v[:, None]) & (kk[None, :] <= t)
+    made = kk[None, :] <= (t if isinstance(t, int) else t.reshape(-1, 1))
+    valid = (kk[None, :] < v[:, None]) & made
     valid = valid[None, :, :, None].to(_F32)           # (1, P, VMAX, 1)
     # plans[..., i, min(i, W1MAX - 1), :]: the i-th newest plan's decision
     # for the current slot (the reference's advanced-index gather)
@@ -238,10 +252,10 @@ def _ahap_rule_batch(rows: JobConfig, j: JobArrays, tput, v, backend, device,
     return ah_o, ah_s, plans
 
 
-def _ahanp_rule(j: JobArrays, sigma, z, t: int, price, av, n_prev,
+def _ahanp_rule(j: JobArrays, sigma, z, t, price, av, n_prev,
                 prev_avail):
     """AHANP (Alg. 3): reactive indicators z_hat / p_hat / n_hat."""
-    z_exp_prev = j.workload / j.deadline * float(t)
+    z_exp_prev = j.workload / j.deadline * _tf(t)
     z_hat = torch.where(z_exp_prev > 0, z / z_exp_prev, 1.0)
     p_hat = price / (sigma * j.p_o)
     n_hat = torch.where(
@@ -275,7 +289,7 @@ def _ahanp_rule(j: JobArrays, sigma, z, t: int, price, av, n_prev,
     return torch.where(an_zero, 0, an_o_f), torch.where(an_zero, 0, an_s_f)
 
 
-def _od_need(j: JobArrays, tput, z, t: int):
+def _od_need(j: JobArrays, tput, z, t):
     """(remaining, slots_left, on-demand units to finish at the deadline)."""
     remaining = torch.clamp_min(j.workload - z, 0.0)
     slots_left = (j.deadline - t).to(_F32)
@@ -285,7 +299,7 @@ def _od_need(j: JobArrays, tput, z, t: int):
     return remaining, slots_left, od_need
 
 
-def _od_rule(j: JobArrays, tput, z, t: int, price, av):
+def _od_rule(j: JobArrays, tput, z, t, price, av):
     """OD-Only: constant on-demand sized to finish exactly at the deadline."""
     remaining, slots_left, od_need = _od_need(j, tput, z, t)
     od_zero = (remaining <= 0) | (slots_left <= 0)
@@ -294,7 +308,7 @@ def _od_rule(j: JobArrays, tput, z, t: int, price, av):
     return torch.where(od_zero, 0, od_o_f), torch.where(od_zero, 0, od_s_f)
 
 
-def _msu_rule(j: JobArrays, tput, z, t: int, price, av):
+def _msu_rule(j: JobArrays, tput, z, t, price, av):
     """MSU: all spot; on-demand only once N^max can no longer finish."""
     remaining, slots_left, od_need = _od_need(j, tput, z, t)
     ms_s = torch.minimum(av, j.n_max).expand_as(od_need)
@@ -308,11 +322,11 @@ def _msu_rule(j: JobArrays, tput, z, t: int, price, av):
     return torch.where(ms_zero, 0, ms_o_f), torch.where(ms_zero, 0, ms_s_f)
 
 
-def _up_rule(j: JobArrays, tput, z, t: int, price, av):
+def _up_rule(j: JobArrays, tput, z, t, price, av):
     """UP (Wu et al. [16]): track the L/d line, spot-first."""
     remaining = torch.clamp_min(j.workload - z, 0.0)
     rate = j.workload / j.deadline.to(_F32)
-    deficit = torch.clamp_min(rate * float(t) - z, 0.0)
+    deficit = torch.clamp_min(rate * _tf(t) - z, 0.0)
     up_need = _clip(torch.ceil(exact_div(rate + deficit,
                                          tput.alpha)).to(_I32),
                     j.n_min, j.n_max)
@@ -323,12 +337,12 @@ def _up_rule(j: JobArrays, tput, z, t: int, price, av):
     return torch.where(up_zero, 0, up_o_f), torch.where(up_zero, 0, up_s_f)
 
 
-def _rand_rule(j: JobArrays, tput, cfrac, z, t: int, price, av):
+def _rand_rule(j: JobArrays, tput, cfrac, z, t, price, av):
     """RAND_DEADLINE (arXiv:2601.14612): all-spot before the committed slot
     tau = floor(cfrac * d); from tau on, on-demand sized to finish exactly
     at the deadline."""
     tau = torch.floor(cfrac * j.deadline.to(_F32))
-    committed = float(t) >= tau
+    committed = _tf(t) >= tau
     remaining, slots_left, od_need = _od_need(j, tput, z, t)
     rd_o = torch.where(committed, _clip(od_need, j.n_min, j.n_max), 0)
     rd_s = torch.where(committed, 0, torch.minimum(av, j.n_max))
@@ -337,7 +351,7 @@ def _rand_rule(j: JobArrays, tput, cfrac, z, t: int, price, av):
     return torch.where(rd_zero, 0, rd_o_f), torch.where(rd_zero, 0, rd_s_f)
 
 
-def _cheap_rules(kind, sigma, cfrac, j: JobArrays, tput, z, t: int, price,
+def _cheap_rules(kind, sigma, cfrac, j: JobArrays, tput, z, t, price,
                  av, n_prev, prev_avail):
     """Every DP-free rule on the (K, P) state, each lane taking its
     ``kind``'s decision (kind/sigma/cfrac are (1, P)). Returns (n_o,
@@ -358,7 +372,7 @@ def _cheap_rules(kind, sigma, cfrac, j: JobArrays, tput, z, t: int, price,
     return n_o, n_s
 
 
-def _execute(j: JobArrays, tput, z, n_prev, cost, done, T, t: int, n_o, n_s,
+def _execute(j: JobArrays, tput, z, n_prev, cost, done, T, t, n_o, n_s,
              price, av):
     """Mirror of simulate()'s slot execution: hard clip, mu, billing,
     fractional completion. Returns the updated state + (n_o, n_s, active)."""
@@ -376,7 +390,7 @@ def _execute(j: JobArrays, tput, z, n_prev, cost, done, T, t: int, n_o, n_s,
     frac = torch.where(
         work > 0, (j.workload - z) / torch.clamp_min(work, 1e-9), 0.0
     )
-    T = torch.where(will_done, float(t) + frac, T)
+    T = torch.where(will_done, _tf(t) + frac, T)
     cost = cost + torch.where(
         active, n_s.to(_F32) * price + n_o.to(_F32) * j.p_o, 0.0
     )
@@ -468,8 +482,9 @@ def _slot_telemetry(j: JobArrays, n_prev_before, z, n_o, n_s, active,
 
 def _telemetry_out(keys, samples) -> dict:
     """Per-slot samples (a list over slots of tuples in ``keys`` order) as
-    (K, P, T) result entries, stacked once after the loop."""
-    return {key: torch.stack(series, dim=2)
+    (K, P, T) result entries ((J, T) for the fleet's (J,) state), stacked
+    once after the loop."""
+    return {key: torch.stack(series, dim=-1)
             for key, series in zip(keys, zip(*samples))}
 
 
@@ -489,8 +504,8 @@ def _finalize(j: JobArrays, tput, z, cost, done, T, no_hist, ns_hist):
         "completion_time": T_final,
         "z_ddl": z,
         "completed": done,
-        "n_od": torch.stack(no_hist, dim=2),
-        "n_spot": torch.stack(ns_hist, dim=2),
+        "n_od": torch.stack(no_hist, dim=-1),
+        "n_spot": torch.stack(ns_hist, dim=-1),
     }
 
 

@@ -70,6 +70,19 @@ def select(state: SelectorState, rng: np.random.Generator) -> int:
     return int(rng.choice(len(state.weights), p=state.weights))
 
 
+def sample_policies(state_or_weights, n: int,
+                    rng: np.random.Generator) -> np.ndarray:
+    """``n`` i.i.d. draws from the selector distribution: Line 6 of Alg. 2
+    vectorized for fleet admission (one policy per arriving job). Accepts a
+    SelectorState / EGState or a bare weight vector (numpy or a tensor);
+    the weights are renormalized in f64 (the device state is f32)."""
+    w = _np(getattr(state_or_weights, "weights", state_or_weights)).astype(
+        np.float64)
+    w = np.maximum(w, 0.0)
+    w = w / w.sum()
+    return rng.choice(len(w), size=int(n), p=w)
+
+
 def update(state: SelectorState, utilities: np.ndarray,
            track_history: bool = False) -> SelectorState:
     """EG / multiplicative-weights update (Lines 7-11). ``utilities`` must be

@@ -27,6 +27,7 @@ class KernelConfig:
 
 DEFAULT = KernelConfig()
 SSD_COPIES = "ops.ssd repeat and flatten"
+KV_REPEAT = "ops.attention repeat kv"
 
 
 def lora_matmul(x, w, a, b, scale: float,
@@ -52,8 +53,11 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     b, sq, h, d = q.shape
     rep = h // k.shape[2]
     if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
+        # GQA: K and V copied to every query head before K3 (named, so that
+        # a profiler trace shows the copies' device time)
+        with torch.profiler.record_function(KV_REPEAT):
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
     sk = k.shape[1]
     qt = q.transpose(1, 2).reshape(b * h, sq, d).contiguous()
     kt = k.transpose(1, 2).reshape(b * h, sk, d).contiguous()

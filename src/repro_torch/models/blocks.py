@@ -1,42 +1,57 @@
-"""Decoder blocks: the pre-norm dense transformer block and the Mamba2
-residual block, full-sequence and one-token decode variants (the
-reference's ``models/blocks.py``; the MoE block joins with its slice,
-ROADMAP Queue 1 item 10a)."""
+"""Decoder blocks: the pre-norm transformer block (a dense MLP or a MoE
+layer after attention) and the Mamba2 residual block, full-sequence and
+one-token decode variants (the reference's ``models/blocks.py``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
 
 
 def init_transformer_block(generator: torch.Generator, cfg, dtype) -> dict:
-    return {
+    """A MoE layer after attention for the moe family, a dense MLP
+    otherwise (the hybrid family's shared block included)."""
+    p = {
         "attn_norm": init_norm(cfg, dtype, generator.device),
         "attn": attn.init_attention(generator, cfg, dtype),
         "mlp_norm": init_norm(cfg, dtype, generator.device),
-        "mlp": init_mlp(generator, cfg, dtype),
     }
+    if cfg.arch_type == "moe":
+        p["moe"] = moe_lib.init_moe(generator, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(generator, cfg, dtype)
+    return p
+
+
+def _ffn(cfg, p, x, kcfg):
+    """The block's feed-forward half: (y, aux loss; 0 for a dense MLP)."""
+    if "moe" in p:
+        return moe_lib.apply_moe(cfg, p["moe"], x)
+    return (apply_mlp(cfg, p["mlp"], x, kcfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def transformer_block_full(cfg, p, h, positions, want_cache: bool = False,
                            kcfg: ops.KernelConfig = ops.DEFAULT):
     """Full sequence (forward / prefill), positions from 0.
 
-    Returns h or, when ``want_cache``, (h, (k, v))."""
+    Returns (h, aux_loss) or, when ``want_cache``, (h, aux_loss, (k, v))."""
     x = apply_norm(cfg, p["attn_norm"], h)
     q, k, v = attn.qkv_project(cfg, p["attn"], x, positions, kcfg)
     out = attn.attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
                       kcfg=kcfg)
     h = h + attn.out_project(cfg, p["attn"], out, kcfg)
     x = apply_norm(cfg, p["mlp_norm"], h)
-    h = h + apply_mlp(cfg, p["mlp"], x, kcfg)
+    y, aux = _ffn(cfg, p, x, kcfg)
+    h = h + y
     if want_cache:
-        return h, (k, v)
-    return h
+        return h, aux, (k, v)
+    return h, aux
 
 
 def transformer_block_decode(cfg, p, h1, cache_k, cache_v, index: int,
@@ -48,7 +63,7 @@ def transformer_block_decode(cfg, p, h1, cache_k, cache_v, index: int,
     out = attn.decode_attend(cfg, q, cache_k, cache_v, index + 1)
     h1 = h1 + attn.out_project(cfg, p["attn"], out, kcfg)
     x = apply_norm(cfg, p["mlp_norm"], h1)
-    return h1 + apply_mlp(cfg, p["mlp"], x, kcfg)
+    return h1 + _ffn(cfg, p, x, kcfg)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, SSM and hybrid families: init / forward /
-prefill / decode (the reference's ``models/transformer.py``).
+"""Model assembly for the dense, MoE, SSM and hybrid families: init /
+forward / prefill / decode (the reference's ``models/transformer.py``).
 
 Layers are a Python list of per-layer parameter dicts, not a stacked scan.
 Hybrid (zamba2) layers are a list of super-blocks, each a list of
@@ -7,9 +7,10 @@ Hybrid (zamba2) layers are a list of super-blocks, each a list of
 block (``params["shared"]``), whose every application keeps its own KV-cache
 slot. The cache is a flat dict updated in place by prefill and decode:
 ``index`` (an int), ``k`` / ``v`` (applications, B, W, kv, hd) for
-attention, ``conv`` / ``ssd`` (layers..., B, ...) for Mamba2. The MoE, VLM
-and audio families raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+attention, ``conv`` / ``ssd`` (layers..., B, ...) for Mamba2. A MoE layer
+is a transformer block whose MLP is ``models/moe.apply_moe``. The VLM and
+audio families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -26,10 +27,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # where each family not ported yet is queued (ROADMAP Queue 1, item 10)
 NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 10a (MoE)",
     "vlm": "ROADMAP Queue 1 item 10d (VLM and M-RoPE)",
     "audio": "ROADMAP Queue 1 item 10e (audio)",
 }
+
+
+# the families whose layers are all transformer blocks (dense MLP or MoE)
+_ATTENTION_STACKS = ("dense", "moe")
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -67,7 +71,7 @@ def init_params(generator: torch.Generator, cfg) -> dict:
     if not cfg.tie_embeddings:
         p["head"] = normal_param(generator, (cfg.d_model, cfg.vocab_size), dt,
                                  stddev=0.02)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in _ATTENTION_STACKS:
         p["layers"] = [blk.init_transformer_block(generator, cfg, dt)
                        for _ in range(cfg.num_layers)]
     elif cfg.arch_type == "ssm":
@@ -113,14 +117,17 @@ def _positions(batch, seq: int, device, offset: int = 0) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT):
-    """-> (logits (B,S,V) f32, aux_loss scalar, always 0 for these
-    families)."""
+    """-> (logits (B,S,V) f32, aux_loss f32 scalar: the MoE layers' load
+    balance losses summed over layers, in layer order; 0 without MoE)."""
     require_ported(cfg)
     h = embed_inputs(cfg, params, batch)
-    if cfg.arch_type == "dense":
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.arch_type in _ATTENTION_STACKS:
         positions = _positions(batch, h.shape[1], h.device)
         for lp in params["layers"]:
-            h = blk.transformer_block_full(cfg, lp, h, positions, kcfg=kcfg)
+            h, a = blk.transformer_block_full(cfg, lp, h, positions,
+                                              kcfg=kcfg)
+            aux = aux + a
     elif cfg.arch_type == "ssm":
         for lp in params["layers"]:
             h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
@@ -129,10 +136,11 @@ def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT):
         for mp in params["layers"]:
             for lp in mp:
                 h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
-            h = blk.transformer_block_full(cfg, params["shared"], h,
-                                           positions, kcfg=kcfg)
+            h, a = blk.transformer_block_full(cfg, params["shared"], h,
+                                              positions, kcfg=kcfg)
+            aux = aux + a
     h = apply_norm(cfg, params["final_norm"], h)
-    return unembed(cfg, params, h), torch.zeros((), device=h.device)
+    return unembed(cfg, params, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +150,7 @@ def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT):
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
     require_ported(cfg)
     dt = model_dtype(cfg)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in _ATTENTION_STACKS:
         c = attn.init_kv_cache(cfg, batch, max_len, dt, cfg.num_layers,
                                device)
     else:
@@ -176,11 +184,11 @@ def prefill(cfg, params, batch, max_len: int,
     bsz, seq = h.shape[0], h.shape[1]
     cache = init_cache(cfg, bsz, max_len, h.device)
     cache["index"] = seq
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in _ATTENTION_STACKS:
         positions = _positions(batch, seq, h.device)
         for i, lp in enumerate(params["layers"]):
-            h, (k, v) = blk.transformer_block_full(cfg, lp, h, positions,
-                                                   want_cache=True, kcfg=kcfg)
+            h, _, (k, v) = blk.transformer_block_full(
+                cfg, lp, h, positions, want_cache=True, kcfg=kcfg)
             attn.write_prefill(cfg, cache["k"][i], cache["v"][i], k, v)
     elif cfg.arch_type == "ssm":
         for i, lp in enumerate(params["layers"]):
@@ -194,7 +202,7 @@ def prefill(cfg, params, batch, max_len: int,
                 h, mc = blk.mamba_block_full(cfg, lp, h, return_cache=True,
                                              kcfg=kcfg)
                 _write_mamba(cache, (si, j), mc)
-            h, (k, v) = blk.transformer_block_full(
+            h, _, (k, v) = blk.transformer_block_full(
                 cfg, params["shared"], h, positions, want_cache=True,
                 kcfg=kcfg)
             attn.write_prefill(cfg, cache["k"][si], cache["v"][si], k, v)
@@ -209,7 +217,7 @@ def decode_step(cfg, params, batch, cache,
     require_ported(cfg)
     h = embed_inputs(cfg, params, batch)
     index = cache["index"]
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in _ATTENTION_STACKS:
         positions = _positions(batch, 1, h.device, offset=index)
         for i, lp in enumerate(params["layers"]):
             h = blk.transformer_block_decode(cfg, lp, h, cache["k"][i],

@@ -778,3 +778,82 @@ def test_full_width_two_layers_kernels_match_plain(cuda):
         plain = run(KernelConfig(False), tokens)
     assert torch.isfinite(kern).all()
     assert float((kern - plain).abs().max()) <= 0.25
+
+
+def test_fleet_cuda_bit_equal_to_plain_dp_on_card(cuda):
+    """simulate_fleet on the card (one K1 forecast-entry launch a slot)
+    against backend="torch" on the card: every leaf bit-equal, collect on.
+    Arrivals in [0, 5) over 15 slots put rows before their job's arrival
+    and past its deadline (eff_slots <= 0) into K1's batches."""
+    from repro_torch.core import fast_sim, fleet
+    from repro_torch.core.predictor import NoisyPredictor
+    from repro_torch.workload import PAPER_JOB
+
+    rng = np.random.default_rng(5)
+    trace = paper_market(seed=29, days=3).window(0, 16)
+    pred = NoisyPredictor(trace, "fixed_uniform", 0.1, seed=5).matrix(
+        fast_sim.W1MAX - 1)[:15].astype(np.float32)
+    prices = trace.prices[:15].astype(np.float32)
+    avail = trace.avail[:15].astype(np.int64)
+    n = 200
+    arrivals = rng.integers(0, 5, size=n)
+    pool = specs_to_arrays(paper_pool() + rand_deadline_pool()
+                           + baseline_specs())
+    idx = rng.integers(0, len(pool["kind"]), size=n)
+    rows = {k: np.asarray(pool[k])[idx]
+            for k in ("kind", "omega", "v", "sigma", "rho", "cfrac")}
+    jobs = fast_sim.stack_jobs([PAPER_JOB] * n)
+    seen = []
+    solve = window_opt._solve_rows
+
+    def spy(job, tput, z0, std, *rest):
+        seen.append(int((std <= 0).sum()))
+        return solve(job, tput, z0, std, *rest)
+
+    before = window_dp_rows.launches
+    got = fleet.simulate_fleet(rows, jobs, arrivals, PAPER_TPUT, prices,
+                               avail, pred, collect=True)
+    assert window_dp_rows.launches == before + 15
+    window_opt._solve_rows = spy
+    try:
+        want = fleet.simulate_fleet(rows, jobs, arrivals, PAPER_TPUT, prices,
+                                    avail, pred, backend="torch",
+                                    collect=True)
+    finally:
+        window_opt._solve_rows = solve
+    assert sum(seen) > 0, "no row past its deadline reached the DP"
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_apply_moe_cuda_matches_cpu_in_f32(cuda):
+    """The MoE layer on the card against the CPU in f32: the routing (idx)
+    and the kept tokens exact, also with a capacity that drops tokens; the
+    output to f32 tolerance (cuBLAS's bmm sums in another order)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    for factor in (1.25, 0.5):
+        cfg = get_smoke_config("mixtral-8x7b")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=factor))
+        vals = convert.random_model_params(cfg, 4)["layers"]["moe"]
+        p = {k: torch.from_numpy(v[0]) for k, v in vals.items()}
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (3, 120, cfg.d_model), np.float32))
+        cap = moe.expert_capacity(cfg, 120)
+        runs = []
+        for dev in ("cpu", cuda):
+            pd = {k: v.to(dev) for k, v in p.items()}
+            idx, _, _ = moe.route(cfg, pd["router"], x.to(dev))
+            _, (_, _, _, keep) = moe._dispatch(cfg, x.to(dev), idx, cap)
+            y, aux = moe.apply_moe(cfg, pd, x.to(dev))
+            runs.append((idx.cpu(), keep.cpu(), y.cpu(), aux.cpu()))
+        (i0, k0, y0, a0), (i1, k1, y1, a1) = runs
+        assert torch.equal(i0, i1) and torch.equal(k0, k1)
+        assert bool((~k0).any()) == (factor < 1.0)
+        torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(a1, a0, rtol=1e-6, atol=1e-6)

@@ -109,3 +109,56 @@ def test_quickstart_matches_reference_quickstart():
     table = _table(got)
     assert set(table) == {"ahap", "ahanp", "od_only", "msu", "up", "OPT"}
     assert table == _table(want)
+
+
+def _multijob_table(stdout):
+    """The multi-job rows serve_and_multijob prints: {job: (utility, cost,
+    T, on-time)} as strings."""
+    rows = {}
+    for line in stdout.split("multi-job")[-1].splitlines():
+        m = re.match(r"\s*([\w-]+)\s+(-?[0-9.]+)\s+(-?[0-9.]+)\s+([0-9.]+)\s+"
+                     r"(True|False)$", line)
+        if m:
+            rows[m.group(1)] = m.groups()[1:]
+    return rows
+
+
+def test_serve_and_multijob_matches_reference_example():
+    """``examples/serve_and_multijob_torch.py --device cpu`` against the JAX
+    package: the multi-job table equals ``examples/serve_and_multijob.py``'s
+    (the same market, ARIMA forecasts, AHAP jobs and least-slack-first
+    scheduler), and the served tokens equal the JAX ServingEngine's on the
+    same numpy weights (the JAX example draws its own weights from a JAX
+    key, so its tokens are not comparable)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jsmoke
+    from repro.serve import Request as JRequest
+    from repro.serve import ServingEngine as JServingEngine
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for script, args in (("serve_and_multijob_torch.py", ["--device", "cpu"]),
+                         ("serve_and_multijob.py", [])):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / script), *args],
+            env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        runs[script] = proc.stdout
+    got = runs["serve_and_multijob_torch.py"]
+    table = _multijob_table(got)
+    assert set(table) == {"tight", "loose", "late-arrival"}
+    assert table == _multijob_table(runs["serve_and_multijob.py"])
+
+    served = [[int(t) for t in m.group(1).split(", ")] for m in
+              re.finditer(r"-> generated \[([0-9, ]+)\]", got)]
+    cfg = jsmoke("mixtral-8x7b")
+    vals = convert.random_model_params(get_smoke_config("mixtral-8x7b"), 0)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 12))
+    want = JServingEngine(cfg, jax.tree.map(jnp.asarray, vals),
+                          max_len=128).generate_batch(
+        [JRequest(p, 8) for p in prompts])
+    assert served == [w.tolist() for w in want]

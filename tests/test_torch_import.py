@@ -62,6 +62,9 @@ def test_host_packages_load_neither_jax_nor_reference(module):
     "repro_torch.core.offline_opt", "repro_torch.core.region_market",
     "repro_torch.core.predictor", "repro_torch.core.policy_pool",
     "repro_torch.core.fast_sim", "repro_torch.core.engine",
+    "repro_torch.core.fleet", "repro_torch.core.multi_job",
+    "repro_torch.core.selector", "repro_torch.models.moe",
+    "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.mixtral_8x22b",
 ])
 def test_reference_chain_modules_load_neither_jax_nor_reference(module):
     """The host reference chain (python policies, simulator, offline
@@ -276,3 +279,28 @@ def test_k4_wrapper_rejects_non_cuda_tensors():
         ssd_scan(x, torch.zeros((2, 8), device="meta"),
                  torch.zeros((2,), device="meta"), b, b)
     assert ssd_scan.launches == 0
+
+
+def test_fleet_and_moe_entry_points_raise_without_cuda(monkeypatch):
+    """The fleet engine, the oracle's python AHAP and the MoE model run on
+    the card unless told otherwise."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import fast_sim, fleet
+    from repro_torch.core.policy_pool import KIND_MSU
+    from repro_torch.serve import ServingEngine
+    from repro_torch.workload import PAPER_JOB, PAPER_TPUT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ({"kind": np.array([KIND_MSU])}, fast_sim.stack_jobs([PAPER_JOB]),
+            [0], PAPER_TPUT, np.full(4, 0.5, np.float32), np.full(4, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fleet.simulate_fleet(*args)
+    assert fleet.simulate_fleet(*args, device="cpu")["n_spot"].shape == (1, 4)
+    cfg = get_smoke_config("mixtral-8x7b")
+    vals = convert.random_model_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.model_params(vals, cfg)
+    params = convert.model_params(vals, cfg, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params)

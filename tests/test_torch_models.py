@@ -216,7 +216,7 @@ def test_prefill_decode_match_reference(arch, over):
 
 def test_unported_families_and_positions_raise():
     cfg = get_smoke_config("llama2-7b")
-    for arch in ("moe", "vlm", "audio"):
+    for arch in ("vlm", "audio"):
         other = dataclasses.replace(cfg, arch_type=arch)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             forward(other, {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
@@ -226,4 +226,4 @@ def test_unported_families_and_positions_raise():
              "positions": torch.zeros((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="item 10d"):
         forward(cfg, params, batch)
-    assert transformer.NOT_PORTED.keys() == {"moe", "vlm", "audio"}
+    assert transformer.NOT_PORTED.keys() == {"vlm", "audio"}
