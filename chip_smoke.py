@@ -60,7 +60,18 @@ sm_90a each, all started together, and then drives four paths on the card:
   mixtral-8x7b at its published width, 16 of its 32 layers, bf16
   (``[serve-moe]``: K2 on q and v, K3 with the sliding window, the experts
   on cuBLAS), its routing swaps against the plain run counted and its
-  logits held where the routing agrees, and the first 4 layers in f32.
+  logits held where the routing agrees, and the first 4 layers in f32;
+- VLM and audio, fed embeddings by the stubbed frontends: K3's position
+  inputs held against its plain version (``[k3]``: image spans, repeated and
+  non-monotone positions, explicit positions 0, 1, ... bit-equal to the
+  index path), the qwen2-vl-7b and hubert-xlarge smoke configs against the
+  JAX package's tokens and codebook ids (``[vlm-ref]``, ``[audio-ref]``),
+  then qwen2-vl-7b at full width and depth (``[vlm]``: 8 prompts of 1024
+  embeddings with a 24 x 32 image span, 32 greedy steps; K2 on q and v, K3
+  masked by the M-RoPE temporal positions) and hubert-xlarge (``[audio]``:
+  one forward of 8 x 1024 frames; K3 non-causal at head dim 80), each with
+  its launch counts checked, its logits held against the plain run and a
+  traced prefill or forward.
 
 It times each kernel beside its bound, its plain version and a PyTorch
 yardstick. Any failed phase raises and the script exits nonzero. Without a
@@ -367,6 +378,85 @@ MOE_LAYERS = 16
 # bf16 plain run's distance from the f32 plain run (FAMILY_RUNS' rule).
 ROUTE_SWAP_MARGIN = 0.1
 MOE_F32_LAYERS = 4
+
+# ---- VLM and audio (embeddings in; K3 with positions) ----
+# [vlm-ref]: the qwen2-vl-7b smoke config (2 layers, d 256, f32, M-RoPE
+# sections (8, 12, 12)) with ``convert.random_model_params(cfg, seed)``:
+# ``frontend_ref_inputs``' 4 x 64 embeddings, positions from
+# ``make_mrope_positions`` with one image span (start 8, h 4, w 8), a
+# prefill, then 8 greedy decode steps, each fed the text-table row of the
+# previous argmax token. VLM_REF_TOKENS are the argmax tokens of the
+# prefill and of every step from the JAX package on the same numpy inputs
+# (``tools/jax_vlm_audio_refs.py``, on the CPU; tests/test_torch_vlm.py
+# recomputes them). (arch, seed, batch, prompt, span, new, max_len)
+VLM_REF = ("qwen2-vl-7b", 22, 4, 64, (8, 4, 8), 8, 80)
+VLM_REF_TOKENS = (
+    (358, 224, 139, 429, 505, 339, 139, 455, 177),
+    (16, 473, 377, 316, 501, 16, 97, 382, 391),
+    (175, 14, 208, 14, 406, 86, 471, 477, 308),
+    (297, 85, 345, 390, 485, 316, 430, 141, 172),
+)
+# [audio-ref]: the hubert-xlarge smoke config (2 layers, d 256, f32), one
+# forward of ``frontend_ref_inputs``' 4 x 64 frame embeddings: the CRC32 of
+# the per-frame argmax codebook ids (int32) and the logits at
+# AUDIO_REF_SAMPLE, from the same tool (tests/test_torch_audio.py
+# recomputes them), the logits within AUDIO_REF_ATOL. (arch, seed, batch,
+# frames)
+AUDIO_REF = ("hubert-xlarge", 24, 4, 64)
+AUDIO_REF_SAMPLE = (slice(None), slice(None, None, 16), slice(None, None, 128))
+AUDIO_REF_IDS_CRC = 2587094768
+AUDIO_REF_LOGITS = (
+    -0.662558913230896, 0.8027782440185547, 0.4078976809978485,
+    -0.2313133180141449, -0.8931069374084473, 0.5514059066772461,
+    0.19412872195243835, -0.16850757598876953, -0.5546379685401917,
+    0.5079171061515808, 0.3364720344543457, -0.3347473442554474,
+    -0.8995299935340881, 0.8333830237388611, 0.11470159143209457,
+    -0.21223121881484985, -0.624107301235199, 0.14932961761951447,
+    0.4134538173675537, -0.14325343072414398, -0.7543573975563049,
+    0.3602197766304016, 0.25455135107040405, -0.3142413794994354,
+    -0.9142791628837585, 0.21207112073898315, 0.3778885006904602,
+    -0.10171341150999069, -0.7816699147224426, 0.11418893188238144,
+    0.3262958824634552, -0.19599458575248718, -0.33144494891166687,
+    0.08851263672113419, 0.21107201278209686, -0.1872393637895584,
+    -0.5361343026161194, 0.45523783564567566, 0.3116553723812103,
+    -0.05960841104388237, -0.1603880226612091, 0.1520208716392517,
+    0.31379884481430054, -0.22460994124412537, -0.5104324221611023,
+    0.4326935112476349, 0.19993090629577637, -0.007125413045287132,
+    -0.21210968494415283, 0.09483576565980911, 0.10218338668346405,
+    -0.3371135890483856, -0.20802247524261475, 0.21255148947238922,
+    -0.14832645654678345, -0.655278742313385, -0.3688316345214844,
+    0.5021016001701355, -0.2672092020511627, -0.6993741393089294,
+    -0.21973419189453125, 0.24573926627635956, 0.1189928874373436,
+    -0.5415904521942139,
+)
+AUDIO_REF_ATOL = 1e-4
+# [vlm]: qwen2-vl-7b (arXiv:2409.12191) at full width and depth, bf16, LoRA
+# rank 16 on q and v, weights and a text table (the stubbed frontend's
+# token embeddings, vocab x d) drawn on the card: 8 prompts of 1024
+# embeddings, each with one 24 x 32 image span at position 64 (768 patches,
+# a 672 x 896 image at Qwen2-VL's 28-pixel merged patch), then 32 greedy
+# steps as in [vlm-ref]. (arch, batch, prompt, span, new, max_len)
+VLM_RUN = ("qwen2-vl-7b", 8, 1024, (64, 24, 32), 32, 1056)
+# [audio]: hubert-xlarge (arXiv:2106.07447) at full width and depth (48
+# layers), bf16: one forward of 8 x 1024 frames (~20 s of 16 kHz audio at
+# 20 ms frames). (arch, batch, frames)
+AUDIO_RUN = ("hubert-xlarge", 8, 1024)
+# Both runs' logits, kernel run against plain run, under FAMILY_RUNS' rule:
+# bf16 within twice the bf16 plain run's distance from the f32 plain run, at
+# full depth and at FAMILY_F32_LAYERS layers, where the weights widened to
+# f32 also hold the kernel run within F32_LOGIT_ATOL.
+FAMILY_F32_LAYERS = 4
+
+
+def frontend_ref_inputs(np, d: int, vocab: int, seed: int, batch: int,
+                        seq: int):
+    """[vlm-ref]'s and [audio-ref]'s numpy inputs: embeddings (batch, seq, d)
+    and a text table (vocab, d), f32, N(0, 0.02^2) as the frontend stub's
+    embeddings, from a numpy seed."""
+    rng = np.random.default_rng(seed + 1)
+    embeds = (rng.standard_normal((batch, seq, d), np.float32) * 0.02)
+    table = (rng.standard_normal((vocab, d), np.float32) * 0.02)
+    return embeds.astype(np.float32), table.astype(np.float32)
 
 
 def serve_ref_prompts(np, vocab: int, seed: int = SERVE_REF_SEED,
@@ -1806,7 +1896,7 @@ def _phase_k4(torch, gen, k4, ssd_scan_ref, ssd_scan_grouped_ref) -> float:
 def _launches_per_forward(cfg):
     """(K2 launches of one forward, K3 and K4 launches of one prefill)."""
     attn_k2 = len(cfg.lora.targets)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "moe", "vlm", "audio"):
         return attn_k2 * cfg.num_layers, cfg.num_layers, 0
     if cfg.arch_type == "ssm":
         return 2 * cfg.num_layers, 0, cfg.num_layers
@@ -1830,9 +1920,7 @@ def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
         convert.random_model_params(cfg, seed), cfg, dev)
     prompts = serve_ref_prompts(np, cfg.vocab_size, seed, prompt_len)
     eng = ServingEngine(cfg, params, max_len=max_len, device=dev)
-    k2.lora_matmul.launches = 0
-    k3.flash_attention.launches = 0
-    k4.ssd_scan.launches = 0
+    _reset_counts(k2, k3, k4)
     out = eng.generate_batch([Request(p, SERVE_REF_NEW) for p in prompts])
     launches = (k2.lora_matmul.launches, k3.flash_attention.launches,
                 k4.ssd_scan.launches)
@@ -1907,15 +1995,7 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
     full_layers = cfg.num_layers
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = tf.init_params(gen, cfg)
-    for pair in _lora_pairs(params):
-        pair["b"].normal_(0.0, SERVE_LORA_B_STD, generator=gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, _, init_s = _draw_model(torch, tf, cfg, dev)
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
     eng = ServingEngine(cfg, params, max_len=max_len, device=dev)
@@ -1933,9 +2013,7 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
             at_decode.append(k2.lora_matmul.launches)
         return decode_step(*args, **kwargs)
 
-    k2.lora_matmul.launches = 0
-    k3.flash_attention.launches = 0
-    k4.ssd_scan.launches = 0
+    _reset_counts(k2, k3, k4)
     tf.decode_step = note_decode
     try:
         t0 = time.perf_counter()
@@ -2190,6 +2268,425 @@ def _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len, tag,
               f"{d16} > {2 * floor}")
 
 
+def _reset_counts(k2, k3, k4) -> None:
+    """Every kernel count set to 0 before a main-path run."""
+    k2.lora_matmul.launches = 0
+    k3.flash_attention.launches = 0
+    k3.flash_attention.position_launches = 0
+    k4.ssd_scan.launches = 0
+
+
+def _counts(k2, k3) -> tuple:
+    """(K2, K3, K3 with positions) launches since the last reset."""
+    return (k2.lora_matmul.launches, k3.flash_attention.launches,
+            k3.flash_attention.position_launches)
+
+
+def _phase_k3_positions(torch, np, gen, k3, flash_attention_ref) -> float:
+    """K3's position inputs against its plain version with the same
+    positions: Qwen2-VL's M-RoPE temporal stream with an image span at the
+    start, in the middle and at the end; repeated, non-monotone positions;
+    a window; no causal mask; queries before every key (rows that keep no
+    key average V over all keys); each at f32 and bf16, D 64, 80 and 128,
+    ragged S; Qwen2-VL's prefill shape. Then positions 0, 1, ... passed
+    explicitly, bit-equal to the index path (null positions)."""
+    from repro_torch.models.frontends import make_mrope_positions
+
+    dev = gen.device
+
+    def ivec(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def span(s, start, h, w):
+        return ivec(make_mrope_positions(1, s, (start, h, w))[0, :, 0])
+
+    s = 333
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        for d in (64, 80, 128):
+            mid = span(s, 150, 4, 8)
+            for where, p in (("start", span(s, 0, 4, 8)), ("middle", mid),
+                             ("end", span(s, s - 32, 4, 8))):
+                cases.append((f"span at the {where}", 3, s, d, dt, True,
+                              None, p, p))
+            mixed = ivec(np.random.default_rng(d).integers(0, s // 2, s))
+            ar = ivec(np.arange(s))
+            cases += [("repeated, non-monotone", 3, s, d, dt, True, None,
+                       mixed, mixed),
+                      ("span in the middle, window 37", 3, s, d, dt, True,
+                       37, mid, mid),
+                      ("span in the middle, not causal", 3, s, d, dt, False,
+                       None, mid, mid),
+                      ("queries 8 before their keys", 3, s, d, dt, True,
+                       None, ar - 8, ar)]
+    arch, batch, prompt, (start, h, w), _, _ = VLM_RUN
+    vlm_pos = span(prompt, start, h, w)
+    cases.append((f"{arch}'s prefill, span {(start, h, w)}", batch * 28,
+                  prompt, 128, "bfloat16", True, None, vlm_pos, vlm_pos))
+    max_err = 0.0
+    counts = (k3.flash_attention.launches,
+              k3.flash_attention.position_launches)
+    for what, bh, sq, d, dt, causal, window, q_pos, k_pos in cases:
+        dtype = getattr(torch, dt)
+        q, k, v = (_randn(torch, gen, (bh, sq, d), 1.0, dtype)
+                   for _ in range(3))
+        o = k3.flash_attention(q, k, v, causal=causal, window=window,
+                               q_pos=q_pos, k_pos=k_pos)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q[None], k[None], v[None], causal=causal,
+                                   window=window, q_pos=q_pos,
+                                   k_pos=k_pos)[0]
+        label = (f"positions: {what}, {dt} (BH, S, D) = {(bh, sq, d)} "
+                 f"causal={causal} window={window}")
+        err = _close(torch, f"K3 {label}", o, want, *K3_TOL[dt])
+        max_err = max(max_err, err)
+        print(f"[k3] {label}: max |err| {err:.3e} within rtol/atol "
+              f"{K3_TOL[dt]}")
+    n_equal = 0
+    shapes = [(2, sq, sk, d, dt, causal, window)
+              for dt in ("float32", "bfloat16") for d in (64, 80, 128)
+              for sq, sk in ((1, 1), (65, 65), (200, 200), (129, 300))
+              for causal, window in ((True, None), (True, 37), (False, None),
+                                     (False, 50))]
+    shapes.append((batch * 28, prompt, prompt, 128, "bfloat16", True, None))
+    for bh, sq, sk, d, dt, causal, window in shapes:
+        dtype = getattr(torch, dt)
+        q = _randn(torch, gen, (bh, sq, d), 1.0, dtype)
+        k, v = (_randn(torch, gen, (bh, sk, d), 1.0, dtype)
+                for _ in range(2))
+        base = k3.flash_attention(q, k, v, causal=causal, window=window)
+        got = k3.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_pos=ivec(np.arange(sq)),
+                                 k_pos=ivec(np.arange(sk)))
+        if not torch.equal(got, base):
+            _fail(f"[k3] explicit positions 0, 1, ... differ from the index "
+                  f"path at {dt} (BH, Sq, Sk, D) = {(bh, sq, sk, d)} "
+                  f"causal={causal} window={window}")
+        n_equal += 1
+    k3.flash_attention.launches, k3.flash_attention.position_launches = \
+        counts
+    print(f"[k3] positions 0, 1, ... passed explicitly: bit-equal to the "
+          f"index path in all {n_equal} cases (f32 and bf16, D 64 / 80 / "
+          "128, Sq = Sk and Sq < Sk, causal, window, neither; Qwen2-VL's "
+          "prefill shape)")
+    return max_err
+
+
+def _embed_run(torch, tf, cfg, params, table, embeds, positions, max_len,
+               kcfg, new, tokens=None):
+    """A model fed embeddings: prefill on ``embeds`` (B, S, d) with
+    ``positions``, then ``new`` decode steps, each fed the text-table row of
+    a token: the previous forward's argmax (greedy) or ``tokens[:, i]``
+    (teacher-forced). Returns (last-position logits of every forward
+    (new + 1, B, V) f32, the tokens fed (B, new), prefill s, decode s a
+    step)."""
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(cfg, params, {"embeds": embeds,
+                                                 "positions": positions},
+                                   max_len, kcfg)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        outs, fed = [logits[:, -1]], []
+        t0 = time.perf_counter()
+        for i in range(new):
+            tok = outs[-1].argmax(-1) if tokens is None else tokens[:, i]
+            fed.append(tok)
+            logits, cache = tf.decode_step(
+                cfg, params, {"embeds": table[tok][:, None]}, cache, kcfg)
+            outs.append(logits[:, -1])
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / max(new, 1)
+    return (torch.stack(outs), torch.stack(fed, 1) if fed else None, t_pre,
+            t_dec)
+
+
+def _phase_vlm_ref(torch, np, dev, kernels):
+    """[vlm-ref]: the qwen2-vl-7b smoke config on the card against the JAX
+    package's greedy tokens (VLM_REF)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.frontends import make_mrope_positions
+
+    k2, k3, k4 = kernels
+    arch, seed, batch, seq, span, new, max_len = VLM_REF
+    cfg = get_smoke_config(arch)
+    params = convert.model_params(convert.random_model_params(cfg, seed),
+                                  cfg, dev)
+    embeds, table = (torch.from_numpy(a).to(dev) for a in frontend_ref_inputs(
+        np, cfg.d_model, cfg.vocab_size, seed, batch, seq))
+    pos = torch.from_numpy(make_mrope_positions(batch, seq, span)).to(dev)
+    _reset_counts(k2, k3, k4)
+    logits = _embed_run(torch, tf, cfg, params, table, embeds, pos, max_len,
+                        KernelConfig(True), new)[0]
+    launches = _counts(k2, k3)
+    got = tuple(tuple(int(t) for t in row)
+                for row in logits.argmax(-1).T.cpu().tolist())
+    if got != VLM_REF_TOKENS:
+        _fail(f"[vlm-ref] tokens {got} != JAX {VLM_REF_TOKENS}")
+    n = cfg.num_layers
+    want = (len(cfg.lora.targets) * n * (1 + new), n, n)
+    if launches != want:
+        _fail(f"[vlm-ref] K2 / K3 / K3-with-positions launches {launches}, "
+              f"expected {want}")
+    print(f"[vlm-ref] {cfg.name}: {batch} prompts of {seq} embeddings, image "
+          f"span {span}, prefill + {new} greedy steps: the {new + 1} argmax "
+          f"tokens of each row equal JAX's; K2 launched {launches[0]} times, "
+          f"K3 {launches[1]} ({launches[2]} with positions)")
+
+
+def _phase_audio_ref(torch, np, dev, kernels):
+    """[audio-ref]: the hubert-xlarge smoke config's forward on the card
+    against the JAX package's ids and logits (AUDIO_REF)."""
+    import zlib
+
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import transformer as tf
+
+    k2, k3, k4 = kernels
+    arch, seed, batch, seq = AUDIO_REF
+    cfg = get_smoke_config(arch)
+    params = convert.model_params(convert.random_model_params(cfg, seed),
+                                  cfg, dev)
+    embeds, _ = frontend_ref_inputs(np, cfg.d_model, cfg.vocab_size, seed,
+                                    batch, seq)
+    _reset_counts(k2, k3, k4)
+    with torch.no_grad():
+        logits, _ = tf.forward(cfg, params,
+                               {"embeds": torch.from_numpy(embeds).to(dev)},
+                               KernelConfig(True))
+    launches = _counts(k2, k3)
+    ids = logits.argmax(-1).to(torch.int32).cpu().numpy()
+    crc = zlib.crc32(ids.tobytes())
+    if crc != AUDIO_REF_IDS_CRC:
+        _fail(f"[audio-ref] CRC32 of the argmax ids {crc} != JAX "
+              f"{AUDIO_REF_IDS_CRC}")
+    sample = logits[AUDIO_REF_SAMPLE].reshape(-1)
+    err = _close(torch, "[audio-ref] logits", sample,
+                 torch.tensor(AUDIO_REF_LOGITS, device=dev), 0.0,
+                 AUDIO_REF_ATOL)
+    n = cfg.num_layers
+    if launches != (len(cfg.lora.targets) * n, n, 0):
+        _fail(f"[audio-ref] K2 / K3 / K3-with-positions launches {launches}")
+    print(f"[audio-ref] {cfg.name}: {batch} x {seq} frames, one forward: the "
+          f"per-frame argmax codebook ids equal JAX's (CRC32 {crc}); "
+          f"{sample.numel()} sampled logits within {AUDIO_REF_ATOL} (max "
+          f"|err| {err:.3e}); K2 launched {launches[0]} times, K3 "
+          f"{launches[1]} (non-causal, no positions)")
+
+
+def _draw_model(torch, tf, cfg, dev):
+    """(a config's weights drawn on the card from SEED, LoRA B ~ N(0,
+    SERVE_LORA_B_STD); the generator, to draw on; the seconds it took)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg)
+    for pair in _lora_pairs(params):
+        pair["b"].normal_(0.0, SERVE_LORA_B_STD, generator=gen)
+    torch.cuda.synchronize()
+    return params, gen, time.perf_counter() - t0
+
+
+def _trace_call(torch, what, fn):
+    """torch.profiler over one call of ``fn`` (the profiler's own host cost
+    is in the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    _trace_line(torch, what, prof, wall)
+
+
+def _family_checks(torch, tag, cfg, params, run, kern):
+    """[vlm]'s and [audio]'s logit rule (FAMILY_RUNS'): ``run(cfg, params,
+    use_cuda)`` gives a run's logits, ``kern`` the kernel run's at full
+    depth. bf16 kernel run against bf16 plain run within twice the bf16
+    plain run's distance from the f32 plain run, at full depth; then at
+    FAMILY_F32_LAYERS layers (the others freed) the same, and the f32
+    kernel run against the f32 plain run within F32_LOGIT_ATOL."""
+    import dataclasses
+
+    def dist(a, b):
+        return float((a - b).abs().max())
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    plain = run(cfg, params, False)
+    p32 = _widen(params)
+    plain32 = run(cfg32, p32, False)
+    del p32
+    torch.cuda.empty_cache()
+    d16, floor = dist(kern, plain), dist(plain, plain32)
+    print(f"[{tag}] bf16, {cfg.num_layers} layers: max |kernel - plain| "
+          f"{d16:.4f} (bound twice the bf16 plain run's drift from the f32 "
+          f"plain run, {2 * floor:.4f}); kernel run's drift "
+          f"{dist(kern, plain32):.4f}; max |logit| "
+          f"{float(kern.abs().max()):.3f}; argmax agrees on "
+          f"{float((kern.argmax(-1) == plain.argmax(-1)).float().mean()):.1%}")
+    if not d16 <= 2 * floor:
+        _fail(f"[{tag}] bf16 logits of the kernel and plain runs differ by "
+              f"{d16} > {2 * floor}")
+    del params["layers"][FAMILY_F32_LAYERS:]
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=FAMILY_F32_LAYERS)
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    k16, p16 = run(cut, params, True), run(cut, params, False)
+    p32 = _widen(params)
+    k32, pl32 = run(cut32, p32, True), run(cut32, p32, False)
+    d32, d16, floor = dist(k32, pl32), dist(k16, p16), dist(p16, pl32)
+    print(f"[{tag}] {FAMILY_F32_LAYERS} layers: f32 max |kernel - plain| "
+          f"{d32:.3e} (bound {F32_LOGIT_ATOL}); bf16 max |kernel - plain| "
+          f"{d16:.4f} (bound {2 * floor:.4f})")
+    if not d32 <= F32_LOGIT_ATOL:
+        _fail(f"[{tag}] f32 logits of the kernel and plain runs differ by "
+              f"{d32} > {F32_LOGIT_ATOL}")
+    if not d16 <= 2 * floor:
+        _fail(f"[{tag}] bf16 logits at {FAMILY_F32_LAYERS} layers differ by "
+              f"{d16} > {2 * floor}")
+
+
+def _phase_vlm(torch, np, dev, kernels):
+    """[vlm]: qwen2-vl-7b at full width and depth, bf16 (VLM_RUN), prefill
+    and greedy decode on embeddings with an image span; launch counts,
+    times, a traced prefill and the logit rule. Returns (K2 at prefill, K2
+    at decode, K3, K3 with positions) launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.frontends import (make_frontend_embeddings,
+                                              make_mrope_positions)
+
+    k2, k3, k4 = kernels
+    arch, batch, prompt, span, new, max_len = VLM_RUN
+    cfg = get_config(arch)
+    params, gen, init_s = _draw_model(torch, tf, cfg, dev)
+    table = _randn(torch, gen, (cfg.vocab_size, cfg.d_model), 0.02,
+                   torch.bfloat16)
+    embeds = make_frontend_embeddings(gen, cfg, batch, prompt)
+    pos = torch.from_numpy(make_mrope_positions(batch, prompt, span)).to(dev)
+    # warm-up (first-call costs stay out of the timings)
+    _embed_run(torch, tf, cfg, params, table, embeds[:, :16], pos[:, :16],
+               max_len, KernelConfig(True), 2)
+    torch.cuda.reset_peak_memory_stats()
+
+    at_decode = []
+    decode_step = tf.decode_step
+
+    def note_decode(*args, **kwargs):
+        if not at_decode:
+            at_decode.append(k2.lora_matmul.launches)
+        return decode_step(*args, **kwargs)
+
+    _reset_counts(k2, k3, k4)
+    tf.decode_step = note_decode
+    try:
+        t0 = time.perf_counter()
+        kern, tokens, pre_s, dec_s = _embed_run(
+            torch, tf, cfg, params, table, embeds, pos, max_len,
+            KernelConfig(True), new)
+        wall = time.perf_counter() - t0
+    finally:
+        tf.decode_step = decode_step
+    total = _counts(k2, k3)
+    launches = (at_decode[0], total[0] - at_decode[0], total[1], total[2])
+    n = cfg.num_layers
+    per_fwd = len(cfg.lora.targets) * n
+    want = (per_fwd, per_fwd * new, n, n)
+    if launches != want:
+        _fail(f"[vlm] K2 prefill / K2 decode / K3 / K3 with positions "
+              f"launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(kern).all()):
+        _fail("[vlm] non-finite logits in the kernel run")
+    print(f"[vlm] {cfg.name} ({n} layers, d {cfg.d_model}, "
+          f"{(cfg.param_count() + cfg.lora_param_count()) / 1e9:.3f} G "
+          f"parameters and a {cfg.vocab_size} x {cfg.d_model} text table, "
+          f"bf16) drawn on the card in {init_s:.2f} s; {batch} x "
+          f"{prompt}-embedding prompts, image span {span}, {new} greedy "
+          f"tokens each: {wall:.3f} s ({batch * new / wall:.1f} tokens/s), "
+          f"prefill {pre_s:.3f} s, decode {dec_s * 1e3:.2f} ms/step; K2 "
+          f"launched {launches[0] + launches[1]} times ({launches[0]} at "
+          f"prefill), K3 {launches[2]} ({launches[3]} with positions); peak "
+          f"memory {peak / 2**30:.2f} GiB")
+    _trace_call(torch, f"{cfg.name} prefill", lambda: tf.prefill(
+        cfg, params, {"embeds": embeds, "positions": pos}, max_len,
+        KernelConfig(True)))
+
+    def run(c, p, use_cuda):
+        out = _embed_run(torch, tf, c, p, table, embeds, pos, max_len,
+                         KernelConfig(use_cuda), new, tokens)
+        if c is cfg and not use_cuda:
+            print(f"[vlm] plain run, teacher-forced on the kernel run's "
+                  f"tokens: prefill {out[2]:.3f} s, decode "
+                  f"{out[3] * 1e3:.2f} ms/step")
+        return out[0]
+
+    _family_checks(torch, "vlm", cfg, params, run, kern)
+    return launches
+
+
+def _phase_audio(torch, np, dev, kernels):
+    """[audio]: hubert-xlarge at full width and depth, bf16 (AUDIO_RUN), one
+    forward of frame embeddings; launch counts, frames/s, a traced forward
+    and the logit rule. Returns (K2, K3) launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.frontends import make_frontend_embeddings
+
+    k2, k3, k4 = kernels
+    arch, batch, frames = AUDIO_RUN
+    cfg = get_config(arch)
+    params, gen, init_s = _draw_model(torch, tf, cfg, dev)
+    embeds = make_frontend_embeddings(gen, cfg, batch, frames)
+
+    def run(c, p, use_cuda):
+        with torch.no_grad():
+            return tf.forward(c, p, {"embeds": embeds},
+                              KernelConfig(use_cuda))[0]
+
+    run(cfg, params, True)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(k2, k3, k4)
+    t0 = time.perf_counter()
+    kern = run(cfg, params, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(k2, k3)
+    n = cfg.num_layers
+    if launches != (len(cfg.lora.targets) * n, n, 0):
+        _fail(f"[audio] K2 / K3 / K3 with positions launches {launches}, "
+              f"expected {(len(cfg.lora.targets) * n, n, 0)}")
+    if kern.shape != (batch, frames, cfg.vocab_size) or not bool(
+            torch.isfinite(kern).all()):
+        _fail(f"[audio] logits of shape {tuple(kern.shape)} or non-finite")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[audio] {cfg.name} ({n} layers, d {cfg.d_model}, "
+          f"{(cfg.param_count() + cfg.lora_param_count()) / 1e9:.3f} G "
+          f"parameters, bf16) drawn on the card in {init_s:.2f} s; one "
+          f"forward of {batch} x {frames} frames: {wall:.3f} s, "
+          f"{batch * frames / wall:.0f} frames/s; K2 launched {launches[0]} "
+          f"times, K3 {launches[1]} (non-causal, D {cfg.head_dim}, BH "
+          f"{batch * cfg.num_heads}); peak memory {peak / 2**30:.2f} GiB")
+    _trace_call(torch, f"{cfg.name} forward",
+                lambda: run(cfg, params, True))
+    _family_checks(torch, "audio", cfg, params, run, kern)
+    return launches[:2]
+
+
 def _widen(tree):
     """A parameter tree with every tensor widened to f32."""
     if isinstance(tree, dict):
@@ -2255,6 +2752,12 @@ def _trace_line(torch, what, prof, wall_s):
     shares = {name: sum(e.self_device_time_total for e in events
                         if part in e.key)
               for name, part in KERNEL_NAMES.items()}
+    # the library's matrix products and PyTorch's elementwise kernels
+    for name, parts in (("cuBLAS", ("gemm", "cublas", "cutlass", "xmma",
+                                    "nvjet")),
+                        ("elementwise", ("elementwise",))):
+        shares[name] = sum(e.self_device_time_total for e in events
+                           if any(w in e.key.lower() for w in parts))
     print(f"[trace] {what}: " + "; ".join(
         f"{name} {us / 1e3:.1f} ms ({us / busy_us:.1%} of busy)"
         for name, us in shares.items()))
@@ -2361,34 +2864,49 @@ def _phase_time_k2(torch, gen, k2, lora_matmul_ref, shapes):
 
 
 def _phase_time_k3(torch, gen, k3, flash_attention_ref, b, h, s, d,
-                   window=None):
-    """K3 at a serving prefill (BH = b x h, S, D, causal, bf16, the
-    config's window) beside the plain version and
+                   window=None, causal=True, q_pos=None):
+    """K3 at a serving prefill (BH = b x h, S, D, bf16): causal with the
+    config's window, non-causal, or with the positions ``q_pos`` (as query
+    and key positions), beside the plain version and
     F.scaled_dot_product_attention: kernel and SDPA by ``_graph_ms``, the
     plain version (its (BH, S, S) f32 scores too large to capture 25 times)
     by ``_event_ms``. A window of S or more masks nothing, so SDPA's causal
-    call computes the same function."""
+    call computes the same function; with positions SDPA gets the
+    equivalent boolean ``attn_mask``. The bound counts this run's unmasked
+    (q, k) pairs, 4 D operations each, and q, k, v, o (and the positions)
+    once."""
     import torch.nn.functional as F
 
     assert window is None or window >= s
     q, k, v = (_randn(torch, gen, (b * h, s, d), 1.0, torch.bfloat16)
                for _ in range(3))
-    ms = _graph_ms(torch, lambda: k3.flash_attention(q, k, v, causal=True,
-                                                     window=window))
+    kw = dict(causal=causal, window=window, q_pos=q_pos, k_pos=q_pos)
+    ms = _graph_ms(torch, lambda: k3.flash_attention(q, k, v, **kw))
     for _ in range(3):
-        flash_attention_ref(q[None], k[None], v[None], causal=True,
-                            window=window)
+        flash_attention_ref(q[None], k[None], v[None], **kw)
     plain = _event_ms(torch, lambda: flash_attention_ref(
-        q[None], k[None], v[None], causal=True, window=window), TIME_REPS)
+        q[None], k[None], v[None], **kw), TIME_REPS)
     q4, k4, v4 = (t.reshape(b, h, s, d) for t in (q, k, v))
-    lib = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
-    n_bytes = 2 * 4 * b * h * s * d
-    n_ops = 4 * d * b * h * s * (s + 1) // 2
+    if q_pos is None:
+        lib = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal))
+        pairs = s * (s + 1) // 2 if causal else s * s
+        pos_bytes = 0
+    else:
+        mask = q_pos[None, :] <= q_pos[:, None]    # key j kept for query i
+        if not causal:
+            mask = torch.ones_like(mask)
+        lib = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask))
+        pairs = int(mask.sum())
+        pos_bytes = 2 * 4 * s
+    n_bytes = 2 * 4 * b * h * s * d + pos_bytes
+    n_ops = 4 * d * b * h * pairs
     bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
     return {"BH": b * h, "S": s, "D": d, "ms": ms, "plain_ms": plain,
             "library_ms": lib, "bound_ms": bound,
-            "bound_by": _bound_by(b_ms, o_ms)}
+            "bound_by": _bound_by(b_ms, o_ms), "pairs": pairs,
+            "causal": causal, "positions": q_pos is not None}
 
 
 def _phase_time_k4(torch, gen, k4, ssd_scan_ref, ssd_scan_grouped_ref, bt,
@@ -2806,6 +3324,16 @@ def main() -> int:
                                          layers=MOE_LAYERS)
     torch.cuda.empty_cache()
 
+    # ---- phase 6c: VLM and audio (embeddings in; K3 with positions) ----
+    k3_err = max(k3_err, _phase_k3_positions(torch, np, gen, k3,
+                                             flash_attention_ref))
+    _phase_vlm_ref(torch, np, dev, kernels)
+    launches["vlm"] = _phase_vlm(torch, np, dev, kernels)
+    torch.cuda.empty_cache()
+    _phase_audio_ref(torch, np, dev, kernels)
+    launches["audio"] = _phase_audio(torch, np, dev, kernels)
+    torch.cuda.empty_cache()
+
     # ---- phase 7: K2's, K3's and K4's time beside their bounds ----
     k2_shapes = _k2_shapes(launches)
     k2_rows = dict(zip(k2_shapes, _phase_time_k2(
@@ -2837,19 +3365,35 @@ def main() -> int:
             torch, gen, k3, flash_attention_ref, MOE_RUN[1], 32, MOE_RUN[2],
             128, window=get_config(MOE_RUN[0]).sliding_window),
     }
+    from repro_torch.models.frontends import make_mrope_positions
+    vlm, hubert = get_config(VLM_RUN[0]), get_config(AUDIO_RUN[0])
+    _, v_batch, v_prompt, v_span, _, _ = VLM_RUN
+    vlm_pos = torch.from_numpy(np.ascontiguousarray(make_mrope_positions(
+        1, v_prompt, v_span)[0, :, 0])).to(dev)
+    k3_rows["flash_attention/qwen2-vl"] = _phase_time_k3(
+        torch, gen, k3, flash_attention_ref, v_batch, vlm.num_heads,
+        v_prompt, vlm.head_dim, q_pos=vlm_pos)
+    k3_rows["flash_attention/hubert"] = _phase_time_k3(
+        torch, gen, k3, flash_attention_ref, AUDIO_RUN[1], hubert.num_heads,
+        AUDIO_RUN[2], hubert.head_dim, causal=False)
+    k3_rows["flash_attention/qwen2-vl"]["launches"] = launches["vlm"][2]
+    k3_rows["flash_attention/hubert"]["launches"] = launches["audio"][1]
     k3_rows["flash_attention"]["launches"] = launches["serve"][2]
     k3_rows["flash_attention/mixtral"]["launches"] = launches["serve-moe"][2]
     k3_rows["flash_attention/zamba2"]["launches"] = \
         launches["serve-hybrid"][2]
     for name, row in k3_rows.items():
+        mask = ("causal by an image span's positions" if row.get("positions")
+                else "causal" if row.get("causal", True) else "non-causal")
+        sdpa = " with its boolean attn_mask" if row.get("positions") else ""
         print(f"[time] card {card}: K3 ({name}) at (BH, S, D) = "
-              f"({row['BH']}, {row['S']}, {row['D']}) causal bf16: "
+              f"({row['BH']}, {row['S']}, {row['D']}) {mask} bf16: "
               f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
               f"on its serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
               f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
               f"bound; before the redesign {_before(name)}; plain "
               f"{row['plain_ms'] * 1e3:.1f} us; "
-              f"F.scaled_dot_product_attention "
+              f"F.scaled_dot_product_attention{sdpa} "
               f"{row['library_ms'] * 1e3:.1f} us (kernel / SDPA "
               f"{row['ms'] / row['library_ms']:.2f}x)")
     k4_rows = {}

@@ -1,15 +1,15 @@
-"""Config registry of the port: the dense, MoE, SSM and hybrid model
-configs (copies of the reference's files) and the scheduling configs.
-
-The VLM and audio configs join with their model slices (ROADMAP Queue 1
-items 10d and 10e)."""
+"""Config registry of the port: the model configs of every family (copies
+of the reference's files) and the scheduling configs."""
 from repro_torch.configs.base import (JobConfig, LoRAConfig, ModelConfig,
                                       MoEConfig, SSMConfig, ThroughputConfig)
-from repro_torch.configs import (command_r_plus_104b, granite_20b, llama2_7b,
-                                 mamba2_370m, mixtral_8x7b, mixtral_8x22b,
-                                 olmo_1b, qwen1_5_110b, tiny_100m, zamba2_2_7b)
+from repro_torch.configs import (command_r_plus_104b, granite_20b,
+                                 hubert_xlarge, llama2_7b, mamba2_370m,
+                                 mixtral_8x7b, mixtral_8x22b, olmo_1b,
+                                 qwen1_5_110b, qwen2_vl_7b, tiny_100m,
+                                 zamba2_2_7b)
 
 _MODULES = {
+    "qwen2-vl-7b": qwen2_vl_7b,
     "olmo-1b": olmo_1b,
     "qwen1.5-110b": qwen1_5_110b,
     "granite-20b": granite_20b,
@@ -20,6 +20,7 @@ _MODULES = {
     "zamba2-2.7b": zamba2_2_7b,
     "mixtral-8x7b": mixtral_8x7b,
     "mixtral-8x22b": mixtral_8x22b,
+    "hubert-xlarge": hubert_xlarge,
 }
 
 

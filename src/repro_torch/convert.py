@@ -73,7 +73,6 @@ def model_params(values: dict, cfg, device=None) -> dict:
     dtype, adapters, the MoE router and the SSM's ``A_log``, ``D`` and
     ``dt_bias`` in f32, layers a list of per-layer dicts (a list of
     super-blocks, each a list of layers, for hybrid)."""
-    tf.require_ported(cfg)
     dev = resolve_device(device)
     dt = tf.model_dtype(cfg)
 
@@ -98,13 +97,13 @@ def model_params(values: dict, cfg, device=None) -> dict:
 
 
 def random_model_params(cfg, seed: int) -> dict:
-    """Random parameter values for a dense, MoE, SSM or hybrid config, as
-    f32 numpy arrays in the reference's layout (layers stacked; (super-blocks,
-    layers) for hybrid), drawn from a numpy seed. Unlike the standard init,
-    LoRA B, the norm parameters and the biases are non-zero and
+    """Random parameter values for a config of any family, as f32 numpy
+    arrays in the reference's layout (layers stacked; (super-blocks, layers)
+    for hybrid; no input table and always an output head for an
+    ``embed_inputs`` config), drawn from a numpy seed. Unlike the standard
+    init, LoRA B, the norm parameters and the biases are non-zero and
     non-trivial, so the low-rank path and every parameter is exercised; the
     SSM's A_log and dt_bias are drawn near the reference's init."""
-    tf.require_ported(cfg)
     rng = np.random.default_rng(seed)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     f, r = cfg.d_ff, cfg.lora.rank
@@ -188,10 +187,13 @@ def random_model_params(cfg, seed: int) -> dict:
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
         return np.stack(xs)
 
-    vals = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": norm()}
-    if not cfg.tie_embeddings:
+    vals = {}
+    if not cfg.embed_inputs:
+        vals["embed"] = normal((cfg.vocab_size, d), 0.02)
+    vals["final_norm"] = norm()
+    if not cfg.tie_embeddings or cfg.embed_inputs:
         vals["head"] = normal((d, cfg.vocab_size), 0.02)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "moe", "vlm", "audio"):
         vals["layers"] = stack(*[layer() for _ in range(cfg.num_layers)])
     elif cfg.arch_type == "ssm":
         vals["layers"] = stack(*[mamba_layer()

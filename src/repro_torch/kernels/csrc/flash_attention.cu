@@ -6,11 +6,27 @@
 // folded into the batch (GQA repetition is the caller's, as on the TPU),
 // D in {64, 80, 128}, float32 or bfloat16; o (BH, Sq, D) in q's dtype. The
 // function and its constants are the TPU kernel's: q is scaled by
-// sm_scale = 1/sqrt(D) before q k^T, query and key positions both count
-// from 0 (also when Sq != Sk), a masked score is -2e38 (causal: k_pos <=
-// q_pos; window: k_pos > q_pos - window), and the running max, the running
-// sum and the output accumulator are f32; the output is acc / max(l, 1e-30).
-// The plain version is repro_torch/kernels/ref.py:flash_attention_ref.
+// sm_scale = 1/sqrt(D) before q k^T, a masked score is -2e38 (causal: k_pos
+// <= q_pos; window: k_pos > q_pos - window), and the running max, the
+// running sum and the output accumulator are f32; the output is acc /
+// max(l, 1e-30). The plain version is
+// repro_torch/kernels/ref.py:flash_attention_ref.
+//
+// Positions. Without position vectors (null pointers: the index path)
+// query and key positions both count from 0 (also when Sq != Sk), as in the
+// TPU kernel. With q_pos (Sq) and k_pos (Sk) int32, shared by every bh (the
+// position path), the mask compares those positions, as the reference's
+// XLA attention (src/repro/models/attention.py:_mask_bias) does for
+// Qwen2-VL's M-RoPE temporal stream: an image span gives all its patches
+// one position, so a query sees keys at later indices that share it, and
+// no index shortcut holds. The position path visits every key tile and
+// evaluates the element mask on each (position vectors read through the
+// read-only cache). A row whose keys are all masked then gets the
+// reference's answer, V averaged over all Sk keys: the running max starts
+// at -2e38, so each masked key weighs exp(0) = 1 until a kept key's score
+// wipes them (exp(-2e38 - m) = 0). Where every row keeps a key (q_pos is
+// k_pos, as in the model) a masked tile adds exactly 0, so an explicit
+// arange gives the index path's bits.
 //
 // Two variants behind the one entry point:
 //
@@ -47,13 +63,14 @@
 //   tile and of the output accumulator; row max and row sum are 16-lane
 //   shuffles.
 //
-// Both skip key tiles wholly past the diagonal (causal) or wholly before
-// the window: in the TPU kernel they contribute exp(-2e38 - m) = 0 or are
-// wiped by the correction factor exp(-2e38 - m) = 0 once a real score
-// arrives, so skipping them gives the same result for every row that keeps
-// a key. (A row whose keys are all masked, which only a window with Sq >=
-// Sk + window leaves, would differ: the wrapper refuses that case.) Keys
-// past Sk are -inf (they do not exist), query rows past Sq are not stored.
+// On the index path both skip key tiles wholly past the diagonal (causal)
+// or wholly before the window: in the TPU kernel they contribute
+// exp(-2e38 - m) = 0 or are wiped by the correction factor exp(-2e38 - m) =
+// 0 once a real score arrives, so skipping them gives the same result for
+// every row that keeps a key. (A row whose keys are all masked, which only
+// a window with Sq >= Sk + window leaves, would differ: the wrapper refuses
+// that case on the index path.) Keys past Sk are -inf (they do not exist),
+// query rows past Sq are not stored.
 //
 // Bound on one H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at llama2-7b's
 // prefill, BH = 8 x 32 = 256, S = 1024, D = 128, causal, bf16: q, k, v in
@@ -81,25 +98,34 @@ constexpr int kBKV = 64;
 constexpr float kMaskFill = -2.0e38f;
 
 // Key tiles [kt_begin, kt_end) that hold a key some row of the query tile
-// at q0 keeps: tiles wholly past the diagonal or before the window are
-// skipped (see the header).
+// at q0 keeps: on the index path tiles wholly past the diagonal or before
+// the window are skipped (see the header); the position path visits all.
+template <bool kPos>
 __device__ __forceinline__ void key_tiles(int q0, int sk, int causal,
                                           int window, int& kt_begin,
                                           int& kt_end) {
   kt_end = (sk + kBKV - 1) / kBKV;
   kt_begin = 0;
+  if (kPos) return;
   if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBKV + 1);
   if (window > 0) kt_begin = max(0, q0 - window + 1) / kBKV;
 }
 
-// The score of key kp for query qp after the mask: -2e38 where causal or
-// window masks it, -inf past Sk.
-__device__ __forceinline__ float masked(float s, int qp, int kp, int sk,
-                                        int causal, int window) {
+// The score of the key at index kidx (position kp) for a query at position
+// qp after the mask: -2e38 where causal or window masks it, -inf past Sk.
+__device__ __forceinline__ float masked(float s, int qp, int kp, int kidx,
+                                        int sk, int causal, int window) {
   bool ok = true;
   if (causal) ok = ok && kp <= qp;
   if (window > 0) ok = ok && kp > qp - window;
-  return kp >= sk ? -INFINITY : (ok ? s : kMaskFill);
+  return kidx >= sk ? -INFINITY : (ok ? s : kMaskFill);
+}
+
+// The position of the key at index kidx on the position path (0 past Sk,
+// where masked() gives -inf whatever the position).
+__device__ __forceinline__ int key_pos(const int* __restrict__ k_pos,
+                                       int kidx, int sk) {
+  return kidx < sk ? __ldg(k_pos + kidx) : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -131,13 +157,14 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kBf16Threads)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           int sq, int sk, int causal, int window,
-                          float sm_scale) {
+                          float sm_scale, const int* __restrict__ q_pos,
+                          const int* __restrict__ k_pos) {
   constexpr int kLd = D + 8;
   constexpr int kKSteps = D / 16;  // k-steps of q k^T
   constexpr int kDTiles = D / 8;   // n-tiles of p v
@@ -158,7 +185,7 @@ __global__ void __launch_bounds__(kBf16Threads)
   const bf16* vb = v + bh * (size_t)sk * D;
 
   int kt_begin, kt_end;
-  key_tiles(q0, sk, causal, window, kt_begin, kt_end);
+  key_tiles<kPos>(q0, sk, causal, window, kt_begin, kt_end);
 
   copy_tile<D>(qs, qb, q0, sq);
   if (kt_begin < kt_end) {
@@ -168,6 +195,12 @@ __global__ void __launch_bounds__(kBf16Threads)
   tc::cp_async_commit();
 
   const int row_a = q0 + warp * 16 + g;  // this thread's rows: a, a + 8
+  int qpos[2] = {row_a, row_a + 8};     // their positions
+  if (kPos) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qpos[h] = qpos[h] < sq ? __ldg(q_pos + qpos[h]) : 0;
+  }
   uint32_t qf[kKSteps][4];
   float acc[kDTiles][4];
 #pragma unroll
@@ -218,17 +251,35 @@ __global__ void __launch_bounds__(kBf16Threads)
     }
 
     const int k0 = kt * kBKV;
-    const bool edge = (causal && k0 + kBKV - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + kBQ - 1 - window) ||
-                      k0 + kBKV > sk;
+    if constexpr (kPos) {
+      // every tile evaluates the mask on positions
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
+      for (int j = 0; j < kNTiles; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] *= sm_scale;
-        if (edge) {
-          s[j][e] = masked(s[j][e], row_a + (e >> 1) * 8,
-                           k0 + j * 8 + 2 * t + (e & 1), sk, causal, window);
+        for (int c = 0; c < 2; ++c) {
+          const int kidx = k0 + j * 8 + 2 * t + c;
+          const int kp = key_pos(k_pos, kidx, sk);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            s[j][2 * h + c] = masked(s[j][2 * h + c] * sm_scale, qpos[h], kp,
+                                     kidx, sk, causal, window);
+          }
+        }
+      }
+    } else {
+      const bool edge = (causal && k0 + kBKV - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + kBQ - 1 - window) ||
+                        k0 + kBKV > sk;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= sm_scale;
+          if (edge) {
+            const int kidx = k0 + j * 8 + 2 * t + (e & 1);
+            s[j][e] = masked(s[j][e], qpos[e >> 1], kidx, kidx, sk, causal,
+                             window);
+          }
         }
       }
     }
@@ -350,13 +401,14 @@ __host__ __device__ constexpr size_t f32_smem_bytes() {
                           (size_t)kBKV * D + (size_t)kBQ * (kBKV + 1));
 }
 
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          int sq, int sk, int causal, int window,
-                         float sm_scale) {
+                         float sm_scale, const int* __restrict__ q_pos,
+                         const int* __restrict__ k_pos) {
   extern __shared__ __align__(16) float smem_f[];
   constexpr int kLdQ = D + 1, kLdK = D + 1, kLdV = D, kLdP = kBKV + 1;
   constexpr int kCols = D / 16;  // output columns per thread
@@ -384,8 +436,15 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
   }
 
+  // this thread's query rows' positions and, per tile, its keys'
+  int qpos[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    qpos[i] = kPos ? (row < sq ? __ldg(q_pos + row) : 0) : row;
+  }
   int kt_begin, kt_end;
-  key_tiles(q0, sk, causal, window, kt_begin, kt_end);
+  key_tiles<kPos>(q0, sk, causal, window, kt_begin, kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBKV;
@@ -414,13 +473,19 @@ __global__ void __launch_bounds__(kF32Threads)
       }
     }
 
+    int kpos[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kidx = k0 + tx + 16 * j;
+      kpos[j] = kPos ? key_pos(k_pos, kidx, sk) : kidx;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
       float mx = kMaskFill;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked(s[i][j], qp, k0 + tx + 16 * j, sk, causal, window);
+        s[i][j] = masked(s[i][j], qpos[i], kpos[j], k0 + tx + 16 * j, sk,
+                         causal, window);
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -471,20 +536,20 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPos>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int sk, int causal, int window, float sm_scale,
-           cudaStream_t stream) {
+           const int* q_pos, const int* k_pos, cudaStream_t stream) {
   void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int,
-                 float);
+                 float, const int*, const int*);
   size_t smem;
   int threads;
   if constexpr (std::is_same_v<T, bf16>) {
-    kernel = flash_fwd_bf16_kernel<D>;
+    kernel = flash_fwd_bf16_kernel<D, kPos>;
     smem = bf16_smem_bytes<D>();
     threads = kBf16Threads;
   } else {
-    kernel = flash_fwd_f32_kernel<D>;
+    kernel = flash_fwd_f32_kernel<D, kPos>;
     smem = f32_smem_bytes<D>();
     threads = kF32Threads;
   }
@@ -500,8 +565,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   kernel<<<grid, threads, smem, stream>>>((const T*)q, (const T*)k,
                                           (const T*)v, (T*)o, sq, sk, causal,
-                                          window, sm_scale);
+                                          window, sm_scale, q_pos, k_pos);
   return (int)cudaGetLastError();
+}
+
+// The index path (no positions) or the position path, by q_pos.
+template <typename T, int D>
+int launch_path(const void* q, const void* k, const void* v, void* o, int bh,
+                int sq, int sk, int causal, int window, float sm_scale,
+                const int* q_pos, const int* k_pos, cudaStream_t stream) {
+  if (q_pos == nullptr) {
+    return launch<T, D, false>(q, k, v, o, bh, sq, sk, causal, window,
+                               sm_scale, nullptr, nullptr, stream);
+  }
+  return launch<T, D, true>(q, k, v, o, bh, sq, sk, causal, window, sm_scale,
+                            q_pos, k_pos, stream);
 }
 
 }  // namespace
@@ -510,30 +588,31 @@ extern "C" {
 
 // Launches K3 on `stream`: o (bh, sq, d) = softmax(q k^T * sm_scale + mask)
 // v for q (bh, sq, d), k and v (bh, sk, d), contiguous, 16-byte aligned.
-// window <= 0 means no window. dtype 0 is float32, 1 is bfloat16. Returns
-// cudaGetLastError() after the launch (0 on success) or
-// cudaErrorInvalidValue for shapes it does not take.
+// window <= 0 means no window. dtype 0 is float32, 1 is bfloat16. q_pos
+// (sq) and k_pos (sk) int32 are the tokens' positions, both null for
+// positions counted from 0 (see the header). Returns cudaGetLastError()
+// after the launch (0 on success) or cudaErrorInvalidValue for shapes it
+// does not take.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int bh, int sq, int sk, int d, int causal,
                            int window, float sm_scale, int dtype,
-                           void* stream) {
-  if (bh < 0 || bh > 65535 || sq < 0 || sk < 1) {
+                           const int* q_pos, const int* k_pos, void* stream) {
+  if (bh < 0 || bh > 65535 || sq < 0 || sk < 1 ||
+      (q_pos == nullptr) != (k_pos == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (bh == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
-  if (dtype == 0 && d == 80)
-    return launch<float, 80>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
-  if (dtype == 1 && d == 64)
-    return launch<bf16, 64>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
-  if (dtype == 1 && d == 80)
-    return launch<bf16, 80>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
-  if (dtype == 1 && d == 128)
-    return launch<bf16, 128>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, s);
+#define K3_LAUNCH(T, D)                                                      \
+  launch_path<T, D>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, q_pos, \
+                    k_pos, s)
+  if (dtype == 0 && d == 64) return K3_LAUNCH(float, 64);
+  if (dtype == 0 && d == 80) return K3_LAUNCH(float, 80);
+  if (dtype == 0 && d == 128) return K3_LAUNCH(float, 128);
+  if (dtype == 1 && d == 64) return K3_LAUNCH(bf16, 64);
+  if (dtype == 1 && d == 80) return K3_LAUNCH(bf16, 80);
+  if (dtype == 1 && d == 128) return K3_LAUNCH(bf16, 128);
+#undef K3_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

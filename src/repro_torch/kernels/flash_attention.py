@@ -4,13 +4,18 @@ hand-written CUDA kernel.
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:_kernel``.
 The source is ``csrc/flash_attention.cu`` (design and bound in its header),
 built and loaded by :mod:`repro_torch.kernels.build`. Layout (BH, S, D),
-heads folded into the batch; query and key positions both count from 0.
+heads folded into the batch. Query and key positions count from 0 unless
+the caller gives them: ``q_pos`` (Sq,) and ``k_pos`` (Sk,) int32, shared by
+every (batch, head), as Qwen2-VL's M-RoPE temporal stream masks attention.
+With positions K3 visits every key tile, so a row whose keys are all
+masked averages V over all keys, as the plain version does.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs the
 plain version (:func:`repro_torch.kernels.ref.flash_attention_ref`) for CPU
 tensors. There is no fallback: on a CUDA tensor a missing compiler, a failed
 build or a failed launch raises. ``flash_attention.launches`` counts kernel
-launches.
+launches, ``flash_attention.position_launches`` those of them with
+positions.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                ctypes.c_float, _I, _P], ctypes.c_int),
+                                ctypes.c_float, _I, _P, _P, _P],
+                               ctypes.c_int),
 }
 
 
@@ -45,7 +51,24 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, _SIGNATURES)
 
 
-def _check(q, k, v, window):
+def _check_positions(q, k, q_pos, k_pos):
+    if (q_pos is None) != (k_pos is None):
+        raise ValueError("flash_attention takes both q_pos and k_pos or "
+                         "neither")
+    for name, p, n in (("q_pos", q_pos, q.shape[1]),
+                       ("k_pos", k_pos, k.shape[1])):
+        if p.dtype != torch.int32:
+            raise TypeError(f"flash_attention takes {name} as int32, got "
+                            f"{p.dtype}")
+        if p.device != q.device:
+            raise ValueError(f"flash_attention takes {name} on q's device "
+                             f"{q.device}, got {p.device}")
+        if p.dim() != 1 or p.shape[0] != n or not p.is_contiguous():
+            raise ValueError(f"flash_attention takes {name} contiguous, of "
+                             f"shape ({n},), got {tuple(p.shape)}")
+
+
+def _check(q, k, v, window, positions: bool):
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention takes q, k, v on one CUDA device, "
@@ -66,9 +89,11 @@ def _check(q, k, v, window):
                          f"got {d}")
     if bh > 65535:
         raise ValueError(f"flash_attention takes BH <= 65535, got {bh}")
-    if window is not None and (window < 1 or sq >= k.shape[1] + window):
-        # a row with every key outside its window: the kernel skips the
-        # tiles such a row would average over (see the source's header)
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention takes window >= 1, got {window}")
+    if window is not None and not positions and sq >= k.shape[1] + window:
+        # a row with every key outside its window: the index path skips
+        # the tiles such a row would average over (see the source's header)
         raise ValueError(f"flash_attention takes window >= 1 with Sq < Sk + "
                          f"window, got window={window}, Sq={sq}, "
                          f"Sk={k.shape[1]}")
@@ -79,15 +104,21 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (BH, Sq, D), k, v (BH, Sk, D) -> (BH, Sq, D) in q's dtype. CUDA
-    tensors launch K3 on the current stream; CPU tensors run the plain
+                    causal: bool = True, window: Optional[int] = None,
+                    q_pos: Optional[torch.Tensor] = None,
+                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (BH, Sq, D), k, v (BH, Sk, D) -> (BH, Sq, D) in q's dtype; q_pos
+    (Sq,) and k_pos (Sk,) int32 the positions that mask (both or neither).
+    CUDA tensors launch K3 on the current stream; CPU tensors run the plain
     version."""
+    positions = q_pos is not None or k_pos is not None
+    if positions:
+        _check_positions(q, k, q_pos, k_pos)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q[None], k[None], v[None], causal=causal,
-                                   window=window)[0]
-    _check(q, k, v, window)
+                                   window=window, q_pos=q_pos,
+                                   k_pos=k_pos)[0]
+    _check(q, k, v, window, positions)
     lib = load_library()
     bh, sq, d = q.shape
     o = torch.empty_like(q)
@@ -96,10 +127,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq,
             k.shape[1], d, int(causal), 0 if window is None else int(window),
-            1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+            1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            q_pos.data_ptr() if positions else None,
+            k_pos.data_ptr() if positions else None, stream)
     _build.check(lib, SOURCE, rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.position_launches += positions
     return o
 
 
 flash_attention.launches = 0
+flash_attention.position_launches = 0

@@ -47,9 +47,12 @@ def lora_matmul(x, w, a, b, scale: float,
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              q_pos: Optional[torch.Tensor] = None,
+              k_pos: Optional[torch.Tensor] = None,
               kcfg: KernelConfig = DEFAULT) -> torch.Tensor:
     """q (B, Sq, H, D), k / v (B, Sk, KV, D) with GQA -> (B, Sq, H, D).
-    Positions count from 0 for queries and keys."""
+    q_pos (Sq,) and k_pos (Sk,) int32 are the positions that mask, shared
+    by the batch; omitted, they count from 0 for queries and keys."""
     b, sq, h, d = q.shape
     rep = h // k.shape[2]
     if rep > 1:
@@ -63,11 +66,13 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     kt = k.transpose(1, 2).reshape(b * h, sk, d).contiguous()
     vt = v.transpose(1, 2).reshape(b * h, sk, d).contiguous()
     if kcfg.use_cuda:
-        o = _flash(qt, kt, vt, causal=causal, window=window)
+        o = _flash(qt, kt, vt, causal=causal, window=window, q_pos=q_pos,
+                   k_pos=k_pos)
     else:
         o = ref.flash_attention_ref(
             qt.reshape(b, h, sq, d), kt.reshape(b, h, sk, d),
             vt.reshape(b, h, sk, d), causal=causal, window=window,
+            q_pos=q_pos, k_pos=k_pos,
         ).reshape(b * h, sq, d)
     return o.reshape(b, h, sq, d).transpose(1, 2)
 

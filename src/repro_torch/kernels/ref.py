@@ -24,14 +24,24 @@ def lora_matmul_ref(x, w, a, b, scale: float):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None):
-    """q:(B,H,Sq,D), k,v:(B,H,Sk,D) -> (B,H,Sq,D); f32 softmax, query and
-    key positions both counted from 0, masked scores at MASK_FILL."""
+                        window: Optional[int] = None,
+                        q_pos: Optional[torch.Tensor] = None,
+                        k_pos: Optional[torch.Tensor] = None):
+    """q:(B,H,Sq,D), k,v:(B,H,Sk,D) -> (B,H,Sq,D); f32 softmax, masked
+    scores at MASK_FILL (the reference's ``_mask_bias``: causal keeps
+    k_pos <= q_pos, a window k_pos > q_pos - window). q_pos (Sq,) and
+    k_pos (Sk,) int are the tokens' positions, shared by every (batch,
+    head); omitted, they count from 0. A row whose keys are all masked
+    averages V over all Sk keys, as the reference's softmax does."""
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     sq, sk = q.shape[2], k.shape[2]
-    qp = torch.arange(sq, device=q.device)[:, None]
-    kp = torch.arange(sk, device=q.device)[None, :]
+    if q_pos is None:
+        q_pos = torch.arange(sq, device=q.device)
+    if k_pos is None:
+        k_pos = torch.arange(sk, device=q.device)
+    qp = q_pos.to(q.device, torch.int64)[:, None]
+    kp = k_pos.to(q.device, torch.int64)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         ok &= kp <= qp

@@ -1,12 +1,14 @@
 """GQA attention: full / causal / sliding-window, forward, prefill and
 decode paths (the reference's ``models/attention.py``).
 
-Every full-sequence attention goes to ``ops.attention`` (K3 on the card),
-with query and key positions counted from 0, the only positions forward
-and prefill use. The reference's blockwise XLA path has no counterpart here;
-K3 is the blockwise path. One-token decode against the ring-buffer KV cache
-(``decode_attend``) stays in torch ops, as the reference computes it in
-plain XLA.
+Every full-sequence attention goes to ``ops.attention`` (K3 on the card).
+It masks by the tokens' positions, as the reference does: ``None`` stands
+for positions counted from 0 (K3's index path, which skips masked tiles),
+a vector for a batch's own (Qwen2-VL's M-RoPE temporal stream, where an
+image span shares one position). The reference's blockwise XLA path has
+no counterpart here; K3 is the blockwise path. One-token decode against
+the ring-buffer KV cache (``decode_attend``) stays in torch ops, as the
+reference computes it in plain XLA.
 
 The port updates the KV cache in place (``write_prefill``,
 ``write_decode``) where the reference returns new arrays: at llama2-7b's
@@ -23,7 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_FILL
 from repro_torch.models import lora as lora_lib
 from repro_torch.models.common import normal_param
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_m_rope, apply_rope
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +75,12 @@ def qkv_project(cfg, p, x, positions, kcfg: ops.KernelConfig = ops.DEFAULT):
     q = lora_lib.proj(x, p["wq"], p.get("bq"), lt.get("q"), scale, kcfg)
     k = lora_lib.proj(x, p["wk"], p.get("bk"), lt.get("k"), scale, kcfg)
     v = lora_lib.proj(x, p["wv"], p.get("bv"), lt.get("v"), scale, kcfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.m_rope:
+        q = apply_m_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
+        k = apply_m_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -91,10 +97,13 @@ def out_project(cfg, p, attn_out, kcfg: ops.KernelConfig = ops.DEFAULT):
 # Full-sequence attention
 # ---------------------------------------------------------------------------
 
-def attend(q, k, v, causal: bool, window: Optional[int],
-           kcfg: ops.KernelConfig = ops.DEFAULT):
-    """q (B,Sq,h,hd), k / v (B,Sk,kv,hd), positions from 0 -> (B,Sq,h,hd)."""
-    return ops.attention(q, k, v, causal=causal, window=window, kcfg=kcfg)
+def attend(q, k, v, q_pos: Optional[torch.Tensor],
+           k_pos: Optional[torch.Tensor], causal: bool,
+           window: Optional[int], kcfg: ops.KernelConfig = ops.DEFAULT):
+    """q (B,Sq,h,hd), k / v (B,Sk,kv,hd), q_pos (Sq,) / k_pos (Sk,) int32
+    or None for positions from 0 -> (B,Sq,h,hd)."""
+    return ops.attention(q, k, v, causal=causal, window=window, q_pos=q_pos,
+                         k_pos=k_pos, kcfg=kcfg)
 
 
 # ---------------------------------------------------------------------------

@@ -36,15 +36,26 @@ def _ffn(cfg, p, x, kcfg):
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def transformer_block_full(cfg, p, h, positions, want_cache: bool = False,
+def mask_positions(cfg, positions) -> torch.Tensor:
+    """The (S,) int32 positions that mask attention, as the reference takes
+    them: batch row 0's temporal stream under M-RoPE, else row 0."""
+    q_pos = positions[..., 0][0] if cfg.m_rope else positions[0]
+    return q_pos.to(torch.int32).contiguous()
+
+
+def transformer_block_full(cfg, p, h, positions, q_pos=None,
+                           want_cache: bool = False,
                            kcfg: ops.KernelConfig = ops.DEFAULT):
-    """Full sequence (forward / prefill), positions from 0.
+    """Full sequence (forward / prefill). ``positions`` rotate q and k;
+    ``q_pos`` (:func:`mask_positions`) masks attention, as query and key
+    positions both, or is None when the positions are the default ones
+    counted from 0 (K3's index path).
 
     Returns (h, aux_loss) or, when ``want_cache``, (h, aux_loss, (k, v))."""
     x = apply_norm(cfg, p["attn_norm"], h)
     q, k, v = attn.qkv_project(cfg, p["attn"], x, positions, kcfg)
-    out = attn.attend(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                      kcfg=kcfg)
+    out = attn.attend(q, k, v, q_pos, q_pos, causal=cfg.causal,
+                      window=cfg.sliding_window, kcfg=kcfg)
     h = h + attn.out_project(cfg, p["attn"], out, kcfg)
     x = apply_norm(cfg, p["mlp_norm"], h)
     y, aux = _ffn(cfg, p, x, kcfg)

@@ -1,5 +1,9 @@
-"""Rotary position embeddings (the reference's ``models/rope.py``; M-RoPE
-waits for the VLM slice, ROADMAP Queue 1 item 10)."""
+"""Rotary position embeddings, including Qwen2-VL M-RoPE (the reference's
+``models/rope.py``).
+
+M-RoPE splits the rotary frequency dimensions into (temporal, height, width)
+sections, each rotated by its own position stream. For text tokens all three
+streams carry the same position, which makes M-RoPE coincide with RoPE."""
 from __future__ import annotations
 
 import torch
@@ -31,6 +35,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x.float(), cos, sin).to(x.dtype)
 
 
+def apply_m_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                 sections) -> torch.Tensor:
+    """x (B, S, n_heads, head_dim), positions (B, S, 3) int: the (t, h, w)
+    streams; ``sections`` (t, h, w) sum to head_dim // 2."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang_all = positions[..., None].float() * freqs          # (B, S, 3, half)
+    # frequency index i takes the stream of the section it falls in (slices:
+    # an index tensor built from the host would cost a copy and a sync)
+    bounds = [0]
+    for n in sections:
+        bounds.append(bounds[-1] + n)
+    ang = torch.cat([ang_all[:, :, s, bounds[s]:bounds[s + 1]]
+                     for s in range(3)], dim=-1)             # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x.float(), cos, sin).to(x.dtype)
+
+
 def default_positions(batch: int, seq: int, offset=0,
                       device=None) -> torch.Tensor:
     return torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
+
+
+def default_m_positions(batch: int, seq: int, offset=0,
+                        device=None) -> torch.Tensor:
+    """(B, S, 3): the text positions in all three streams."""
+    p = default_positions(batch, seq, offset, device).expand(batch, seq)
+    return torch.stack([p, p, p], dim=-1)

@@ -1,5 +1,6 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families: init /
-forward / prefill / decode (the reference's ``models/transformer.py``).
+"""Model assembly for every family of the reference (dense, MoE, SSM,
+hybrid, VLM, audio): init / forward / prefill / decode (the reference's
+``models/transformer.py``).
 
 Layers are a Python list of per-layer parameter dicts, not a stacked scan.
 Hybrid (zamba2) layers are a list of super-blocks, each a list of
@@ -8,9 +9,15 @@ block (``params["shared"]``), whose every application keeps its own KV-cache
 slot. The cache is a flat dict updated in place by prefill and decode:
 ``index`` (an int), ``k`` / ``v`` (applications, B, W, kv, hd) for
 attention, ``conv`` / ``ssd`` (layers..., B, ...) for Mamba2. A MoE layer
-is a transformer block whose MLP is ``models/moe.apply_moe``. The VLM and
-audio families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+is a transformer block whose MLP is ``models/moe.apply_moe``.
+
+The VLM (Qwen2-VL) and audio (HuBERT) families are stacks of dense blocks
+fed by a stubbed frontend: ``embed_inputs`` configs read ``batch["embeds"]``
+(B, S, d_model) and have an output head but no input table. A batch may
+bring its own ``positions`` ((B, S), or (B, S, 3) under M-RoPE); attention
+then masks by batch row 0's positions (its temporal stream under M-RoPE),
+as the reference does, through K3's position inputs. Encoder-only configs
+(HuBERT) have ``forward`` only.
 """
 from __future__ import annotations
 
@@ -21,30 +28,22 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm, normal_param
-from repro_torch.models.rope import default_positions
+from repro_torch.models.rope import default_m_positions, default_positions
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# where each family not ported yet is queued (ROADMAP Queue 1, item 10)
-NOT_PORTED = {
-    "vlm": "ROADMAP Queue 1 item 10d (VLM and M-RoPE)",
-    "audio": "ROADMAP Queue 1 item 10e (audio)",
-}
-
-
 # the families whose layers are all transformer blocks (dense MLP or MoE)
-_ATTENTION_STACKS = ("dense", "moe")
+_ATTENTION_STACKS = ("dense", "moe", "vlm", "audio")
 
 
 def model_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def require_ported(cfg) -> None:
-    if cfg.arch_type in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
-            f"{NOT_PORTED[cfg.arch_type]} ports it")
+def _require_decode(cfg) -> None:
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name}: encoder-only arch has no prefill / "
+                         "decode")
 
 
 def super_blocks(cfg) -> tuple:
@@ -60,15 +59,15 @@ def super_blocks(cfg) -> tuple:
 def init_params(generator: torch.Generator, cfg) -> dict:
     """Random parameters drawn on the generator's device (each tensor in f32,
     then cast to the model dtype; adapters and the SSM's A_log, D and
-    dt_bias stay f32). LoRA B is zero, as the standard init."""
-    require_ported(cfg)
+    dt_bias stay f32). LoRA B is zero, as the standard init. An
+    ``embed_inputs`` config has no input table and always an output head."""
     dt = model_dtype(cfg)
-    p = {
-        "embed": normal_param(generator, (cfg.vocab_size, cfg.d_model), dt,
-                              stddev=0.02),
-        "final_norm": init_norm(cfg, dt, generator.device),
-    }
-    if not cfg.tie_embeddings:
+    p = {}
+    if not cfg.embed_inputs:
+        p["embed"] = normal_param(generator, (cfg.vocab_size, cfg.d_model),
+                                  dt, stddev=0.02)
+    p["final_norm"] = init_norm(cfg, dt, generator.device)
+    if not cfg.tie_embeddings or cfg.embed_inputs:
         p["head"] = normal_param(generator, (cfg.d_model, cfg.vocab_size), dt,
                                  stddev=0.02)
     if cfg.arch_type in _ATTENTION_STACKS:
@@ -90,6 +89,8 @@ def init_params(generator: torch.Generator, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg, params, batch) -> torch.Tensor:
+    if cfg.embed_inputs:
+        return batch["embeds"].to(model_dtype(cfg))
     return params["embed"][batch["tokens"]].to(model_dtype(cfg))
 
 
@@ -102,14 +103,26 @@ def unembed(cfg, params, h) -> torch.Tensor:
     return logits.float()
 
 
-def _positions(batch, seq: int, device, offset: int = 0) -> torch.Tensor:
+def _positions(cfg, batch, seq: int, device):
+    """(positions that rotate q and k, positions that mask attention). The
+    batch's own when it brings them; else the default ones counted from 0,
+    for which the mask positions are None (K3's index path)."""
     if "positions" in batch:
-        raise NotImplementedError(
-            "a batch with its own positions: K3 counts query and key "
-            "positions from 0; ROADMAP Queue 1 item 10d (VLM and M-RoPE) "
-            "lifts this")
-    b = batch["tokens"].shape[0]
-    return default_positions(b, seq, offset, device).expand(b, seq)
+        pos = batch["positions"]
+        return pos, blk.mask_positions(cfg, pos)
+    b = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[0]
+    if cfg.m_rope:
+        return default_m_positions(b, seq, 0, device), None
+    return default_positions(b, seq, 0, device).expand(b, seq), None
+
+
+def _decode_positions(cfg, batch, bsz: int, index: int, device):
+    """A decode step's positions: the batch's own, else the cache index in
+    every stream (also after an image span, as the reference does)."""
+    if "positions" in batch:
+        return batch["positions"]
+    shape = (bsz, 1, 3) if cfg.m_rope else (bsz, 1)
+    return torch.full(shape, index, dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -119,25 +132,24 @@ def _positions(batch, seq: int, device, offset: int = 0) -> torch.Tensor:
 def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT):
     """-> (logits (B,S,V) f32, aux_loss f32 scalar: the MoE layers' load
     balance losses summed over layers, in layer order; 0 without MoE)."""
-    require_ported(cfg)
     h = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.arch_type in _ATTENTION_STACKS:
-        positions = _positions(batch, h.shape[1], h.device)
+        positions, q_pos = _positions(cfg, batch, h.shape[1], h.device)
         for lp in params["layers"]:
-            h, a = blk.transformer_block_full(cfg, lp, h, positions,
+            h, a = blk.transformer_block_full(cfg, lp, h, positions, q_pos,
                                               kcfg=kcfg)
             aux = aux + a
     elif cfg.arch_type == "ssm":
         for lp in params["layers"]:
             h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
     else:
-        positions = _positions(batch, h.shape[1], h.device)
+        positions, q_pos = _positions(cfg, batch, h.shape[1], h.device)
         for mp in params["layers"]:
             for lp in mp:
                 h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
             h, a = blk.transformer_block_full(cfg, params["shared"], h,
-                                              positions, kcfg=kcfg)
+                                              positions, q_pos, kcfg=kcfg)
             aux = aux + a
     h = apply_norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h), aux
@@ -148,7 +160,6 @@ def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    require_ported(cfg)
     dt = model_dtype(cfg)
     if cfg.arch_type in _ATTENTION_STACKS:
         c = attn.init_kv_cache(cfg, batch, max_len, dt, cfg.num_layers,
@@ -179,16 +190,16 @@ def prefill(cfg, params, batch, max_len: int,
             kcfg: ops.KernelConfig = ops.DEFAULT):
     """Full-prefix pass building the cache.
     -> (last-token logits (B,1,V) f32, cache)."""
-    require_ported(cfg)
+    _require_decode(cfg)
     h = embed_inputs(cfg, params, batch)
     bsz, seq = h.shape[0], h.shape[1]
     cache = init_cache(cfg, bsz, max_len, h.device)
     cache["index"] = seq
     if cfg.arch_type in _ATTENTION_STACKS:
-        positions = _positions(batch, seq, h.device)
+        positions, q_pos = _positions(cfg, batch, seq, h.device)
         for i, lp in enumerate(params["layers"]):
             h, _, (k, v) = blk.transformer_block_full(
-                cfg, lp, h, positions, want_cache=True, kcfg=kcfg)
+                cfg, lp, h, positions, q_pos, want_cache=True, kcfg=kcfg)
             attn.write_prefill(cfg, cache["k"][i], cache["v"][i], k, v)
     elif cfg.arch_type == "ssm":
         for i, lp in enumerate(params["layers"]):
@@ -196,14 +207,14 @@ def prefill(cfg, params, batch, max_len: int,
                                          kcfg=kcfg)
             _write_mamba(cache, i, mc)
     else:
-        positions = _positions(batch, seq, h.device)
+        positions, q_pos = _positions(cfg, batch, seq, h.device)
         for si, mp in enumerate(params["layers"]):
             for j, lp in enumerate(mp):
                 h, mc = blk.mamba_block_full(cfg, lp, h, return_cache=True,
                                              kcfg=kcfg)
                 _write_mamba(cache, (si, j), mc)
             h, _, (k, v) = blk.transformer_block_full(
-                cfg, params["shared"], h, positions, want_cache=True,
+                cfg, params["shared"], h, positions, q_pos, want_cache=True,
                 kcfg=kcfg)
             attn.write_prefill(cfg, cache["k"][si], cache["v"][si], k, v)
     h = apply_norm(cfg, params["final_norm"], h[:, -1:])
@@ -212,13 +223,13 @@ def prefill(cfg, params, batch, max_len: int,
 
 def decode_step(cfg, params, batch, cache,
                 kcfg: ops.KernelConfig = ops.DEFAULT):
-    """One-token step. batch: tokens (B,1). Updates the cache in place.
-    -> (logits (B,1,V) f32, cache)."""
-    require_ported(cfg)
+    """One-token step. batch: tokens (B,1) or embeds (B,1,d). Updates the
+    cache in place. -> (logits (B,1,V) f32, cache)."""
+    _require_decode(cfg)
     h = embed_inputs(cfg, params, batch)
     index = cache["index"]
+    positions = _decode_positions(cfg, batch, h.shape[0], index, h.device)
     if cfg.arch_type in _ATTENTION_STACKS:
-        positions = _positions(batch, 1, h.device, offset=index)
         for i, lp in enumerate(params["layers"]):
             h = blk.transformer_block_decode(cfg, lp, h, cache["k"][i],
                                              cache["v"][i], index, positions,
@@ -229,7 +240,6 @@ def decode_step(cfg, params, batch, cache,
                                            kcfg)
             _write_mamba(cache, i, mc)
     else:
-        positions = _positions(batch, 1, h.device, offset=index)
         for si, mp in enumerate(params["layers"]):
             for j, lp in enumerate(mp):
                 h, mc = blk.mamba_block_decode(

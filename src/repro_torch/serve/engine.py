@@ -3,7 +3,9 @@
 
 Requests are batched to a fixed width, length-bucketed; the cache is the
 model's (the ring-buffer KV cache, the Mamba2 conv and SSD state, or both for
-hybrid). Temperature sampling draws from a
+hybrid). Requests are token prompts, as in the reference's engine, so a
+config fed embeddings (``embed_inputs``: the VLM, audio) is refused; drive
+those through ``models.prefill`` / ``decode_step`` with ``embeds``. Temperature sampling draws from a
 ``torch.Generator``, so it cannot match the reference's
 ``jax.random.categorical`` bit for bit; greedy decoding matches exactly.
 """
@@ -32,7 +34,9 @@ class ServingEngine:
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name}: encoder-only arch cannot serve "
                              "decode")
-        tf.require_ported(cfg)
+        if cfg.embed_inputs:
+            raise ValueError(f"{cfg.name}: takes embeddings, not tokens; the "
+                             "engine serves token prompts only")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len

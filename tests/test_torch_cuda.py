@@ -514,6 +514,144 @@ def test_k3_rejects_what_it_does_not_take(cuda):
         flash_attention(q, k.cpu(), v)
 
 
+def _k3_positions(s, kind, seed):
+    """(q_pos, k_pos) int32 of length s: Qwen2-VL's temporal stream with an
+    image span at the start, middle or end; repeated, non-monotone
+    positions; or queries 8 before their keys (rows with no key)."""
+    from repro_torch.models.frontends import make_mrope_positions
+
+    if kind in ("start", "middle", "end"):
+        h, w = 4, 8
+        start = {"start": 0, "middle": s // 3, "end": s - h * w}[kind]
+        p = np.ascontiguousarray(
+            make_mrope_positions(1, s, (start, h, w))[0, :, 0])
+        return p, p
+    if kind == "shuffled":
+        p = np.random.default_rng(seed).integers(0, max(1, s // 2), s)
+        return p.astype(np.int32), p.astype(np.int32)
+    ar = np.arange(s, dtype=np.int32)
+    return ar - 8, ar
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 37),
+                                           (False, None)])
+@pytest.mark.parametrize("kind", ["start", "middle", "end", "shuffled",
+                                  "rows-without-keys"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_positions_match_plain(cuda, dtype, d, kind, causal, window):
+    """K3's position path against the plain version with the same
+    positions, S = 200 (ragged), Sq = Sk."""
+    s = 200
+    q, k, v = (t.to(cuda) for t in _qkv(3, s, s, d, dtype, d + s))
+    q_pos, k_pos = (torch.from_numpy(p).to(cuda)
+                    for p in _k3_positions(s, kind, d))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window, q_pos=q_pos,
+                        k_pos=k_pos)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q[None], k[None], v[None], causal=causal,
+                               window=window, q_pos=q_pos, k_pos=k_pos)[0]
+    torch.testing.assert_close(o.float(), want.float(), **K3_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 37),
+                                           (False, None), (False, 50)])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (65, 65), (200, 200), (64, 130),
+                                   (129, 300)])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_explicit_arange_bit_equal_to_index_path(cuda, dtype, d, sq, sk,
+                                                    causal, window):
+    """Positions 0, 1, ... passed explicitly give the index path's bits: the
+    position path visits the tiles the index path skips, and each adds
+    exactly 0."""
+    q, k, v = (t.to(cuda) for t in _qkv(2, sq, sk, d, dtype, sq + sk))
+    base = flash_attention(q, k, v, causal=causal, window=window)
+    got = flash_attention(
+        q, k, v, causal=causal, window=window,
+        q_pos=torch.arange(sq, dtype=torch.int32, device=cuda),
+        k_pos=torch.arange(sk, dtype=torch.int32, device=cuda))
+    assert torch.equal(got, base)
+
+
+def test_k3_positions_qwen2_vl_serving_shape(cuda):
+    """Qwen2-VL's prefill: BH 8 x 28, S 1024, D 128, bf16, one 24 x 32
+    image span at 64."""
+    from repro_torch.models.frontends import make_mrope_positions
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((224, 1024, 128), generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    p = torch.from_numpy(np.ascontiguousarray(
+        make_mrope_positions(1, 1024, (64, 24, 32))[0, :, 0])).to(cuda)
+    o = flash_attention(q, k, v, causal=True, q_pos=p, k_pos=p)
+    want = flash_attention_ref(q[None], k[None], v[None], causal=True,
+                               q_pos=p, k_pos=p)[0]
+    torch.testing.assert_close(o.float(), want.float(),
+                               **K3_TOL[torch.bfloat16])
+
+
+def test_k3_refuses_positions_it_does_not_take(cuda):
+    q, k, v = (t.to(cuda) for t in _qkv(2, 64, 80, 64, torch.float32, 0))
+    qp = torch.arange(64, dtype=torch.int32, device=cuda)
+    kp = torch.arange(80, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="both q_pos and k_pos"):
+        flash_attention(q, k, v, q_pos=qp)
+    with pytest.raises(TypeError, match="int32"):
+        flash_attention(q, k, v, q_pos=qp.long(), k_pos=kp)
+    with pytest.raises(ValueError, match=r"shape \(80,\)"):
+        flash_attention(q, k, v, q_pos=qp, k_pos=kp[:64])
+    with pytest.raises(ValueError, match="q's device"):
+        flash_attention(q, k, v, q_pos=qp.cpu(), k_pos=kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k, v, q_pos=qp, k_pos=torch.arange(
+            160, dtype=torch.int32, device=cuda)[::2])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "hubert-xlarge"])
+def test_vlm_audio_smoke_config_cuda_equals_cpu(cuda, arch):
+    """The qwen2-vl-7b smoke config (an image span, prefill and 4 decode
+    steps on embeddings) and the hubert-xlarge one (forward) on the card
+    (K2, K3 with positions for the VLM, non-causal for HuBERT) against the
+    CPU plain path, f32, at the dense models' tolerance."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.frontends import make_mrope_positions
+
+    cfg = get_smoke_config(arch)
+    vals = convert.random_model_params(cfg, 20)
+    emb = np.random.default_rng(21).standard_normal(
+        (2, 64, cfg.d_model), np.float32) * 0.1
+    pos = make_mrope_positions(2, 60, (8, 4, 8))
+
+    def run(dev):
+        params = convert.model_params(vals, cfg, dev)
+        e = torch.from_numpy(emb).to(dev)
+        if cfg.encoder_only:
+            return [tf.forward(cfg, params, {"embeds": e})[0].cpu()]
+        logits, cache = tf.prefill(cfg, params, {
+            "embeds": e[:, :60],
+            "positions": torch.from_numpy(pos).to(dev)}, 64)
+        outs = [logits.cpu()]
+        for i in range(60, 64):
+            logits, cache = tf.decode_step(cfg, params,
+                                           {"embeds": e[:, i:i + 1]}, cache)
+            outs.append(logits.cpu())
+        return outs
+
+    before = (lora_matmul.launches, flash_attention.launches)
+    got = run(cuda)
+    n_fwd = 1 if cfg.encoder_only else 5
+    assert (lora_matmul.launches - before[0],
+            flash_attention.launches - before[1]) == (
+        len(cfg.lora.targets) * cfg.num_layers * n_fwd, cfg.num_layers)
+    for g, w in zip(got, run("cpu")):
+        torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-3)
+
+
 # K4 tolerances: both versions compute in f32, K4 in 64-step chunks and the
 # plain version step by step, so the sums run in another order: 3e-4, the
 # JAX kernel test's own for chunked against sequential. At bf16 y is one

@@ -93,6 +93,6 @@ def test_attend_matches_reference_xla_path(causal, window):
     want = jattn.attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos,
                         pos, causal, window)
     got = attention.attend(torch.from_numpy(q), torch.from_numpy(k),
-                           torch.from_numpy(v), causal, window)
+                           torch.from_numpy(v), None, None, causal, window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)

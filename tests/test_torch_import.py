@@ -65,6 +65,8 @@ def test_host_packages_load_neither_jax_nor_reference(module):
     "repro_torch.core.fleet", "repro_torch.core.multi_job",
     "repro_torch.core.selector", "repro_torch.models.moe",
     "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.mixtral_8x22b",
+    "repro_torch.models.frontends", "repro_torch.models.rope",
+    "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.hubert_xlarge",
 ])
 def test_reference_chain_modules_load_neither_jax_nor_reference(module):
     """The host reference chain (python policies, simulator, offline

@@ -215,15 +215,35 @@ def test_prefill_decode_match_reference(arch, over):
 
 
 def test_unported_families_and_positions_raise():
+    """What the old refusals became: every family of the reference
+    initialises and runs forward in the port (NOT_PORTED is gone), a batch's
+    own positions are taken (explicit default positions give the default
+    run's logits), and an encoder-only config's prefill raises."""
+    from repro.configs import list_archs as jlist_archs
+
+    assert not hasattr(transformer, "NOT_PORTED")
+    gen = torch.Generator().manual_seed(0)
+    for arch in jlist_archs():
+        cfg = get_smoke_config(arch)
+        params = init_params(gen, cfg)
+        if cfg.embed_inputs:
+            batch = {"embeds": torch.randn((1, 8, cfg.d_model),
+                                           generator=gen)}
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 8),
+                                             generator=gen)}
+        logits, aux = forward(cfg, params, batch)
+        assert logits.shape == (1, 8, cfg.vocab_size), arch
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
     cfg = get_smoke_config("llama2-7b")
-    for arch in ("vlm", "audio"):
-        other = dataclasses.replace(cfg, arch_type=arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            forward(other, {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
     params = convert.model_params(convert.random_model_params(cfg, 0), cfg,
                                   "cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
-             "positions": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        forward(cfg, params, batch)
-    assert transformer.NOT_PORTED.keys() == {"vlm", "audio"}
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    pos = torch.arange(16, dtype=torch.int32).expand(2, 16)
+    want, _ = forward(cfg, params, {"tokens": toks})
+    got, _ = forward(cfg, params, {"tokens": toks, "positions": pos})
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    enc = get_smoke_config("hubert-xlarge")
+    with pytest.raises(ValueError, match="encoder-only"):
+        prefill(enc, init_params(gen, enc),
+                {"embeds": torch.zeros((1, 4, enc.d_model))}, 8)
