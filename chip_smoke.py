@@ -8,7 +8,8 @@ Run from the repo root, with no arguments:
 
 It builds the four kernels (``src/repro_torch/kernels/csrc/*.cu``: K1
 window_dp, K2 lora_matmul, K3 flash_attention, K4 ssd_scan), one nvcc for
-sm_90a each, all started together, and then drives four paths on the card:
+sm_90a each, all started together, and then drives these paths on the
+card:
 
 - the paper's online policy selection (Fig. 9: four noise settings, 1000
   jobs x ``paper_pool()``) through ``engine.simulate_and_select``, whose
@@ -72,6 +73,19 @@ sm_90a each, all started together, and then drives four paths on the card:
   one forward of 8 x 1024 frames; K3 non-causal at head dim 80), each with
   its launch counts checked, its logits held against the plain run and a
   traced prefill or forward.
+- LoRA fine-tuning, the paper's workload: K2's autograd Function (forward
+  K2, dx by K2 on W^T, B^T, A^T) and K3's and K4's (forward the kernel,
+  backward autograd through the plain version) against autograd through
+  the plain versions (``[k2-grad]``, ``[k3-grad]``, ``[k4-grad]``; a direct
+  launch under grad raises); the llama2-7b smoke config trained 4 steps
+  against the JAX package's train step (``[train-ref]``); llama2-7b at
+  full width and depth, bf16, trained with remat (``[train]``: step 0's
+  LoRA gradients finite, non-zero and held against the plain runs in bf16
+  and f32, step time, tokens/s, peak memory, launch counts, a traced
+  step, the base weights bit-unchanged); and the elastic trainer of
+  examples/elastic_finetune_torch.py at its full setting (``[elastic]``:
+  the scheduler's plan equal to the JAX package's, AHAP's windows on K1,
+  real checkpoint round trips).
 
 It times each kernel beside its bound, its plain version and a PyTorch
 yardstick. Any failed phase raises and the script exits nonzero. Without a
@@ -446,6 +460,86 @@ AUDIO_RUN = ("hubert-xlarge", 8, 1024)
 # full depth and at FAMILY_F32_LAYERS layers, where the weights widened to
 # f32 also hold the kernel run within F32_LOGIT_ATOL.
 FAMILY_F32_LAYERS = 4
+
+# [k2-grad]: K2's autograd Function (forward K2, dx by K2 on W^T, B^T, A^T,
+# dA and dB rank-r f32 products) against torch.autograd through the plain
+# version, at llama2-7b's q shape, Mixtral's v shape (N 1024), tiny-100m's
+# q / v shape on [elastic]'s path (8 x 128 tokens, d 768) and two odd
+# shapes (M off the tile, r 8 and 64); (M, K, N, r). y within K2_TOL; dx
+# (one K2 launch) and dA / dB (f32 products on both sides, summed in another
+# order, rounded once to the operands' dtype) within GRAD_TOL.
+K2_GRAD_SHAPES = ((8192, 4096, 4096, 16), (8192, 4096, 1024, 16),
+                  (1024, 768, 768, 16), (1000, 512, 768, 8),
+                  (333, 1024, 256, 64))
+# [train-ref]: the llama2-7b smoke config (f32, 2 layers, d 256) with
+# convert.random_model_params(cfg, TRAIN_REF_SEED) weights and
+# ShardedLMLoader(vocab, batch, seq, seed=TRAIN_REF_SEED) batches, 4 steps
+# of make_train_step for each TrainConfig below (kwargs), on the card.
+# TRAIN_REF holds the JAX package's jitted make_train_step on the CPU on the
+# same numpy inputs (from tools/jax_train_refs.py): each step's loss, grad
+# norm and lr, and the LoRA leaves' movement over the 4 steps (sum of
+# |after - before| and of its squares, f64).
+TRAIN_REF_ARCH = "llama2-7b"
+TRAIN_REF_SEED = 14
+TRAIN_REF_STEPS = 4
+TRAIN_REF_RUNS = {
+    1: dict(seq_len=64, global_batch=4, lr=2e-3, warmup_steps=2,
+            total_steps=20, microbatches=1, remat="none"),
+    2: dict(seq_len=64, global_batch=4, lr=2e-3, warmup_steps=2,
+            total_steps=20, microbatches=2, remat="full"),
+}
+TRAIN_REF = {
+    1: {
+        'loss': (6.290581226348877, 6.301862716674805, 6.314222812652588, 6.300570964813232),
+        'grad_norm': (0.35814765095710754, 0.3773376941680908, 0.36677634716033936, 0.3453243672847748),
+        'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+        'move_abs': 108.36910602832052,
+        'move_sq': 0.48424212067343586,
+    },
+    2: {
+        'loss': (6.290581703186035, 6.3018622398376465, 6.31422233581543, 6.300571918487549),
+        'grad_norm': (0.35814765095710754, 0.3773376941680908, 0.36677640676498413, 0.3453243672847748),
+        'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+        'move_abs': 108.36910642175462,
+        'move_sq': 0.4842421250897805,
+    },
+}
+# f32 on both sides, sums in another order (the CPU test's loss tolerance
+# is 1e-5 and holds ~1e-7; the card's K2 / K3 add their own order): loss
+# and lr 1e-5, grad norm 1e-4, the leaves' movement 1e-4
+TRAIN_REF_RTOL = {"loss": 1e-5, "lr": 1e-5, "grad_norm": 1e-4,
+                  "move_abs": 1e-4, "move_sq": 1e-4}
+# [train]: llama2-7b (arXiv:2307.09288, the paper's target) at full width
+# and depth (32 layers), bf16, LoRA rank 16 on q and v, weights drawn on
+# the card (LoRA B ~ N(0, SERVE_LORA_B_STD), so every adapter has a
+# gradient), TrainConfig(seq_len=1024, global_batch=8, remat="full"): 2
+# warm-up steps, then TRAIN_STEPS timed. (arch, seq, batch)
+TRAIN_RUN = ("llama2-7b", 1024, 8)
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
+# [elastic]: examples/elastic_finetune_torch.py's full setting (tiny-100m,
+# ~134M parameters, seq 128, batch 8, AHAP(3, 1, 0.7) on
+# vast_like_trace(seed=4, days=2) with ARIMA forecasts) on the card. The
+# plan does not depend on the losses: ELASTIC_REF is the JAX package's
+# ElasticTrainer on the same setting (tools/jax_train_refs.py, its train
+# step stubbed): per slot (t, n_od, n_spot, mu, steps), then total_steps,
+# utility, cost and completion time, all exact.
+ELASTIC_REF = {
+    "slots": (
+        (0, 6, 4, 0.8984289169311523, 45),
+        (1, 4, 6, 1.0, 50),
+        (2, 5, 5, 1.0, 50),
+        (3, 1, 5, 0.9984288811683655, 30),
+        (4, 0, 6, 1.0, 30),
+        (5, 0, 6, 1.0, 30),
+        (6, 0, 3, 0.9984288811683655, 15),
+        (7, 0, 0, 0.9984288811683655, 0),
+    ),
+    'total_steps': 250,
+    'utility': 45.85622580667801,
+    'cost': 34.11392800191574,
+    'completion_time': 8.002985090017319,
+}
 
 
 def frontend_ref_inputs(np, d: int, vocab: int, seed: int, batch: int,
@@ -1679,7 +1773,7 @@ def _randn(torch, gen, shape, std, dtype):
 def _close(torch, what, got, want, rtol, atol) -> float:
     """got against want in f32, elementwise |got - want| <= atol + rtol
     |want|; returns the largest |got - want|."""
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
     if g.shape != w.shape or not bool(torch.isfinite(g).all()):
         _fail(f"{what}: shape {tuple(g.shape)} vs {tuple(w.shape)} or "
               "non-finite output")
@@ -2271,6 +2365,7 @@ def _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len, tag,
 def _reset_counts(k2, k3, k4) -> None:
     """Every kernel count set to 0 before a main-path run."""
     k2.lora_matmul.launches = 0
+    k2.lora_matmul.backward_launches = 0
     k3.flash_attention.launches = 0
     k3.flash_attention.position_launches = 0
     k4.ssd_scan.launches = 0
@@ -2494,12 +2589,16 @@ def _draw_model(torch, tf, cfg, dev):
     return params, gen, time.perf_counter() - t0
 
 
-def _trace_call(torch, what, fn):
+def _trace_call(torch, what, fn, exclusive=None):
     """torch.profiler over one call of ``fn`` (the profiler's own host cost
-    is in the wall time)."""
+    is in the wall time), read by ``_trace_line``; grad mode is off unless
+    ``exclusive`` ranges are asked for (a train step). Returns
+    ``_trace_line``'s parts."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with contextlib.nullcontext() if exclusive else torch.no_grad():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2507,7 +2606,7 @@ def _trace_call(torch, what, fn):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    _trace_line(torch, what, prof, wall)
+    return _trace_line(torch, what, prof, wall, exclusive)
 
 
 def _family_checks(torch, tag, cfg, params, run, kern):
@@ -2712,70 +2811,103 @@ def _f32_logits(torch, tf, cfg, params, prompts_t, tokens_t, max_len):
 
 # the port's kernels by the names of their CUDA functions
 KERNEL_NAMES = {"K2": "lora_", "K3": "flash_fwd_", "K4": "ssd_scan_"}
+# the library's matrix products and PyTorch's elementwise kernels, by the
+# lower-cased parts of their names
+LIBRARY_NAMES = {"cuBLAS": ("gemm", "cublas", "cutlass", "xmma", "nvjet"),
+                 "elementwise": ("elementwise",)}
 
 
-def _trace_line(torch, what, prof, wall_s):
+def _trace_line(torch, what, prof, wall_s, exclusive=None):
     """Device busy time of a traced window (the sum of the device-side
-    events' self time: one stream, so they do not overlap; the host-side ops
-    that launched them are left out, or each kernel would count twice)
-    beside its wall time, the kernels that took most of it, and the device
-    time under each named range that ran: ops.ssd's (empty since K4 reads
-    the model's layout), ops.attention's K / V repeat to every query head
-    (GQA), and the MoE layer's route, dispatch, expert products and
-    combine."""
+    events' durations: one stream, so they do not overlap; the host-side
+    ops that launched them and the ranges' device-side annotations are left
+    out, or a kernel would count twice) beside its wall time, the kernels
+    that took most of it, their shares by KERNEL_NAMES and LIBRARY_NAMES,
+    and the device time under each named range that ran: ops.ssd's (empty
+    since K4 reads the model's layout), ops.attention's K / V repeat to
+    every query head (GQA), and the MoE layer's route, dispatch, expert
+    products and combine.
+
+    ``exclusive`` ({range name: part}) also splits busy time into exclusive
+    parts: a kernel inside the device span of one of those ranges counts
+    for its part, any other by its name (K2, K3, cuBLAS, elementwise, the
+    rest). Returns those parts in ms with ``wall_ms`` and ``busy_ms`` (None
+    without ``exclusive`` or device events)."""
+    import bisect
+
     from torch.autograd import DeviceType
 
     from repro_torch.kernels.ops import KV_REPEAT, SSD_COPIES
     from repro_torch.models import moe as moe_lib
 
-    ranges = (SSD_COPIES, KV_REPEAT, moe_lib.ROUTE, moe_lib.DISPATCH,
-              moe_lib.EXPERTS, moe_lib.COMBINE)
-    averages = prof.key_averages()
-    # a named range may also appear as a device-side annotation spanning
-    # its kernels: not a kernel, so not counted
-    events = [e for e in averages
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0
-              and e.key not in ranges]
-    busy_us = sum(e.self_device_time_total for e in events)
+    exclusive = exclusive or {}
+    ranges = {SSD_COPIES, KV_REPEAT, moe_lib.ROUTE, moe_lib.DISPATCH,
+              moe_lib.EXPERTS, moe_lib.COMBINE, *exclusive}
+    kernels, spans, host = [], [], {}
+    for e in prof.profiler.kineto_results.events():
+        name, start = e.name(), e.start_ns()
+        if e.device_type() != DeviceType.CUDA:
+            if name in ranges:
+                host[name] = host.get(name, 0) + 1
+        elif e.is_user_annotation():
+            if name in ranges:
+                spans.append((start, start + e.duration_ns(), name))
+        elif e.duration_ns() > 0:
+            kernels.append((start, start + e.duration_ns(), name))
+    busy_us = sum(b - a for a, b, _ in kernels) / 1e3
     if busy_us == 0:
         print(f"[trace] {what}: wall {wall_s * 1e3:.1f} ms; device time not "
               "measured (the profiler recorded no device events)")
-        return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+        return None
+    by_name = {}
+    for a, b, name in kernels:
+        count, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (count + 1, us + (b - a) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     print(f"[trace] {what}: wall {wall_s * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / (wall_s * 1e3):.1%}); "
-          "top: " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
-              f"({e.self_device_time_total / busy_us:.1%}, {e.count}x)"
-              for e in top))
-    shares = {name: sum(e.self_device_time_total for e in events
-                        if part in e.key)
-              for name, part in KERNEL_NAMES.items()}
-    # the library's matrix products and PyTorch's elementwise kernels
-    for name, parts in (("cuBLAS", ("gemm", "cublas", "cutlass", "xmma",
-                                    "nvjet")),
-                        ("elementwise", ("elementwise",))):
-        shares[name] = sum(e.self_device_time_total for e in events
-                           if any(w in e.key.lower() for w in parts))
+          "top: " + "; ".join(f"{name[:60]} {us / 1e3:.1f} ms "
+                              f"({us / busy_us:.1%}, {count}x)"
+                              for name, (count, us) in top))
+    parts_of = {**{k: (part,) for k, part in KERNEL_NAMES.items()},
+                **LIBRARY_NAMES}
+
+    def part_of(name):
+        return next((k for k, ws in parts_of.items()
+                     if any(w.lower() in name.lower() for w in ws)), "other")
+
+    shares = dict.fromkeys(parts_of, 0.0)
+    for name, (_, us) in by_name.items():
+        if part_of(name) in shares:
+            shares[part_of(name)] += us
     print(f"[trace] {what}: " + "; ".join(
         f"{name} {us / 1e3:.1f} ms ({us / busy_us:.1%} of busy)"
         for name, us in shares.items()))
     # each range's span on the device (its device-side annotation: first
-    # kernel start to last kernel end, one stream); a CPU-side range's
-    # device_time_total counts that span and its kernels both
-    spans = {}
-    for e in prof.profiler.kineto_results.events():
-        if (e.device_type() == DeviceType.CUDA and e.is_user_annotation()
-                and e.name() in ranges):
-            count, us = spans.get(e.name(), (0, 0.0))
-            spans[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
-    for e in averages:
-        if e.key in ranges and e.device_type == DeviceType.CPU:
-            count, us = spans.get(e.key, (0, 0.0))
-            print(f"[trace] {what}: '{e.key}' ({e.count}x on the host, "
-                  f"{count} device spans): {us / 1e3:.1f} ms on the device "
-                  f"({us / busy_us:.1%} of busy)")
+    # kernel start to last kernel end, one stream)
+    for name in sorted(host):
+        own = [(a, b) for a, b, n in spans if n == name]
+        us = sum(b - a for a, b in own) / 1e3
+        print(f"[trace] {what}: '{name}' ({host[name]}x on the host, "
+              f"{len(own)} device spans): {us / 1e3:.1f} ms on the device "
+              f"({us / busy_us:.1%} of busy)")
+    if not exclusive:
+        return None
+    spans = sorted(s for s in spans if s[2] in exclusive)
+    starts = [a for a, _, _ in spans]
+    parts = dict.fromkeys([*KERNEL_NAMES, *exclusive.values(),
+                           *LIBRARY_NAMES, "other"], 0.0)
+    for a, b, name in kernels:
+        i = bisect.bisect_right(starts, a) - 1
+        inside = i >= 0 and b <= spans[i][1]
+        parts[exclusive[spans[i][2]] if inside else part_of(name)] += \
+            (b - a) / 1e6
+    busy_ms, wall_ms = busy_us / 1e3, wall_s * 1e3
+    print(f"[trace] {what}: idle {1 - busy_ms / wall_ms:.1%} of wall; busy "
+          "split (exclusive): " + "; ".join(
+              f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in parts.items())
+          + f"; {len(spans)} range spans, {len(kernels)} kernels")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, **parts}
 
 
 def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, max_len, name,
@@ -2992,6 +3124,503 @@ def _before(name) -> str:
     return "not timed" if us is None else f"{us:,.1f} us"
 
 
+# ---------------------------------------------------------------------------
+# Training: the autograd Functions, [train-ref], [train], [elastic]
+# ---------------------------------------------------------------------------
+
+# A gradient of K2's Function, K3's or K4's against autograd through the
+# plain version: elementwise |got - want| <= rtol |want| + atol max|want|.
+# K2's dA and dB are sums over M (8,192 terms at the train shape) taken in
+# another order on each side, so a value near 0 carries an error of the
+# tensor's scale, not its own; f32 1e-4 / 1e-5, bf16 one rounding of the
+# f32 result (2^-7) / 2^-9. K3's and K4's backward are the plain version's
+# own ops on both sides (only cuBLAS's batch layout may differ).
+GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -9)}
+
+
+def _grad_close(torch, what, got, want, dt) -> float:
+    rtol, atol = GRAD_TOL[dt]
+    return _close(torch, what, got, want, rtol,
+                  atol * float(want.float().abs().max()))
+
+
+def _phase_k2_grad(torch, gen, k2, lora_matmul_ref) -> tuple:
+    """[k2-grad]: K2's Function (forward K2; dx by K2 on W^T, B^T, A^T;
+    dA, dB f32 rank-r products) against torch.autograd through the plain
+    version on the card, at K2_GRAD_SHAPES, f32 and bf16; then the guard:
+    a direct launch under grad raises. Returns the largest |err| of y and
+    of dx."""
+    max_err = max_dx = 0.0
+    for m, k, n, r in K2_GRAD_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            x, w, a, b = _lora_case(torch, gen, m, k, n, r,
+                                    getattr(torch, dt))
+            dy = _randn(torch, gen, (m, n), 1.0, getattr(torch, dt))
+            before = (k2.lora_matmul.launches,
+                      k2.lora_matmul.backward_launches)
+            ins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+            y = k2.LoRAMatmul.apply(ins[0], w, ins[1], ins[2], 2.0)
+            got = torch.autograd.grad(y, ins, dy)
+            torch.cuda.synchronize()
+            after = (k2.lora_matmul.launches,
+                     k2.lora_matmul.backward_launches)
+            # comparison launches do not count
+            k2.lora_matmul.launches, k2.lora_matmul.backward_launches = before
+            if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+                _fail(f"[k2-grad] {(m, k, n, r)} {dt}: {after[0] - before[0]}"
+                      f" forward and {after[1] - before[1]} backward K2 "
+                      "launches, expected 1 and 1")
+            ref_ins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+            yr = lora_matmul_ref(ref_ins[0], w, ref_ins[1], ref_ins[2], 2.0)
+            want = torch.autograd.grad(yr, ref_ins, dy)
+            err = _close(torch, f"[k2-grad] y {dt} {(m, k, n, r)}", y, yr,
+                         *K2_TOL[dt])
+            errs = [_grad_close(torch, f"[k2-grad] {name} {dt} "
+                                f"{(m, k, n, r)}", g, wnt, dt)
+                    for name, g, wnt in zip(("dx", "dA", "dB"), got, want)]
+            max_err, max_dx = max(max_err, err), max(max_dx, errs[0])
+            print(f"[k2-grad] {dt} (M, K, N, r) = {(m, k, n, r)}: max |err| "
+                  f"y {err:.3e} (rtol/atol {K2_TOL[dt]}), dx {errs[0]:.3e}, "
+                  f"dA {errs[1]:.3e}, dB {errs[2]:.3e} (rtol, atol x "
+                  f"max|want| {GRAD_TOL[dt]}); 1 forward + 1 backward K2 "
+                  "launch")
+            del x, w, a, b, dy, y, got, want, yr, ins, ref_ins
+    x, w, a, b = _lora_case(torch, gen, 64, 128, 128, 16, torch.bfloat16)
+    try:
+        k2.lora_matmul(x.requires_grad_(True), w, a, b, 2.0)
+    except RuntimeError as e:
+        print(f"[k2-grad] a direct launch under grad raises: {e}")
+    else:
+        _fail("[k2-grad] a direct K2 launch on a tensor that requires grad "
+              "did not raise")
+    return max_err, max_dx
+
+
+def _attention_grads(torch, ops, ins, do, use_cuda, **mask):
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    o = ops.attention(*leaves, kcfg=ops.KernelConfig(use_cuda), **mask)
+    return o, torch.autograd.grad(o, leaves, do)
+
+
+def _phase_k3_grad(torch, gen, k3) -> float:
+    """[k3-grad]: K3's Function through ops.attention (GQA: 8 query heads
+    over 2 K / V heads, repeated before K3) against the plain version: the
+    forward within K3_TOL, the input gradients (autograd through the plain
+    version inside the Function) against autograd through the plain route.
+    Returns the largest |err| of the forward."""
+    from repro_torch.kernels import ops
+
+    max_err = 0.0
+    for dt in ("float32", "bfloat16"):
+        for mask in ({"causal": True}, {"causal": True, "window": 64},
+                     {"causal": False}):
+            dtype = getattr(torch, dt)
+            ins = [_randn(torch, gen, (2, 200, h, 128), 1.0, dtype)
+                   for h in (8, 2, 2)]
+            do = _randn(torch, gen, (2, 200, 8, 128), 1.0, dtype)
+            before = k3.flash_attention.launches
+            o, got = _attention_grads(torch, ops, ins, do, True, **mask)
+            torch.cuda.synchronize()
+            launched = k3.flash_attention.launches - before
+            k3.flash_attention.launches = before
+            if launched != 1:
+                _fail(f"[k3-grad] {dt} {mask}: K3 launched {launched} times, "
+                      "expected 1")
+            want_o, want = _attention_grads(torch, ops, ins, do, False,
+                                            **mask)
+            err = _close(torch, f"[k3-grad] o {dt} {mask}", o, want_o,
+                         *K3_TOL[dt])
+            errs = [_grad_close(torch, f"[k3-grad] d{n} {dt} {mask}", g, w,
+                                dt) for n, g, w in zip("qkv", got, want)]
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            max_err = max(max_err, err)
+            print(f"[k3-grad] {dt} (B, S, H, KV, D) = (2, 200, 8, 2, 128) "
+                  f"{mask}: forward max |err| {err:.3e} (rtol/atol "
+                  f"{K3_TOL[dt]}); dq, dk, dv {', '.join(f'{e:.3e}' for e in errs)}"
+                  f" ({'bit-equal' if same else 'within GRAD_TOL'})")
+    return max_err
+
+
+def _phase_k4_grad(torch, gen, k4) -> float:
+    """[k4-grad]: K4's Function through ops.ssd on the model's layout (x,
+    B, C views of one buffer, G 2 over H 4) against the plain version: y
+    and the state within K4's tolerance, the input gradients against
+    autograd through the plain route. Returns the largest |err| of y."""
+    from repro_torch.kernels import ops
+
+    bt, s, hh, p, g, n = 2, 100, 4, 64, 2, 64
+    max_err = 0.0
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        width = hh * p + 2 * g * n
+        buf = _randn(torch, gen, (bt, s, width), 1.0, dtype)
+        dtt = torch.rand((bt, s, hh), generator=gen, device=gen.device) * 0.5
+        A = -torch.rand((hh,), generator=gen, device=gen.device)
+        dy = _randn(torch, gen, (bt, s, hh, p), 1.0, dtype)
+        dh = _randn(torch, gen, (bt, hh, n, p), 1.0, torch.float32)
+        outs = []
+        for use_cuda in (True, False):
+            xbc, d_t, a_t = (t.clone().requires_grad_(True)
+                             for t in (buf, dtt, A))
+            x = xbc[..., :hh * p].unflatten(-1, (hh, p))
+            B = xbc[..., hh * p:hh * p + g * n].unflatten(-1, (g, n))
+            C = xbc[..., hh * p + g * n:].unflatten(-1, (g, n))
+            before = k4.ssd_scan.launches
+            y, h = ops.ssd(x, d_t, a_t, B, C,
+                           kcfg=ops.KernelConfig(use_cuda))
+            grads = torch.autograd.grad((y, h), (xbc, d_t, a_t), (dy, dh))
+            torch.cuda.synchronize()
+            launched = k4.ssd_scan.launches - before
+            k4.ssd_scan.launches = before
+            if launched != int(use_cuda):
+                _fail(f"[k4-grad] {dt}: K4 launched {launched} times")
+            outs.append((y, h, grads))
+        (y, h, got), (want_y, want_h, want) = outs
+        err = _close(torch, f"[k4-grad] y {dt}", y, want_y, *K4_TOL[dt])
+        _close(torch, f"[k4-grad] state {dt}", h, want_h,
+               *K4_TOL["float32"])
+        errs = [_grad_close(torch, f"[k4-grad] d{nm} {dt}", a, b, dt)
+                for nm, a, b in zip(("xBC", "dt", "A"), got, want)]
+        max_err = max(max_err, err)
+        print(f"[k4-grad] {dt} (Bt, S, H, P, G, N) = {(bt, s, hh, p, g, n)}, "
+              f"x / B / C views of one buffer: y max |err| {err:.3e} (rtol/"
+              f"atol {K4_TOL[dt]}); d(xBC), d(dt), dA "
+              f"{', '.join(f'{e:.3e}' for e in errs)} against autograd "
+              "through the plain version")
+    return max_err
+
+
+def _lora_movement(torch, before, after):
+    d = [(a.double() - b.double()) for a, b in zip(after, before)]
+    return (float(sum(x.abs().sum() for x in d)),
+            float(sum(x.square().sum() for x in d)))
+
+
+def train_ref_run(torch, dev, microbatches: int) -> dict:
+    """[train-ref]'s port run: TRAIN_REF_STEPS steps of make_train_step on
+    the TRAIN_REF_ARCH smoke config with ``KernelConfig(use_cuda=True)`` on
+    ``dev`` (the CPU runs the plain versions). Returns TRAIN_REF's keys and
+    ``base_unchanged``."""
+    from repro_torch import convert
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.data import ShardedLMLoader
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.train.step import init_opt_state, make_train_step
+    from repro_torch.utils.partition import is_lora_path, partition_by_path
+
+    cfg = get_smoke_config(TRAIN_REF_ARCH)
+    tcfg = TrainConfig(**TRAIN_REF_RUNS[microbatches])
+    params = convert.model_params(
+        convert.random_model_params(cfg, TRAIN_REF_SEED), cfg, dev)
+
+    def split(p):
+        return (partition_by_path(p, is_lora_path)[0],
+                partition_by_path(p, lambda q: not is_lora_path(q))[0])
+
+    lora0, base0 = ([x.clone() for x in xs] for xs in split(params))
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, tcfg, KernelConfig(use_cuda=True))
+    loader = ShardedLMLoader(cfg.vocab_size, tcfg.global_batch, tcfg.seq_len,
+                             seed=TRAIN_REF_SEED)
+    rows = {"loss": [], "grad_norm": [], "lr": []}
+    for i in range(TRAIN_REF_STEPS):
+        params, opt, m = step(params, opt, loader.batch_at(i))
+        for k in rows:
+            rows[k].append(float(getattr(m, k)))
+    lora, base = split(params)
+    move_abs, move_sq = _lora_movement(torch, lora0, lora)
+    return {**{k: tuple(v) for k, v in rows.items()}, "move_abs": move_abs,
+            "move_sq": move_sq,
+            "base_unchanged": all(torch.equal(a, b) and a.grad is None
+                                  for a, b in zip(base, base0))}
+
+
+def _phase_train_ref(torch, dev, kernels):
+    """[train-ref]: train_ref_run on the card for every TRAIN_REF_RUNS entry
+    against the JAX constants TRAIN_REF."""
+    import numpy as np
+
+    k2, k3, k4 = kernels
+    for mb, want in TRAIN_REF.items():
+        _reset_counts(k2, k3, k4)
+        got = train_ref_run(torch, dev, mb)
+        torch.cuda.synchronize()
+        fwd, bwd, k3n = (k2.lora_matmul.launches,
+                         k2.lora_matmul.backward_launches,
+                         k3.flash_attention.launches)
+        if not (fwd and bwd and k3n):
+            _fail(f"[train-ref] microbatches {mb}: K2 forward {fwd}, K2 "
+                  f"backward {bwd}, K3 {k3n} launches; each must run")
+        if not got["base_unchanged"]:
+            _fail(f"[train-ref] microbatches {mb}: a base leaf changed or "
+                  "holds a .grad")
+        worst = {}
+        for key, rtol in TRAIN_REF_RTOL.items():
+            g = np.asarray(got[key], np.float64)
+            w = np.asarray(want[key], np.float64)
+            rel = float(np.max(np.abs(g - w) / np.abs(w)))
+            worst[key] = rel
+            if not rel <= rtol:
+                _fail(f"[train-ref] microbatches {mb}: {key} {got[key]} "
+                      f"against JAX's {want[key]} (relative {rel:.2e} > "
+                      f"{rtol})")
+        print(f"[train-ref] {TRAIN_REF_ARCH} smoke config, f32, "
+              f"{TRAIN_REF_RUNS[mb]}: {TRAIN_REF_STEPS} steps on the card, "
+              f"losses {', '.join(f'{x:.6f}' for x in got['loss'])}; "
+              "largest relative distance from JAX's: " + ", ".join(
+                  f"{k} {v:.2e} (bound {TRAIN_REF_RTOL[k]})"
+                  for k, v in worst.items())
+              + f"; base leaves bit-unchanged; K2 {fwd} forward + {bwd} "
+              f"backward launches, K3 {k3n}")
+
+
+def _grad_distance(torch, a, b) -> tuple:
+    """(L2 norm of a - b over every leaf, max |a - b|)."""
+    sq = sum(float((x.double() - y.double()).square().sum())
+             for x, y in zip(a, b))
+    mx = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    return sq ** 0.5, mx
+
+
+def _phase_train(torch, np, dev, kernels) -> dict:
+    """[train]: llama2-7b at full width and depth, bf16 (TRAIN_RUN), LoRA
+    fine-tuning through make_train_step with remat="full". Step 0's LoRA
+    gradients: finite and non-zero (the detach the autograd Functions
+    close), and within twice the bf16 plain run's distance from an f32
+    plain run; then TRAIN_WARMUP + TRAIN_STEPS steps timed, launch counts,
+    peak memory, one traced step; the base weights bit-unchanged. Returns
+    the timed steps' (K2 forward, K2 backward, K3) launches."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import ShardedLMLoader
+    from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import (batch_to, init_opt_state,
+                                        make_grad_step, make_train_step)
+    from repro_torch.utils.partition import (is_lora_path, partition_by_path,
+                                             select_paths)
+
+    k2, k3, k4 = kernels
+    arch, seq, batch = TRAIN_RUN
+    cfg = get_config(arch)
+    params, _, init_s = _draw_model(torch, tf, cfg, dev)
+    tcfg = TrainConfig(seq_len=seq, global_batch=batch, remat="full")
+    loader = ShardedLMLoader(cfg.vocab_size, batch, seq, seed=SEED)
+    t0 = time.perf_counter()
+    batches = [batch_to(loader.batch_at(i), dev)
+               for i in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+    data_s = time.perf_counter() - t0
+    base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
+    t0 = time.perf_counter()
+    base_host = [x.cpu() for x in base]       # 13.5 GB, off the card's peak
+    copy_s = time.perf_counter() - t0
+
+    # step 0's gradients: kernel run, plain run, f32 plain run
+    kern = make_grad_step(cfg, tcfg, KernelConfig(True))(params, batches[0])
+    torch.cuda.synchronize()
+    loss0, g_k = kern
+    paths = [p for p, _ in select_paths(params, is_lora_path)]
+    for path, g in zip(paths, g_k):
+        if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
+            _fail(f"[train] step 0: the gradient of {path} is not finite or "
+                  "is zero")
+    _, g_p = make_grad_step(cfg, tcfg, KernelConfig(False))(params,
+                                                            batches[0])
+    p32 = _widen(params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, g_32 = make_grad_step(cfg32, tcfg, KernelConfig(False))(p32,
+                                                               batches[0])
+    del p32
+    torch.cuda.empty_cache()
+    d_kp, mx_kp = _grad_distance(torch, g_k, g_p)
+    d_p32, mx_p32 = _grad_distance(torch, g_p, g_32)
+    d_k32, _ = _grad_distance(torch, g_k, g_32)
+    print(f"[train] step 0: loss {float(loss0):.4f}; all {len(g_k)} LoRA "
+          f"gradients finite and non-zero; |kernel - plain| {d_kp:.4e} (L2 "
+          f"over the leaves; max {mx_kp:.3e}) against twice the bf16 plain "
+          f"run's distance from the f32 plain run {2 * d_p32:.4e} (max "
+          f"{mx_p32:.3e}); the kernel run's own distance from f32 "
+          f"{d_k32:.4e}")
+    if not d_kp <= 2 * d_p32:
+        _fail(f"[train] step 0 LoRA gradients: kernel run {d_kp} from the "
+              f"plain run, bound {2 * d_p32}")
+    del g_k, g_p, g_32
+
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, tcfg, KernelConfig(True))
+    losses = []
+    for i in range(TRAIN_WARMUP):
+        params, opt, m = step(params, opt, batches[i])
+        losses.append(float(m.loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(k2, k3, k4)
+    times = []
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        losses.append(float(m.loss))      # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = (k2.lora_matmul.launches, k2.lora_matmul.backward_launches,
+                k3.flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.num_layers
+    per = (2 * 2 * n, 2 * n - 2, 2 * n)
+    if launches != tuple(TRAIN_STEPS * x for x in per):
+        _fail(f"[train] launches K2 forward / backward, K3 {launches}, "
+              f"expected {tuple(TRAIN_STEPS * x for x in per)}")
+    if not all(np.isfinite(losses)):
+        _fail(f"[train] non-finite loss: {losses}")
+    tokens = batch * seq
+    med = statistics.median(times)
+    print(f"[train] {cfg.name} ({n} layers, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.2f} G parameters, bf16, LoRA r "
+          f"{cfg.lora.rank} on {cfg.lora.targets}: "
+          f"{cfg.lora_param_count() / 1e6:.2f} M trained) drawn on the card "
+          f"in {init_s:.2f} s; {batch} x {seq} tokens a step, remat full, "
+          f"batches made in {data_s:.2f} s (before timing); "
+          f"{TRAIN_STEPS} timed steps after {TRAIN_WARMUP} warm-up: "
+          f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s, "
+          f"{tokens / med:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches a step K2 forward {launches[0] // TRAIN_STEPS}, K2 "
+          f"backward {launches[1] // TRAIN_STEPS} (layer 0's input carries "
+          f"no gradient), K3 {launches[2] // TRAIN_STEPS}; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    shares = _trace_call(
+        torch, "train step", lambda: step(params, opt, batches[-1]),
+        {k2.BACKWARD_DX: "K2 backward (dx)", k2.W_TRANSPOSE: "W^T copy",
+         k2.BACKWARD_RANK_R: "dA / dB products",
+         k3.BACKWARD: "K3 backward (plain)"})
+    base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
+    if any(not torch.equal(x, h.to(dev)) or x.grad is not None
+           or x.requires_grad for x, h in zip(base, base_host)):
+        _fail("[train] a base weight changed, holds a .grad or requires "
+              "grad")
+    print(f"[train] the base weights are bit-unchanged (torch.equal against "
+          f"a host copy taken before step 0 in {copy_s:.1f} s) and hold no "
+          ".grad")
+    return {"launches": launches, "step_s": med, "shares": shares}
+
+
+def _load_example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _phase_elastic(torch, dev, kernels, k1) -> tuple:
+    """[elastic]: examples/elastic_finetune_torch.py's full setting on the
+    card, against ELASTIC_REF's plan exactly; wall time, optimizer steps/s,
+    first and last loss, and each checkpoint round trip's bytes and save /
+    restore ms. Returns (K1, K2 forward, K2 backward, K3) launches."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.train import elastic
+
+    k2, k3, k4 = kernels
+    ex = _load_example("elastic_finetune_torch")
+    timed = {"save": [], "restore": []}
+
+    def timing(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    saved = (elastic.save, elastic.restore)
+    with tempfile.TemporaryDirectory() as d:
+        trainer = ex.build(False, dev, d)
+        # K2's shapes on this path ([k2-grad] holds them against the plain
+        # version): q and v at (batch x seq, d) -> heads x head_dim
+        cfg, tcfg = trainer.cfg, trainer.tcfg
+        for n in {cfg.num_heads * cfg.head_dim,
+                  cfg.num_kv_heads * cfg.head_dim}:
+            shape = (tcfg.global_batch * tcfg.seq_len, cfg.d_model, n,
+                     cfg.lora.rank)
+            if shape not in K2_GRAD_SHAPES:
+                _fail(f"[elastic] K2 runs at {shape}, not in K2_GRAD_SHAPES")
+        elastic.save = timing("save", elastic.save)
+        elastic.restore = timing("restore", elastic.restore)
+        try:
+            _reset_counts(k2, k3, k4)
+            k1.window_dp.launches = k1.window_dp_rows.launches = 0
+            k2.lora_matmul.backward_launches = 0
+            t0 = time.perf_counter()
+            rep = trainer.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            elastic.save, elastic.restore = saved
+    launches = (k1.window_dp.launches, k2.lora_matmul.launches,
+                k2.lora_matmul.backward_launches, k3.flash_attention.launches)
+    got = {"slots": tuple((s.t, s.n_od, s.n_spot, s.mu, s.steps)
+                          for s in rep.slots),
+           "total_steps": rep.total_steps, "utility": rep.utility,
+           "cost": rep.cost, "completion_time": rep.completion_time}
+    if got != ELASTIC_REF:
+        _fail(f"[elastic] plan {got} differs from JAX's {ELASTIC_REF}")
+    if not all(launches):
+        _fail(f"[elastic] K1, K2 forward, K2 backward, K3 launches "
+              f"{launches}: each must run")
+    if not all(np.isfinite(rep.losses)):
+        _fail("[elastic] non-finite loss")
+    pol = ex.POLICY
+    ckpts = [s.ckpt_bytes for s in rep.slots if s.ckpt_bytes]
+    print(f"[elastic] {cfg.name} ({cfg.param_count() / 1e6:.0f} M "
+          f"parameters, LoRA {cfg.lora_param_count() / 1e6:.2f} M) seq "
+          f"{tcfg.seq_len}, batch {tcfg.global_batch}, AHAP({pol.omega}, "
+          f"{pol.v}, {pol.sigma}) + ARIMA: plan, total_steps "
+          f"{rep.total_steps}, utility {rep.utility:.6f}, cost "
+          f"{rep.cost:.6f}, completion {rep.completion_time:.6f} equal "
+          f"JAX's; wall {wall:.2f} s, {rep.total_steps / wall:.1f} optimizer "
+          f"steps/s; loss {rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}; "
+          f"{len(ckpts)} checkpoint round trips of {ckpts} bytes, save "
+          f"{', '.join(f'{x:.1f}' for x in timed['save'])} ms, restore "
+          f"{', '.join(f'{x:.1f}' for x in timed['restore'])} ms; launches "
+          f"K1 {launches[0]} (the AHAP windows), K2 {launches[1]} forward + "
+          f"{launches[2]} backward, K3 {launches[3]}")
+    return launches
+
+
+def _phase_time_k2_backward(torch, gen, k2, lora_matmul_ref, launches):
+    """K2's backward dx at the train path's shape (dy (8192, 4096), W^T
+    (4096, 4096), B^T (4096, 16), A^T (16, 4096), bf16): K2 on those, the
+    plain version, ``torch.addmm(dy @ W^T, dy @ B^T, A^T)`` (W^T read in
+    place by cuBLAS) and the W^T copy, each by ``_graph_ms``. The bound is
+    the forward's reckoning at the same (M, K, N, r)."""
+    from repro_torch.configs import get_config
+
+    arch, seq, batch = TRAIN_RUN
+    cfg = get_config(arch)
+    m, k, n, r = (batch * seq, cfg.num_heads * cfg.head_dim, cfg.d_model,
+                  cfg.lora.rank)
+    dy, w, a, b = _lora_case(torch, gen, m, k, n, r, torch.bfloat16)
+    wt, bt, at = w.t().contiguous(), b.t().contiguous(), a.t().contiguous()
+    ms = _graph_ms(torch, lambda: k2._run(dy, wt, bt, at, 2.0))
+    plain = _graph_ms(torch, lambda: lora_matmul_ref(dy, wt, bt, at, 2.0))
+    lib = _graph_ms(torch, lambda: torch.addmm(dy @ w.t(), dy @ b.t(),
+                                               a.t(), alpha=2.0))
+    copy = _graph_ms(torch, lambda: w.t().contiguous())
+    n_bytes = 2 * (m * k + k * n + k * r + r * n + m * n)
+    n_ops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
+    bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"M": m, "K": k, "N": n, "r": r, "launches": launches, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "copy_ms": copy,
+            "copy_bound_ms": 2 * 2 * k * n / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms)}
+
+
 def _entry(name, source, replaces, launches, err, row):
     """One kernel of the ``kernels`` JSON line."""
     return {"name": name, "route": "cuda",
@@ -3094,6 +3723,15 @@ def main() -> int:
     print(f"[k1] python AHAP's shapes: B=1, w1 in {oracle_w1}, tn in "
           f"{oracle_tn}, random and tie tables: "
           f"{2 * len(oracle_w1) * len(oracle_tn)} cases bit-equal")
+    # the table entry at [elastic]'s shape: the example's AHAP window
+    # (w1 = omega + 1) over its job's instance counts (tn = n_max)
+    ex = _load_example("elastic_finetune_torch")
+    w1, tn = ex.POLICY.omega + 1, ex.setting(False)[2].n_max
+    for make, what in ((_tables, "random"), (_tie_tables, "ties")):
+        c, g = make(1, w1, tn, 11 * w1 + tn, torch, dev)
+        max_err = max(max_err, _compare_k1(
+            f"the elastic trainer's shape (1, {w1}, {tn}), {what}", c, g,
+            torch, window_dp, window_dp_ref))
     odd_tput = ThroughputConfig(alpha=0.7, beta=0.3)
     for b, w1, tn in ((1, 6, 16), (8, 6, 16), (13, 3, 5), (40, 1, 4),
                       (300, 6, 7)):
@@ -3334,18 +3972,42 @@ def main() -> int:
     launches["audio"] = _phase_audio(torch, np, dev, kernels)
     torch.cuda.empty_cache()
 
+    # ---- phase 6d: LoRA fine-tuning (K2 forward and backward, K3; K1 in
+    # the elastic trainer's AHAP decisions) ----
+    t_train = time.perf_counter()
+    k2_y_err, k2_dx_err = _phase_k2_grad(torch, gen, k2, lora_matmul_ref)
+    k2_err = max(k2_err, k2_y_err)
+    k3_err = max(k3_err, _phase_k3_grad(torch, gen, k3))
+    k4_err = max(k4_err, _phase_k4_grad(torch, gen, k4))
+    torch.cuda.empty_cache()
+    _phase_train_ref(torch, dev, kernels)
+    train = _phase_train(torch, np, dev, kernels)
+    launches["train"] = train["launches"]
+    torch.cuda.empty_cache()
+    elastic_launches = _phase_elastic(torch, dev, kernels, k1)
+    print(f"[launches] K1 table entry: elastic {elastic_launches[0]}; "
+          f"[train] K2 {launches['train'][0]} forward + "
+          f"{launches['train'][1]} backward, K3 {launches['train'][2]}; "
+          f"training phases {time.perf_counter() - t_train:.1f} s")
+
     # ---- phase 7: K2's, K3's and K4's time beside their bounds ----
     k2_shapes = _k2_shapes(launches)
     k2_rows = dict(zip(k2_shapes, _phase_time_k2(
         torch, gen, k2, lora_matmul_ref, k2_shapes.values())))
+    # [train]'s q / v forward (and remat recompute) and its K3 forward run
+    # at the serving prefill's shapes: its rows are the prefill's
+    if (TRAIN_RUN[0], TRAIN_RUN[1] * TRAIN_RUN[2]) != (
+            SERVE_ARCH, SERVE_PROMPT * SERVE_BATCH):
+        _fail(f"TRAIN_RUN {TRAIN_RUN} is not the serving prefill's shape")
+    k2_rows["train"] = dict(k2_rows["prefill"], launches=launches["train"][0])
     for phase, row in k2_rows.items():
         cold = (f"cold, rotating through {row['footprint'] / 1e6:.1f} MB of "
                 "inputs" if row["M"] <= 64 else "warm")
         print(f"[time] card {card}: K2 {phase} at (M, K, N, r) = "
               f"({row['M']}, {row['K']}, {row['N']}, {row['r']}) bf16 "
               f"({cold}): {row['ms'] * 1e3:.1f} us/launch "
-              f"({row['launches']} launches on the serving path; before "
-              f"the redesign {_before(phase)}); bound "
+              f"({row['launches']} launches on its serving or train path; "
+              f"before the redesign {_before(phase)}); bound "
               f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} = "
               f"{row['bound_ms'] / row['ms']:.1%} "
               f"of bound; plain {row['plain_ms'] * 1e3:.1f} us; "
@@ -3379,6 +4041,8 @@ def main() -> int:
     k3_rows["flash_attention/qwen2-vl"]["launches"] = launches["vlm"][2]
     k3_rows["flash_attention/hubert"]["launches"] = launches["audio"][1]
     k3_rows["flash_attention"]["launches"] = launches["serve"][2]
+    k3_rows["flash_attention/train"] = dict(k3_rows["flash_attention"],
+                                            launches=launches["train"][2])
     k3_rows["flash_attention/mixtral"]["launches"] = launches["serve-moe"][2]
     k3_rows["flash_attention/zamba2"]["launches"] = \
         launches["serve-hybrid"][2]
@@ -3438,12 +4102,30 @@ def main() -> int:
              + region_launches + oracle_rows + fleet_rows),
             ("table", main_launches - rows_launches + oracle_table
              + fleet_table))]
+    k2_back = _phase_time_k2_backward(torch, gen, k2, lora_matmul_ref,
+                                      launches["train"][1])
+    print(f"[time] card {card}: K2 backward dx at (M, K, N, r) = "
+          f"({k2_back['M']}, {k2_back['K']}, {k2_back['N']}, {k2_back['r']}) "
+          f"bf16 (K2 on dy, W^T, B^T, A^T): {k2_back['ms'] * 1e3:.1f} "
+          f"us/launch ({k2_back['launches']} launches on the train path); "
+          f"bound {k2_back['bound_ms'] * 1e3:.1f} us by "
+          f"{k2_back['bound_by']} = {k2_back['bound_ms'] / k2_back['ms']:.1%} "
+          f"of bound; plain {k2_back['plain_ms'] * 1e3:.1f} us; "
+          f"torch.addmm(dy @ W^T, dy @ B^T, A^T) "
+          f"{k2_back['library_ms'] * 1e3:.1f} us (kernel / addmm "
+          f"{k2_back['ms'] / k2_back['library_ms']:.2f}x); the W^T copy "
+          f"before it {k2_back['copy_ms'] * 1e3:.1f} us (bound "
+          f"{k2_back['copy_bound_ms'] * 1e3:.1f} us by bytes)")
     print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'
         _entry(f"lora_matmul/{phase}", "lora_matmul.cu",
                "src/repro/kernels/lora_matmul.py:26", row["launches"],
                k2_err, row) for phase, row in k2_rows.items()] + [
+        # K2's backward on the train path: dx by K2 on (dy, W^T, B^T, A^T)
+        _entry("lora_matmul/backward", "lora_matmul.cu",
+               "src/repro/kernels/lora_matmul.py:26", k2_back["launches"],
+               k2_dx_err, k2_back)] + [
         _entry(name, "flash_attention.cu",
                "src/repro/kernels/flash_attention.py:28", row["launches"],
                k3_err, row) for name, row in k3_rows.items()] + [

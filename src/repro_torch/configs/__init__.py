@@ -1,7 +1,9 @@
 """Config registry of the port: the model configs of every family (copies
-of the reference's files) and the scheduling configs."""
+of the reference's files), the training config and the scheduling
+configs."""
 from repro_torch.configs.base import (JobConfig, LoRAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig, ThroughputConfig)
+                                      MoEConfig, SSMConfig, ThroughputConfig,
+                                      TrainConfig)
 from repro_torch.configs import (command_r_plus_104b, granite_20b,
                                  hubert_xlarge, llama2_7b, mamba2_370m,
                                  mixtral_8x7b, mixtral_8x22b, olmo_1b,
@@ -41,4 +43,5 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 
 __all__ = ["JobConfig", "LoRAConfig", "ModelConfig", "MoEConfig", "SSMConfig",
-           "ThroughputConfig", "get_config", "get_smoke_config", "list_archs"]
+           "ThroughputConfig", "TrainConfig", "get_config", "get_smoke_config",
+           "list_archs"]

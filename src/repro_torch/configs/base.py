@@ -1,6 +1,7 @@
 """Configs: the model configuration (a copy of the reference's, with its
 LoRA, MoE and SSM parts; the MoE and SSM parts only because ModelConfig names
-them) and the scheduling configs (the job four-tuple, the throughput model).
+them), the training config and the scheduling configs (the job four-tuple,
+the throughput model).
 """
 from __future__ import annotations
 
@@ -232,9 +233,27 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Scheduling configs
+# Training / scheduling configs
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 1024
+    global_batch: int = 32
+    lr: float = 2e-4
+    weight_decay: float = 0.0
+    warmup_steps: int = 20
+    total_steps: int = 200
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    remat: str = "none"  # none | full | dots: any but none recomputes layers
+    # gradient accumulation: microbatches summed in order inside the train
+    # step; the elastic trainer holds the global batch fixed while the
+    # scheduler varies the instance count (paper Sec. III-B)
+    microbatches: int = 1
 
 
 @dataclass(frozen=True)

@@ -15,6 +15,9 @@ from repro_torch.core import fast_sim, selector
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models import attention
 from repro_torch.models import transformer as tf
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.utils.partition import (is_lora_path, partition_by_path,
+                                         select_paths)
 
 _POOL_DTYPES = {"kind": torch.int32, "omega": torch.int32, "v": torch.int32,
                 "sigma": torch.float32, "rho": torch.float32,
@@ -66,22 +69,11 @@ def _tree_map(fn, tree, keep_f32: bool = False):
     return fn(tree, keep_f32)
 
 
-def model_params(values: dict, cfg, device=None) -> dict:
-    """The reference's parameter values (``repro.models.init_model(...)[0]``
-    or :func:`random_model_params`, any array type numpy can read) -> the
-    port's model: base weights (the MoE experts included) in the model
-    dtype, adapters, the MoE router and the SSM's ``A_log``, ``D`` and
-    ``dt_bias`` in f32, layers a list of per-layer dicts (a list of
+def _per_layer(values: dict, cfg, leaf) -> dict:
+    """The reference's layout -> the port's: ``leaf(x, keep_f32)`` of every
+    leaf, the stacked layers cut into a list of per-layer dicts (a list of
     super-blocks, each a list of layers, for hybrid)."""
-    dev = resolve_device(device)
-    dt = tf.model_dtype(cfg)
-
-    def leaf(x, keep_f32):
-        return to_device(np.asarray(x, np.float32),
-                         torch.float32 if keep_f32 else dt, dev)
-
-    stacked = _tree_map(lambda x, _: np.asarray(x, np.float32),
-                        values["layers"])
+    stacked = _tree_map(lambda x, _: x, values["layers"])
 
     def layer(at):
         return _tree_map(lambda x, keep_f32: leaf(x[at], keep_f32), stacked)
@@ -94,6 +86,81 @@ def model_params(values: dict, cfg, device=None) -> dict:
     else:
         out["layers"] = [layer(i) for i in range(cfg.num_layers)]
     return out
+
+
+def _stacked(params: dict, cfg) -> dict:
+    """The port's layout -> the reference's, leaves as numpy (the
+    inverse of :func:`_per_layer`)."""
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        if isinstance(xs[0], list):
+            return stack(*(stack(*x) for x in xs))
+        return np.stack([np.asarray(x) for x in xs])
+
+    out = {k: _tree_map(lambda x, _: np.asarray(x), v)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = stack(*params["layers"])
+    return out
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy() if torch.is_tensor(t) else \
+        np.asarray(t, np.float32)
+
+
+def model_params(values: dict, cfg, device=None) -> dict:
+    """The reference's parameter values (``repro.models.init_model(...)[0]``
+    or :func:`random_model_params`, any array type numpy can read) -> the
+    port's model: base weights (the MoE experts included) in the model
+    dtype, adapters, the MoE router and the SSM's ``A_log``, ``D`` and
+    ``dt_bias`` in f32, layers a list of per-layer dicts (a list of
+    super-blocks, each a list of layers, for hybrid)."""
+    dev = resolve_device(device)
+    dt = tf.model_dtype(cfg)
+    values = _tree_map(lambda x, _: np.asarray(x, np.float32), values)
+    return _per_layer(values, cfg, lambda x, keep_f32: to_device(
+        x, torch.float32 if keep_f32 else dt, dev))
+
+
+def lora_leaves(leaves, values: dict, cfg, device=None) -> list:
+    """A list over the reference's LoRA leaves (its gradients, its AdamW
+    ``m`` or ``v``: layers stacked, in ``jax.tree_util``'s order over the
+    parameter tree ``values``) -> the port's per-layer f32 leaves, in the
+    order ``partition_by_path(params, is_lora_path)`` gives them."""
+    dev = resolve_device(device)
+    _, merge = partition_by_path(values, is_lora_path)
+    tree = merge([np.asarray(x, np.float32) for x in leaves])
+    port = _per_layer(tree, cfg, lambda x, _: x)
+    return [to_device(x, torch.float32, dev)
+            for _, x in select_paths(port, is_lora_path)]
+
+
+def lora_leaves_to_numpy(leaves, params: dict, cfg) -> list:
+    """The port's LoRA leaf list over ``params`` -> the reference's (f32
+    numpy, layers stacked, in ``jax.tree_util``'s order)."""
+    _, merge = partition_by_path(params, is_lora_path)
+    tree = _stacked(merge([_numpy(x) for x in leaves]), cfg)
+    return [x for _, x in select_paths(tree, is_lora_path)]
+
+
+def opt_state(state, values: dict, cfg, device=None) -> AdamWState:
+    """The reference's ``optim.adamw.AdamWState`` over the LoRA leaves of
+    the parameter tree ``values`` -> the port's."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        m=lora_leaves(state.m, values, cfg, dev),
+        v=lora_leaves(state.v, values, cfg, dev))
+
+
+def opt_state_to_numpy(state: AdamWState, params: dict, cfg) -> dict:
+    """A port ``AdamWState`` over ``params`` -> ``{step, m, v}`` as numpy;
+    the reference takes it back as ``AdamWState(**fields)``."""
+    return {"step": np.int32(int(state.step)),
+            "m": lora_leaves_to_numpy(state.m, params, cfg),
+            "v": lora_leaves_to_numpy(state.v, params, cfg)}
 
 
 def random_model_params(cfg, seed: int) -> dict:

@@ -155,6 +155,13 @@ def rand_deadline_pool(
     return pool
 
 
+def uniform_rand_deadline_pool(
+        qs: Sequence[float] = RAND_QS) -> List[PolicySpec]:
+    """The uniform-commitment control family: commit at fraction q
+    itself."""
+    return rand_deadline_pool(qs, qfn=uniform_commit_frac)
+
+
 def baseline_specs() -> List[PolicySpec]:
     return [PolicySpec(KIND_OD), PolicySpec(KIND_MSU), PolicySpec(KIND_UP)]
 

@@ -1,12 +1,15 @@
-"""Synthetic market regimes: the vectorized multi-regime market generator
-behind the scenario grid (:func:`market_regime_batch`) and its seeded
-fault-storm variant (:func:`market_regime_fault_batch`).
+"""Synthetic data: the vectorized multi-regime market generator behind the
+scenario grid (:func:`market_regime_batch`), its seeded fault-storm variant
+(:func:`market_regime_fault_batch`), and the token streams that LoRA
+fine-tuning trains on (:class:`MarkovLM`, :func:`token_stream`,
+:func:`lm_batches`).
 
-Port of the regime half of the JAX package's ``data/synthetic.py`` (numpy,
-copied). The token-stream half (``MarkovLM``, ``token_stream``,
-``lm_batches``) belongs to the training slice and is not ported yet.
+Port of the JAX package's ``data/synthetic.py`` (numpy, copied: the same
+seed gives the same bits).
 """
 from __future__ import annotations
+
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -142,3 +145,58 @@ def market_regime_fault_batch(
         if sched:
             prices[r], avail[r] = inject_market(prices[r], avail[r], sched)
     return prices, avail, schedules
+
+
+class MarkovLM:
+    """Order-1 Markov chain over the vocab with a few latent 'topics'."""
+
+    def __init__(self, vocab_size: int, seed: int = 0, n_topics: int = 4):
+        rng = np.random.default_rng(seed)
+        self.vocab = vocab_size
+        self.n_topics = n_topics
+        # sparse-ish transition structure: each token has ~16 likely successors
+        self.succ = rng.integers(0, vocab_size, size=(n_topics, vocab_size, 16))
+        self.topic_stick = 0.995
+
+    def sample(self, rng: np.random.Generator, length: int) -> np.ndarray:
+        out = np.empty(length, np.int64)
+        tok = int(rng.integers(self.vocab))
+        topic = int(rng.integers(self.n_topics))
+        for i in range(length):
+            out[i] = tok
+            if rng.random() > self.topic_stick:
+                topic = int(rng.integers(self.n_topics))
+            if rng.random() < 0.9:
+                tok = int(self.succ[topic, tok, rng.integers(16)])
+            else:
+                tok = int(rng.integers(self.vocab))
+        return out
+
+
+def token_stream(
+    vocab_size: int, seq_len: int, seed: int = 0, doc_len: int = 512
+) -> Iterator[np.ndarray]:
+    """Infinite stream of (seq_len,) int32 sequences (packed docs)."""
+    src = MarkovLM(vocab_size, seed)
+    rng = np.random.default_rng(seed + 1)
+    buf = np.empty(0, np.int64)
+    while True:
+        while len(buf) < seq_len:
+            buf = np.concatenate([buf, src.sample(rng, doc_len)])
+        yield buf[:seq_len].astype(np.int32)
+        buf = buf[seq_len:]
+
+
+def lm_batches(
+    vocab_size: int,
+    global_batch: int,
+    seq_len: int,
+    seed: int = 0,
+    num_batches: Optional[int] = None,
+) -> Iterator[dict]:
+    """Batches {'tokens': (B, S) int32} for next-token training."""
+    stream = token_stream(vocab_size, seq_len, seed)
+    i = 0
+    while num_batches is None or i < num_batches:
+        yield {"tokens": np.stack([next(stream) for _ in range(global_batch)])}
+        i += 1

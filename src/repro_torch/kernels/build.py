@@ -1,4 +1,5 @@
-"""Builds and loads the port's hand-written CUDA kernels.
+"""Builds and loads the port's hand-written CUDA kernels; the checks every
+wrapper shares.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C interface.
 It is compiled with ``nvcc`` for ``sm_90a`` at first use into
@@ -17,6 +18,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -107,6 +110,23 @@ def load(source: str, signatures: dict) -> ctypes.CDLL:
         err.restype = ctypes.c_char_p
         _libs[source] = lib
     return lib
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if autograd would record a call to a raw launcher.
+
+    A launcher fills its output through ctypes, so autograd sees no graph
+    through it: under grad mode an input that requires grad would get no
+    gradient, silently. The way in under grad is the kernel's
+    ``torch.autograd.Function`` (``Function.forward`` runs with grad mode
+    off, so this check passes there)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} was called on a tensor that requires grad with grad "
+            "mode on; its output would carry no gradient. Call it through "
+            "its autograd Function (kernels/ops.py does) or under "
+            "torch.no_grad()")
 
 
 def check(lib: ctypes.CDLL, source: str, rc: int, what: str) -> None:

@@ -15,7 +15,15 @@ plain version (:func:`repro_torch.kernels.ref.flash_attention_ref`) for CPU
 tensors. There is no fallback: on a CUDA tensor a missing compiler, a failed
 build or a failed launch raises. ``flash_attention.launches`` counts kernel
 launches, ``flash_attention.position_launches`` those of them with
-positions.
+positions. Under grad mode it refuses an input that requires grad (its
+output would carry no gradient).
+
+:class:`FlashAttention` is the way in under autograd (``ops.attention``
+takes it): its forward launches K3, its backward recomputes the plain
+version under autograd inside the profiler range :data:`BACKWARD` and
+returns its input gradients. The reference has no backward kernel (its
+models train through XLA), so this is the faithful port; a backward kernel
+waits for a trace on the card that shows this range as the bottleneck.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = "flash_attention.cu"
+BACKWARD = "K3 backward (plain)"
 HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -111,6 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (Sq,) and k_pos (Sk,) int32 the positions that mask (both or neither).
     CUDA tensors launch K3 on the current stream; CPU tensors run the plain
     version."""
+    _build.refuse_grad("flash_attention", q, k, v)
     positions = q_pos is not None or k_pos is not None
     if positions:
         _check_positions(q, k, q_pos, k_pos)
@@ -138,3 +148,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.position_launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 under autograd: :func:`flash_attention` forward; the backward is
+    autograd through :func:`repro_torch.kernels.ref.flash_attention_ref`
+    on the saved inputs (see the module's docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window, q_pos, k_pos):
+        ctx.mask = (causal, window)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_pos=q_pos, k_pos=k_pos)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        causal, window = ctx.mask
+        with torch.profiler.record_function(BACKWARD), torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip((q, k, v), ctx.needs_input_grad)]
+            o = flash_attention_ref(ins[0][None], ins[1][None], ins[2][None],
+                                    causal=causal, window=window,
+                                    q_pos=q_pos, k_pos=k_pos)[0]
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(o, wanted, do))
+        grads = [next(got) if t.requires_grad else None for t in ins]
+        return (*grads, None, None, None, None)

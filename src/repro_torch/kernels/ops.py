@@ -1,9 +1,11 @@
 """The model layer's entry points to the kernels (the reference's
 ``kernels/ops.py``).
 
-``KernelConfig(use_cuda=True)`` routes each call to its kernel wrapper,
-which launches the CUDA kernel on a CUDA tensor and runs the plain version
-on a CPU tensor. ``use_cuda=False`` runs the plain PyTorch version on any
+``KernelConfig(use_cuda=True)`` routes each call to its kernel's
+``torch.autograd.Function`` (K2 ``LoRAMatmul``, K3 ``FlashAttention``, K4
+``SSDScan``), whose forward launches the CUDA kernel on a CUDA tensor and
+runs the plain version on a CPU tensor, so a model trains through the
+kernels too. ``use_cuda=False`` runs the plain PyTorch version on any
 device: it exists so that one model can run both ways on the card for
 comparison, not as a fallback.
 """
@@ -15,9 +17,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention as _flash
-from repro_torch.kernels.lora_matmul import lora_matmul as _lora
-from repro_torch.kernels.ssd_scan import ssd_scan_grouped as _ssd
+from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.kernels.lora_matmul import LoRAMatmul
+from repro_torch.kernels.ssd_scan import SSDScan
 
 
 @dataclass(frozen=True)
@@ -28,6 +30,11 @@ class KernelConfig:
 DEFAULT = KernelConfig()
 SSD_COPIES = "ops.ssd repeat and flatten"
 KV_REPEAT = "ops.attention repeat kv"
+
+
+_lora = LoRAMatmul.apply
+_flash = FlashAttention.apply
+_ssd = SSDScan.apply
 
 
 def lora_matmul(x, w, a, b, scale: float,
@@ -66,8 +73,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     kt = k.transpose(1, 2).reshape(b * h, sk, d).contiguous()
     vt = v.transpose(1, 2).reshape(b * h, sk, d).contiguous()
     if kcfg.use_cuda:
-        o = _flash(qt, kt, vt, causal=causal, window=window, q_pos=q_pos,
-                   k_pos=k_pos)
+        o = _flash(qt, kt, vt, causal, window, q_pos, k_pos)
     else:
         o = ref.flash_attention_ref(
             qt.reshape(b, h, sq, d), kt.reshape(b, h, sk, d),

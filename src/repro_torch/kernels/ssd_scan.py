@@ -19,7 +19,15 @@ inside the kernel. CPU tensors run the plain version
 (:mod:`repro_torch.kernels.ref`, step by step). There is no fallback: on a
 CUDA tensor a missing compiler, a failed build, a layout the kernel does
 not take or a failed launch raises. ``ssd_scan.launches`` counts kernel
-launches of both entry points.
+launches of both entry points. Under grad mode both refuse an input that
+requires grad (their outputs would carry no gradient).
+
+:class:`SSDScan` is the way in under autograd (``ops.ssd`` takes it): its
+forward launches K4 on the model's layout, its backward recomputes the
+plain version (:func:`repro_torch.kernels.ref.ssd_scan_grouped_ref`) under
+autograd inside the profiler range :data:`BACKWARD` and returns its input
+gradients. The reference has no backward kernel (its models train through
+XLA); a backward kernel waits for SSM training on the card.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import ssd_scan_grouped_ref, ssd_scan_ref
 
 SOURCE = "ssd_scan.cu"
+BACKWARD = "K4 backward (plain)"
 HEAD_DIMS = (32, 64)
 MAX_STATE = 128
 ALIGN = 8           # x, B and C strides and offsets, in elements
@@ -167,6 +176,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Flattened layout. Returns (y (BH, S, P) in x's dtype, h_final
     (BH, N, P) f32). CUDA tensors launch K4 on the current stream; CPU
     tensors run the plain version."""
+    _build.refuse_grad("ssd_scan", x, dt, A, B, C)
     if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
         return ssd_scan_ref(x, dt, A, B, C)
     _check_flat(x, dt, A, B, C)
@@ -182,6 +192,7 @@ def ssd_scan_grouped(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The model's layout, read in place. Returns (y (Bt, S, H, P)
     contiguous in x's dtype, h_final (Bt, H, N, P) f32). CUDA tensors
     launch K4 on the current stream; CPU tensors run the plain version."""
+    _build.refuse_grad("ssd_scan_grouped", x, dt, A, B, C)
     if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
         return ssd_scan_grouped_ref(x, dt, A, B, C)
     _check_devices_and_dtypes("ssd_scan_grouped", (x, dt, A, B, C))
@@ -190,3 +201,26 @@ def ssd_scan_grouped(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """K4 under autograd, on the model's layout: :func:`ssd_scan_grouped`
+    forward; the backward is autograd through
+    :func:`repro_torch.kernels.ref.ssd_scan_grouped_ref` on the saved
+    inputs (see the module's docstring). Returns (y, h_final)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        return ssd_scan_grouped(x, dt, A, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD), torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved, ctx.needs_input_grad)]
+            y, h = ssd_scan_grouped_ref(*ins)
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad((y, h), wanted, (dy, dh)))
+        return tuple(next(got) if t.requires_grad else None for t in ins)

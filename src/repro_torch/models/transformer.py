@@ -21,7 +21,10 @@ as the reference does, through K3's position inputs. Encoder-only configs
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -129,27 +132,47 @@ def _decode_positions(cfg, batch, bsz: int, index: int, device):
 # Forward (full sequence)
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT):
+def _layer_fn(fn, remat: str):
+    """``fn`` as it is, or recomputed in the backward (the reference's
+    ``jax.checkpoint`` for any ``remat`` but "none"): its activations are
+    not kept, the layer runs again when its gradient is needed."""
+    if remat == "none":
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
+def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT,
+            remat: str = "none"):
     """-> (logits (B,S,V) f32, aux_loss f32 scalar: the MoE layers' load
-    balance losses summed over layers, in layer order; 0 without MoE)."""
+    balance losses summed over layers, in layer order; 0 without MoE).
+    ``remat`` other than "none" recomputes every layer in the backward."""
     h = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.arch_type in _ATTENTION_STACKS:
         positions, q_pos = _positions(cfg, batch, h.shape[1], h.device)
+        block = _layer_fn(functools.partial(
+            blk.transformer_block_full, cfg, positions=positions,
+            q_pos=q_pos, kcfg=kcfg), remat)
         for lp in params["layers"]:
-            h, a = blk.transformer_block_full(cfg, lp, h, positions, q_pos,
-                                              kcfg=kcfg)
+            h, a = block(lp, h)
             aux = aux + a
     elif cfg.arch_type == "ssm":
+        block = _layer_fn(functools.partial(blk.mamba_block_full, cfg,
+                                            kcfg=kcfg), remat)
         for lp in params["layers"]:
-            h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
+            h = block(lp, h)
     else:
         positions, q_pos = _positions(cfg, batch, h.shape[1], h.device)
+        mblock = _layer_fn(functools.partial(blk.mamba_block_full, cfg,
+                                             kcfg=kcfg), remat)
+        sblock = _layer_fn(functools.partial(
+            blk.transformer_block_full, cfg, positions=positions,
+            q_pos=q_pos, kcfg=kcfg), remat)
         for mp in params["layers"]:
             for lp in mp:
-                h = blk.mamba_block_full(cfg, lp, h, kcfg=kcfg)
-            h, a = blk.transformer_block_full(cfg, params["shared"], h,
-                                              positions, q_pos, kcfg=kcfg)
+                h = mblock(lp, h)
+            h, a = sblock(params["shared"], h)
             aux = aux + a
     h = apply_norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h), aux

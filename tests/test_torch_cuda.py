@@ -995,3 +995,101 @@ def test_apply_moe_cuda_matches_cpu_in_f32(cuda):
         assert bool((~k0).any()) == (factor < 1.0)
         torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(a1, a0, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Training: the autograd Functions and the train step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,r", [(256, 512, 384, 16), (333, 1024, 256, 64),
+                                     (1000, 512, 768, 8)])
+def test_k2_function_gradients_match_plain_autograd(cuda, m, k, n, r, dtype):
+    """K2's Function on the card (forward K2, dx by K2 on W^T, B^T, A^T, dA
+    and dB f32 rank-r products) against autograd through the plain version:
+    y one rounding apart at bf16, the gradients within the sums' order
+    (1e-4 relative, 1e-5 of the largest value in f32; a bf16 rounding)."""
+    from repro_torch.kernels.lora_matmul import LoRAMatmul
+
+    g = torch.Generator(device=cuda).manual_seed(m + r)
+    x, dy = (torch.randn(s, generator=g, device=cuda).to(dtype)
+             for s in ((m, k), (m, n)))
+    w, a, b = ((torch.randn(s, generator=g, device=cuda) * 0.05).to(dtype)
+               for s in ((k, n), (k, r), (r, n)))
+    fwd, bwd = lora_matmul.launches, lora_matmul.backward_launches
+    ins = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    y = LoRAMatmul.apply(ins[0], w, ins[1], ins[2], 2.0)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (lora_matmul.launches - fwd, lora_matmul.backward_launches - bwd) \
+        == (1, 1)
+    ref = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    yr = lora_matmul_ref(ref[0], w, ref[1], ref[2], 2.0)
+    want = torch.autograd.grad(yr, ref, dy)
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(y.detach().float(), yr.detach().float(),
+                               rtol=2.0 ** -7 if bf16 else 1e-4,
+                               atol=1e-3 if bf16 else 1e-4)
+    for gg, ww in zip(got, want):
+        scale = float(ww.float().abs().max())
+        torch.testing.assert_close(
+            gg.float(), ww.float(), rtol=2.0 ** -7 if bf16 else 1e-4,
+            atol=(2.0 ** -9 if bf16 else 1e-5) * scale)
+
+
+def test_raw_launchers_refuse_grad_on_the_card(cuda):
+    """The guard holds on CUDA tensors too: a direct launch under grad
+    raises before launching."""
+    x = torch.randn(64, 128, device=cuda, requires_grad=True)
+    w = torch.randn(128, 128, device=cuda)
+    a, b = torch.randn(128, 16, device=cuda), torch.randn(16, 128, device=cuda)
+    before = lora_matmul.launches
+    with pytest.raises(RuntimeError, match="lora_matmul"):
+        lora_matmul(x, w, a, b, 1.0)
+    q = torch.randn(2, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        flash_attention(q, q.detach(), q.detach())
+    xs = torch.randn(2, 64, 32, device=cuda, requires_grad=True)
+    bs = torch.randn(2, 64, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        ssd_scan(xs, torch.rand(2, 64, device=cuda), -torch.rand(2,
+                                                                 device=cuda),
+                 bs, bs)
+    assert lora_matmul.launches == before
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_cuda_matches_cpu_in_f32(cuda, remat):
+    """Three steps of make_train_step on the tiny-100m smoke config (f32):
+    the card (K2 forward and backward, K3 forward) against the CPU's plain
+    versions; losses and the LoRA leaves within f32 tolerance, the base
+    leaves bit-unchanged."""
+    from repro_torch import convert
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.data import ShardedLMLoader
+    from repro_torch.train.step import init_opt_state, make_train_step
+    from repro_torch.utils.partition import is_lora_path, partition_by_path
+
+    cfg = get_smoke_config("tiny-100m")
+    tcfg = TrainConfig(seq_len=64, global_batch=4, lr=2e-3, warmup_steps=2,
+                       total_steps=20, remat=remat)
+    vals = convert.random_model_params(cfg, 3)
+    loader = ShardedLMLoader(cfg.vocab_size, 4, 64, seed=1)
+    runs = []
+    for dev in ("cpu", cuda):
+        params = convert.model_params(vals, cfg, dev)
+        base0 = [x.clone() for x in partition_by_path(
+            params, lambda p: not is_lora_path(p))[0]]
+        opt, step = init_opt_state(params), make_train_step(cfg, tcfg)
+        losses = []
+        for i in range(3):
+            params, opt, m = step(params, opt, loader.batch_at(i))
+            losses.append(float(m.loss))
+        base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
+        assert all(torch.equal(x, y) for x, y in zip(base, base0))
+        runs.append((losses, [x.cpu() for x in partition_by_path(
+            params, is_lora_path)[0]]))
+    (l0, p0), (l1, p1) = runs
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    for x, y in zip(p1, p0):
+        torch.testing.assert_close(x, y, rtol=0, atol=2e-5)

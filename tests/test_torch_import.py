@@ -40,6 +40,30 @@ def test_import_loads_neither_jax_nor_reference():
     assert n_modules >= 15, proc.stdout
 
 
+def test_import_needs_neither_msgpack_nor_zstandard():
+    """The card's machine has neither msgpack nor zstandard: walking every
+    module (checkpoints included) succeeds with both blocked, and loads
+    neither JAX nor the reference."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['zstandard'] = None\n"
+        "import importlib, pkgutil\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or"
+        " k.startswith('jax.') or k == 'repro' or k.startswith('repro.')"
+        " or (k in ('msgpack', 'zstandard') and sys.modules[k] is not None))\n"
+        "assert 'repro_torch.checkpoint.ckpt' in names\n"
+        "assert 'repro_torch.train.elastic' in names\n"
+        "print(len(names), bad)\n"
+        "assert not bad, bad\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("module", ["repro_torch.chaos", "repro_torch.obs",
                                     "repro_torch.data",
                                     "repro_torch.scenarios"])
