@@ -56,6 +56,14 @@ card:
   against the JAX reference's admission, grants and utilities, the
   plain-DP run bit for bit (K1 on every slot's real rows) and the port's
   ``MultiJobScheduler`` (each python AHAP window on K1's table entry);
+- the seed path (``[seed]``: every lane runs every rule, K1 over all 1000
+  jobs x 112 lanes a slot) bit-equal to the partitioned path, and the
+  sharded selection engines (``[shard]``: ranks spawned from this script
+  on the one card, an NCCL world of one and gloo worlds of 2, 3 and 4 on
+  the pool meshes (n,), (2, 2) and (1, 4), each running the Fig. 9
+  setting, ``[region]``'s p_od run and ``[fleet]``'s admission through
+  the sharded entry points), every rank bit-equal to the unsharded runs
+  on the card and the JAX constants held;
 - MoE serving: the mixtral-8x7b smoke config token for token against the
   JAX engine (``[serve-moe-ref]``, prompts past its window), then
   mixtral-8x7b at its published width, 16 of its 32 layers, bf16
@@ -252,6 +260,23 @@ FLEET_NOISE = ("fixed_uniform", 0.1)
 # bench's fleet_sim_utility_match tolerance
 FLEET_USUM_RTOL = 1e-5
 FLEET_ORACLE_ATOL = 1e-2
+
+# ---- [seed] and [shard]: the seed path and the sharded selection engines --
+# [seed]: fast_sim.simulate_pool_jobs_monolithic (every lane runs every rule,
+# K1 over all 1000 jobs x 112 lanes = 112,000 rows a slot) at the first
+# Fig. 9 setting, bit-equal to the partitioned simulate_pool_jobs.
+# [shard]: worlds of ranks spawned from this script after the build, every
+# rank on the one card and loading the built libraries: NCCL for a world of
+# one, gloo for ranks that share the card (NCCL refuses two ranks on one
+# GPU). Each world runs its pool meshes: the Fig. 9 setting (1000 jobs x
+# paper_pool()), [region]'s p_od run (1000 jobs x 36 lanes x 3 regions,
+# chunks of REGION_CHUNK) and [fleet]'s sampled admission (1000 jobs), each
+# with collect=True, bit-equal on every rank to the unsharded run on the
+# card, with JAX_REF, JAX_REGION and JAX_FLEET held. The fleet shards
+# "jobs" only, so it skips the (1, n) mesh, where it would fall through.
+SHARD_WORLDS = (("nccl", 1, ((1,),)), ("gloo", 2, ((2,),)),
+                ("gloo", 3, ((3,),)), ("gloo", 4, ((4,), (2, 2), (1, 4))))
+SHARD_TIMEOUT = 300          # seconds, a world's ranks and its process group
 
 # ---- dense-model serving ----
 # [serve-ref]: the llama2-7b smoke config (2 layers, d 256, f32) with
@@ -3621,6 +3646,354 @@ def _phase_time_k2_backward(torch, gen, k2, lora_matmul_ref, launches):
             "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms)}
 
 
+def _phase_seed(torch, fast_sim, window_opt, k1, pool, inp):
+    """[seed]: the seed path (every lane runs all six rules, the window
+    solve included, and selects by kind) at one Fig. 9 setting on the card:
+    10 forecast-entry K1 launches, each over all N_JOBS x P rows, and every
+    leaf bit-equal to the partitioned simulate_pool_jobs. Returns the
+    launches."""
+    from repro_torch.workload import PAPER_TPUT
+
+    jobs, prices, avail, preds = inp
+    n_rows = N_JOBS * len(pool["kind"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = fast_sim.simulate_pool_jobs(pool, jobs, PAPER_TPUT, prices, avail,
+                                       preds)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    rows = []
+    solve = window_opt._solve_rows
+
+    def record(job, tput, z0, *rest):
+        rows.append(int(z0.shape[0]))
+        return solve(job, tput, z0, *rest)
+
+    before = _k1_counts(k1)
+    window_opt._solve_rows = record
+    try:
+        t0 = time.perf_counter()
+        mono = fast_sim.simulate_pool_jobs_monolithic(
+            pool, jobs, PAPER_TPUT, prices, avail, preds)
+        torch.cuda.synchronize()
+        mono_s = time.perf_counter() - t0
+    finally:
+        window_opt._solve_rows = solve
+    n = tuple(a - b for a, b in zip(_k1_counts(k1), before))
+    if n != (10, 10) or rows != [n_rows] * 10:
+        _fail(f"[seed] K1 launched {n[0]} times, {n[1]} of them the forecast "
+              f"entry, over {rows} rows; expected 10 forecast-entry launches "
+              f"over {n_rows} rows each")
+    if set(mono) != set(part):
+        _fail(f"[seed] leaves {sorted(mono)} != {sorted(part)}")
+    for key in part:
+        if not torch.equal(mono[key], part[key]):
+            _fail(f"[seed] {key} of the seed path differs from the "
+                  "partitioned path; they must be bit-equal")
+    print(f"[seed] {SETTINGS[0][0]} {SETTINGS[0][1]}: simulate_pool_jobs_"
+          f"monolithic over {N_JOBS} jobs x {len(pool['kind'])} lanes, K1 at "
+          f"B = {n_rows:,} a slot (10 launches), {mono_s:.4f} s; partitioned "
+          f"simulate_pool_jobs (K1 at B = {N_JOBS * 105:,}) {part_s:.4f} s; "
+          f"every leaf bit-equal")
+    return n[1]
+
+
+def _shard_inputs(np, engine, fig9_inputs):
+    """[shard]'s inputs as one dict of arrays: the first Fig. 9 setting's,
+    [region]'s workload through prep (numpy), [fleet]'s sampled
+    admission."""
+    from repro_torch import workload
+    from repro_torch.core import fast_sim
+
+    arrays = {}
+    jobs, prices, avail, preds = fig9_inputs
+    market, rjobs, t0s, seeds = _region_workload(np)
+    rmkt = engine.prepare_noisy_inputs_regions(
+        market, t0s, REGION_SLOTS, *REGION_NOISE, seeds)
+    _, arrs124 = _pool124()
+    _, fprices, favail, fpred, arrivals, _, rows, idx = _fleet_workload(
+        np, engine, arrs124)
+    fjobs = fast_sim.stack_jobs([workload.PAPER_JOB] * FLEET_JOBS)
+    for prefix, js in (("jobs", jobs), ("rjobs", rjobs), ("fjobs", fjobs)):
+        arrays.update({f"{prefix}.{f}": np.asarray(getattr(js, f))
+                       for f in js._fields})
+    arrays.update({f"frows.{k}": np.asarray(v) for k, v in rows.items()})
+    arrays.update(prices=prices, avail=avail, preds=preds,
+                  rprices=rmkt[0], ravail=rmkt[1], rpreds=rmkt[2],
+                  delta_mig=np.asarray(market.delta_mig), fprices=fprices,
+                  favail=favail, fpred=fpred, farrivals=arrivals, fidx=idx)
+    return arrays
+
+
+def _digests(arrays: dict) -> dict:
+    """{name: dtype, shape and SHA-256 of the bytes} of host arrays or
+    tensors: equal digests are equal bits."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for k, v in arrays.items():
+        a = v.detach().cpu().numpy() if hasattr(v, "detach") else \
+            np.asarray(v)
+        out[k] = (f"{a.dtype}{list(a.shape)}:" + hashlib.sha256(
+            np.ascontiguousarray(a).tobytes()).hexdigest())
+    return out
+
+
+def _selection_arrays(res) -> dict:
+    """Everything a collect=True, return_utilities=True SelectionResult
+    holds, flat."""
+    out = {f"sim_out.{k}": v for k, v in res.sim_out.items()}
+    out.update(utilities=res.utilities, max_weight=res.max_weight,
+               regret=res.regret, mean_utility=res.mean_utility,
+               entropy=res.entropy, top_policy=res.top_policy,
+               weights=res.state.weights)
+    return out
+
+
+def _shard_cases(np, inp):
+    """[shard]'s three cases on ``inp`` (the arrays of _shard_inputs): name
+    -> (run(mesh) -> the arrays to hold bit for bit, K1 forecast-entry
+    launches a rank makes, the meshes it skips). ``mesh=None`` is the
+    unsharded run. Each run also holds its JAX constants."""
+    from repro_torch.core import engine, fleet
+    from repro_torch.core.fast_sim import JobArrays
+    from repro_torch.core.policy_pool import (paper_pool, region_pool,
+                                              specs_to_arrays)
+    from repro_torch.obs import ledger
+    from repro_torch.workload import PAPER_TPUT
+
+    group = lambda p: {k[len(p) + 1:]: inp[k] for k in inp
+                       if k.startswith(p + ".")}
+    pool, rpool = specs_to_arrays(paper_pool()), specs_to_arrays(
+        region_pool())
+    jobs, rjobs, fjobs = (JobArrays(**group(p))
+                          for p in ("jobs", "rjobs", "fjobs"))
+    rows = group("frows")
+    common = dict(return_utilities=True, collect=True)
+
+    def fig9(mesh):
+        res = engine.simulate_and_select(
+            pool, jobs, PAPER_TPUT, inp["prices"], inp["avail"],
+            inp["preds"], sharded=mesh is not None, mesh=mesh, **common)
+        _check_result("[shard] Fig. 9", res, JAX_REF[SETTINGS[0]],
+                      len(pool["kind"]))
+        return _selection_arrays(res)
+
+    def region(mesh):
+        res = engine.simulate_and_select(
+            rpool, rjobs, PAPER_TPUT, inp["rprices"], inp["ravail"],
+            inp["rpreds"], delta_mig=int(inp["delta_mig"]),
+            p_od=REGION_P_OD, job_chunk=REGION_CHUNK,
+            sharded=mesh is not None, mesh=mesh, **common)
+        recon = ledger.migration_reconciliation(res.sim_out)
+        best, t_half, ratio, migs = JAX_REGION["p_od"]
+        got = (res.best_policy(), res.iters_to_half(),
+               recon["total_migrations"])
+        if got != (best, t_half, migs):
+            _fail(f"[shard] region p_od: (best, iters_to_half, migrations) "
+                  f"{got} != JAX {(best, t_half, migs)}")
+        if abs(res.regret_ratio() - ratio) > REGRET_RTOL * ratio:
+            _fail(f"[shard] region p_od: regret_ratio {res.regret_ratio()} "
+                  f"vs JAX {ratio}")
+        return _selection_arrays(res)
+
+    def fleet_run(mesh):
+        args = (rows, fjobs, inp["farrivals"], PAPER_TPUT, inp["fprices"],
+                inp["favail"], inp["fpred"])
+        out = (fleet.simulate_fleet(*args, collect=True) if mesh is None
+               else fleet.simulate_fleet_sharded(*args, mesh=mesh,
+                                                 collect=True))
+        _check_fleet("[shard] sampled admission",
+                     _fleet_summary(np, inp["fidx"], out, 124),
+                     JAX_FLEET["sampled"])
+        return out
+
+    return {"fig9": (fig9, 10, ()),
+            "region": (region, REGION_LAUNCHES, ()),
+            "fleet": (fleet_run, FLEET_SLOTS, ((1, 4),))}
+
+
+def _shard_worker(rank: int, world: int, backend: str, shapes,
+                  work: Path) -> int:
+    """One rank of a [shard] world: start the process group, load the built
+    kernels, run every case on each of the world's meshes, and write each
+    run's digests, wall and K1 launches to ``work``."""
+    import datetime
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import window_dp as k1
+    from repro_torch.launch.mesh import make_pool_mesh
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        backend, init_method=f"file://{work / f'rendezvous_{world}'}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        k1.load_library()
+        with np.load(work / "inputs.npz") as f:
+            inp = {k: f[k] for k in f.files}
+        cases = _shard_cases(np, inp)
+        report = {}
+        for i, shape in enumerate(shapes):
+            mesh = make_pool_mesh(shape)
+            if i == 0:          # first-call costs stay out of the walls
+                cases["fig9"][0](mesh)
+            for name, (run, _, skip) in cases.items():
+                if shape in skip:
+                    continue
+                before = _k1_counts(k1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(mesh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = [a - b for a, b in zip(_k1_counts(k1), before)]
+                report[f"{name} {shape}"] = {
+                    "digests": _digests(out), "wall": wall, "launches": n}
+            if i == 0:          # the Fig. 9 run once more, traced
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    cases["fig9"][0](mesh)
+                    torch.cuda.synchronize()
+                    pwall = time.perf_counter() - t0
+                events = _device_events(prof)
+                report["trace"] = {
+                    "shape": list(shape), "wall": pwall,
+                    "busy_ms": sum(e.self_device_time_total
+                                   for e in events) / 1e3,
+                    "k1_ms": sum(e.self_device_time_total for e in events
+                                 if "window_dp" in e.key) / 1e3,
+                    "events": sum(e.count for e in events)}
+        (work / f"world{world}_rank{rank}.json").write_text(
+            json.dumps(report))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _phase_shard(torch, np, engine, k1, fig9_inputs):
+    """[shard]: the sharded selection engines on one card. The unsharded
+    runs here on the card give the digests; then each world of
+    SHARD_WORLDS is spawned from this script, its ranks sharing the card,
+    and every rank's every run must match them bit for bit, with its JAX
+    constants held and its K1 launches as expected (each rank launches
+    the forecast entry once a slot on its own rows). Prints each world's
+    walls and launches; returns all ranks' forecast-entry launches."""
+    import shutil
+
+    work = ROOT / "build" / "shard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_start = time.perf_counter()
+    inp = _shard_inputs(np, engine, fig9_inputs)
+    np.savez(work / "inputs.npz", **inp)
+    cases = _shard_cases(np, inp)
+    cases["fig9"][0](None)                      # warm-up
+    want, base_wall = {}, {}
+    for name, (run, _, _) in cases.items():
+        before = _k1_counts(k1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want[name] = _digests(run(None))
+        torch.cuda.synchronize()
+        base_wall[name] = time.perf_counter() - t0
+        n = _k1_counts(k1)[1] - before[1]
+        if n != cases[name][1]:
+            _fail(f"[shard] unsharded {name}: {n} forecast-entry K1 "
+                  f"launches, expected {cases[name][1]}")
+    print(f"[shard] unsharded on the card (one process): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in base_wall.items())
+          + f"; inputs and refs {time.perf_counter() - t_start:.1f} s")
+
+    launches = 0
+    for backend, world, shapes in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        logs = [open(work / f"world{world}_rank{r}.log", "w")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
+             str(r), str(world), backend, json.dumps(shapes), str(work)],
+            stdout=log, stderr=subprocess.STDOUT) for r, log in
+            enumerate(logs)]
+        try:
+            deadline = time.perf_counter() + SHARD_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+        world_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                tail = (work / f"world{world}_rank{r}.log").read_text()[-3000:]
+                _fail(f"[shard] {backend} world {world} rank {r} exited "
+                      f"{p.returncode}:\n{tail}")
+        reports = [json.loads((work / f"world{world}_rank{r}.json")
+                              .read_text()) for r in range(world)]
+        for shape in shapes:
+            parts = []
+            for name, (_, expect, skip) in cases.items():
+                if shape in skip:
+                    continue
+                key = f"{name} {tuple(shape)}"
+                for r, rep in enumerate(reports):
+                    got = rep[key]
+                    if got["digests"] != want[name]:
+                        bad = sorted(k for k in want[name] if
+                                     got["digests"].get(k) != want[name][k])
+                        _fail(f"[shard] {backend} world {world} mesh {shape} "
+                              f"rank {r}: {name} differs from the unsharded "
+                              f"run in {bad}; it must be bit-equal")
+                    if got["launches"] != [expect, expect]:
+                        _fail(f"[shard] {backend} world {world} mesh {shape} "
+                              f"rank {r}: {name} K1 launches "
+                              f"{got['launches']}, expected {expect} "
+                              "forecast-entry launches")
+                    launches += got["launches"][1]
+                walls = [rep[key]["wall"] for rep in reports]
+                parts.append(f"{name} {max(walls):.3f} s (ranks "
+                             + " / ".join(f"{w:.3f}" for w in walls)
+                             + f"; {expect} K1 launches a rank)")
+            print(f"[shard] {backend} world {world} mesh {tuple(shape)}: "
+                  + "; ".join(parts) + "; bit-equal to the unsharded runs "
+                  "on every rank, JAX constants held")
+        traces = [rep["trace"] for rep in reports]
+        wall = max(t["wall"] for t in traces)
+        busy = sum(t["busy_ms"] for t in traces)
+        if busy == 0:
+            print(f"[trace] shard {backend} world {world}: device time not "
+                  "measured (the profiler recorded no device events)")
+        else:
+            print(f"[trace] shard {backend} world {world} mesh "
+                  f"{tuple(traces[0]['shape'])}, the Fig. 9 run: profiled "
+                  f"wall {wall:.4f} s (slowest rank); device busy summed "
+                  f"over the ranks {busy:.2f} ms = {busy / (wall * 1e3):.1%}"
+                  f" of the wall (idle {1 - busy / (wall * 1e3):.1%}); "
+                  f"K1 {sum(t['k1_ms'] for t in traces):.3f} ms; "
+                  f"{sum(t['events'] for t in traces)} device events")
+        print(f"[shard] {backend} world {world}: {world_s:.1f} s with the "
+              "ranks' start-up")
+    print(f"[shard] phase {time.perf_counter() - t_start:.1f} s, "
+          f"{launches} forecast-entry K1 launches over the worlds' ranks")
+    return launches
+
+
 def _entry(name, source, replaces, launches, err, row):
     """One kernel of the ``kernels`` JSON line."""
     return {"name": name, "route": "cuda",
@@ -3634,6 +4007,11 @@ def _entry(name, source, replaces, launches, err, row):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--shard-rank"]:
+        rank, world, backend, shapes, work = sys.argv[2:7]
+        return _shard_worker(int(rank), int(world), backend,
+                             [tuple(s) for s in json.loads(shapes)],
+                             Path(work))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -3934,6 +4312,14 @@ def main() -> int:
               f"{row['bound_ms'] * 1e6:.3f} ns by {row['bound_by']}; plain "
               f"{row['plain_ms'] * 1e3:.1f} us{extra}")
 
+    # ---- phase 4e: the seed path and the sharded selection engines ----
+    seed_launches = _phase_seed(torch, fast_sim, window_opt, k1, pool,
+                                inputs[SETTINGS[0]])
+    shard_launches = _phase_shard(torch, np, engine, k1,
+                                  inputs[SETTINGS[0]])
+    print(f"[launches] K1 forecast entry: seed {seed_launches}, shard "
+          f"{shard_launches} (summed over the worlds' ranks)")
+
     # ---- phase 5: dense-model serving (K2, K3) ----
     kernels = (k2, k3, k4)
     gen = torch.Generator(device=dev)
@@ -4099,7 +4485,8 @@ def main() -> int:
                k1_rows[entry])
         for entry, own in (
             ("forecast", rows_launches + chaos_launches + grid_launches
-             + region_launches + oracle_rows + fleet_rows),
+             + region_launches + oracle_rows + fleet_rows + seed_launches
+             + shard_launches),
             ("table", main_launches - rows_launches + oracle_table
              + fleet_table))]
     k2_back = _phase_time_k2_backward(torch, gen, k2, lora_matmul_ref,

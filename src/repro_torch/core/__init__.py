@@ -5,13 +5,22 @@ simulators, offline optimum) the vectorized paths are held to. Re-exports
 the names the reference's ``repro.core`` does but one: its ``throughput``
 function, whose name there hides the ``core.throughput`` module, stays
 ``repro_torch.core.throughput.throughput`` here, so that the module keeps
-its name."""
+its name. Also re-exports the pool simulator's sharded and seed-path entry
+points and the fleet engine's."""
 from repro_torch.core.engine import (
     SelectionResult,
     prepare_noisy_inputs,
     select_from_utilities,
     simulate_and_select,
 )
+from repro_torch.core.fast_sim import (
+    simulate_one,
+    simulate_pool_jobs_monolithic,
+    simulate_pool_jobs_sharded,
+    simulate_pool_monolithic,
+    simulate_pool_regions_sharded,
+)
+from repro_torch.core.fleet import simulate_fleet, simulate_fleet_sharded
 from repro_torch.core.job import (
     expected_progress,
     normalization_bounds,

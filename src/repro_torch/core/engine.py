@@ -7,8 +7,10 @@ the JAX package's ``core/engine.py``.
             vectorized forecast stack: host numpy
             (predictor.noisy_matrix_batch), or drawn on the device
             (``prep_backend="torch"``, predictor.noisy_matrix_batch_torch)
-  simulate  fast_sim.simulate_pool_jobs, or fast_sim.simulate_pool_regions
-            in regional mode (one K1 launch per market slot on the card)
+  simulate  fast_sim.simulate_pool_jobs_sharded, or
+            fast_sim.simulate_pool_regions_sharded in regional mode (one
+            K1 launch per market slot on the card), over the pool mesh
+            when a process group is running, else the unsharded scans
   select    job.normalize_utility_batch + selector.run_eg_scan
 
 The job axis streams in chunks (``job_chunk``); the EG state threads through
@@ -25,6 +27,7 @@ of the program without them.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -40,6 +43,7 @@ from repro_torch.core.predictor import (noisy_matrix_batch,
                                        regional_noisy_matrix,
                                        regional_noisy_matrix_torch)
 from repro_torch.device import resolve_device, to_device
+from repro_torch.launch.mesh import default_pool_mesh, rank_device
 
 PREP_BACKENDS = ("numpy", "torch")
 
@@ -240,6 +244,8 @@ def simulate_and_select(
     *,
     backend: Optional[str] = None,
     device=None,
+    sharded: bool = True,
+    mesh=None,
     eta: Optional[float] = None,
     state: Optional[selector.EGState] = None,
     job_chunk: int = 0,
@@ -264,6 +270,15 @@ def simulate_and_select(
     ``backend`` picks the window DP (None: "cuda" on the card, "torch" on
     the CPU).
 
+    ``sharded`` lays the (jobs x lanes) grid over ``mesh`` (a
+    ``launch.mesh.make_pool_mesh`` mesh; None: the 1-D pool mesh over the
+    default process group when one is initialized, the unsharded path
+    otherwise). Every rank of the mesh calls this with the same inputs,
+    simulates its shard on its own device (``launch.mesh.rank_device``,
+    which then replaces ``device``) and runs the EG loop replicated over
+    the whole utility matrix; the result equals the unsharded one bit for
+    bit.
+
     ``collect=True`` adds the flight recorder: ``sim_out`` holds the whole
     simulator output with its (K, M, T) ``tel_*`` series (chunks
     concatenated along the job axis, kept on the device and copied to the
@@ -287,7 +302,9 @@ def simulate_and_select(
     card, copied from pinned memory on a side stream whose event the
     compute stream waits on. ``prep=None`` slices the passed arrays: the
     same values in the same order, so the results are unchanged."""
-    dev = resolve_device(device)
+    mesh = (default_pool_mesh(device) if mesh is None else mesh) \
+        if sharded else None
+    dev = resolve_device(device) if mesh is None else rank_device(mesh)
     n_jobs = int(np.shape(jobs.workload)[0])
     n_pol = int(np.shape(pool_arrays["kind"])[0])
     if state is None:
@@ -307,13 +324,21 @@ def simulate_and_select(
             arrays = (prices[lo:hi], avail[lo:hi], preds[lo:hi])
         return _Staged(arrays, dev, side)
 
+    if mesh is None:
+        sim_jobs, sim_regions = (fast_sim.simulate_pool_jobs,
+                                 fast_sim.simulate_pool_regions)
+    else:  # the sharded twins (which fall through on one rank)
+        sim_jobs = functools.partial(fast_sim.simulate_pool_jobs_sharded,
+                                     mesh=mesh)
+        sim_regions = functools.partial(
+            fast_sim.simulate_pool_regions_sharded, mesh=mesh)
     if delta_mig is not None:
-        simulate = lambda jb, p, a, m: fast_sim.simulate_pool_regions(
+        simulate = lambda jb, p, a, m: sim_regions(
             pool_arrays, jb, tput, p, a, m, backend=backend, device=dev,
             delta_mig=delta_mig, collect=collect, fallback=fallback,
             p_od=p_od)
     else:
-        simulate = lambda jb, p, a, m: fast_sim.simulate_pool_jobs(
+        simulate = lambda jb, p, a, m: sim_jobs(
             pool_arrays, jb, tput, p, a, m, backend=backend, device=dev,
             collect=collect, fallback=fallback)
 

@@ -14,6 +14,11 @@ scattered back to pool order.
 
 :func:`simulate_pool_regions` layers per-slot region selection over the
 same two scans (an R-region market, one current region per lane).
+:func:`simulate_pool_jobs_sharded` / :func:`simulate_pool_regions_sharded`
+lay the (jobs x lanes) grid over the pool mesh (``launch.mesh``), one rank
+a shard. The seed path (:func:`simulate_pool_monolithic`,
+:func:`simulate_one`) runs every rule on every lane: the baseline and the
+partitioned path's equivalence oracle.
 
 Two flags ride every pool entry point, as in the reference: ``collect``
 adds the per-slot ``tel_*`` flight-recorder series (repro_torch.obs), and
@@ -670,6 +675,65 @@ def _scatter_merge(parts, index_arrays, device):
     }
 
 
+# lane parameters of each kind partition, in _partition_lane_args' order:
+# (omega, v, sigma, rho[, rsel, rmargin]) and (kind, sigma, cfrac[, rsel,
+# rmargin])
+_AHAP_LANE_DTYPES = (_I32, _I32, _F32, _F32, _I32, _F32)
+_CHEAP_LANE_DTYPES = (_I32, _F32, _F32, _I32, _F32)
+
+
+def _market_to(jobs: JobArrays, prices, avail, pred, p_od, dev):
+    """The entry points' device boundary: jobs and market on ``dev``, avail
+    cast to int32, ``p_od`` (scalar or (R,) multipliers, or None) as an
+    (R,) f32 tensor."""
+    prices = to_device(prices, _F32, dev)
+    if p_od is not None:
+        p_od = to_device(np.asarray(_host(p_od), np.float32).reshape(-1),
+                         _F32, dev).expand(prices.shape[1])
+    return (jobs_to(jobs, dev), prices, to_device(avail, _I32, dev),
+            to_device(pred, _F32, dev), p_od)
+
+
+def _run_part(ahap: bool, lane_args, jobs: JobArrays, tput, prices, avail,
+              pred, backend, dev, delta_mig, collect, fallback, p_od):
+    """One kind partition's lanes (host lane parameters) over ``jobs`` and
+    their market (tensors on ``dev``): the AHAP scan or the cheap scan,
+    regional when ``delta_mig`` is not None."""
+    dts = _AHAP_LANE_DTYPES if ahap else _CHEAP_LANE_DTYPES
+    lanes = [to_device(a, dt, dev) for a, dt in zip(lane_args, dts)]
+    kw = dict(collect=collect, fallback=fallback)
+    if delta_mig is None:
+        if ahap:
+            return _simulate_lanes_ahap(*lanes, jobs, tput, prices, avail,
+                                        pred, backend, dev, **kw)
+        return _simulate_one_cheap(*lanes, jobs, tput, prices, avail, **kw)
+    if ahap:
+        return _simulate_lanes_ahap_regions(
+            *lanes, jobs, tput, prices, avail, pred, backend, dev,
+            delta_mig, p_od=p_od, **kw)
+    return _simulate_one_cheap_regions(*lanes, jobs, tput, prices, avail,
+                                       pred, delta_mig, p_od=p_od, **kw)
+
+
+def _run_partitioned(pool_arrays: dict, jobs: JobArrays, tput, prices,
+                     avail, pred, backend, dev, delta_mig=None,
+                     collect: bool = False, fallback=None, p_od=None):
+    """Partition by kind on the host, run each partition on ``dev``,
+    scatter back to pool order: the driver of every unsharded pool entry
+    point (inputs already on ``dev``)."""
+    ahap_idx, other_idx, ahap_args, cheap_args = _partition_lane_args(
+        pool_arrays, with_regions=delta_mig is not None)
+    parts, idxs = [], []
+    for ahap, idx, args in ((True, ahap_idx, ahap_args),
+                            (False, other_idx, cheap_args)):
+        if idx.size:
+            parts.append(_run_part(ahap, args, jobs, tput, prices, avail,
+                                   pred, backend, dev, delta_mig, collect,
+                                   fallback, p_od))
+            idxs.append(idx)
+    return _scatter_merge(parts, idxs, dev)
+
+
 def simulate_pool_jobs(pool_arrays: dict, jobs: JobArrays,
                        tput: ThroughputConfig, prices, avail, pred,
                        backend: Optional[str] = None, device=None,
@@ -688,31 +752,10 @@ def simulate_pool_jobs(pool_arrays: dict, jobs: JobArrays,
     avail is cast to int32 at this boundary. ``backend`` picks the window
     DP (None: "cuda" on the card, "torch" on the CPU)."""
     dev = resolve_device(device)
-    jobs = jobs_to(jobs, dev)
-    prices = to_device(prices, _F32, dev)
-    avail = to_device(avail, _I32, dev)
-    pred = to_device(pred, _F32, dev)
-    ahap_idx, other_idx, ahap_args, cheap_args = _partition_lane_args(
-        pool_arrays
-    )
-    lane = lambda a, dt: to_device(a, dt, dev)
-    parts, idxs = [], []
-    if ahap_idx.size:
-        omega, v, sigma, rho = ahap_args
-        parts.append(_simulate_lanes_ahap(
-            lane(omega, _I32), lane(v, _I32), lane(sigma, _F32),
-            lane(rho, _F32), jobs, tput, prices, avail, pred, backend, dev,
-            collect=collect, fallback=fallback,
-        ))
-        idxs.append(ahap_idx)
-    if other_idx.size:
-        kind, sigma, cfrac = cheap_args
-        parts.append(_simulate_one_cheap(
-            lane(kind, _I32), lane(sigma, _F32), lane(cfrac, _F32), jobs,
-            tput, prices, avail, collect=collect, fallback=fallback,
-        ))
-        idxs.append(other_idx)
-    return _scatter_merge(parts, idxs, dev)
+    jobs, prices, avail, pred, _ = _market_to(jobs, prices, avail, pred,
+                                              None, dev)
+    return _run_partitioned(pool_arrays, jobs, tput, prices, avail, pred,
+                            backend, dev, collect=collect, fallback=fallback)
 
 
 def simulate_pool(pool_arrays: dict, j: JobArrays, tput: ThroughputConfig,
@@ -722,13 +765,150 @@ def simulate_pool(pool_arrays: dict, j: JobArrays, tput: ThroughputConfig,
     prices/avail are (d_max,) and pred (d_max, W1MAX, 2). Returns a dict of
     (P, ...) tensors in pool order; ``collect`` and ``fallback`` as in
     :func:`simulate_pool_jobs`."""
-    jobs = JobArrays(*[np.asarray(_host(f))[None] for f in j])
-    out = simulate_pool_jobs(
-        pool_arrays, jobs, tput, _host(prices)[None], _host(avail)[None],
-        _host(pred)[None], backend=backend, device=device, collect=collect,
-        fallback=fallback,
-    )
+    jobs, prices, avail, pred = _one_job(j, prices, avail, pred)
+    out = simulate_pool_jobs(pool_arrays, jobs, tput, prices, avail, pred,
+                             backend=backend, device=device,
+                             collect=collect, fallback=fallback)
     return {k: v[0] for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Sharded entry points: the (jobs x lanes) grid over the pool mesh
+# ---------------------------------------------------------------------------
+#
+# SPMD over torch.distributed, one rank a shard: every rank is called with
+# the same full host inputs (as JAX's global arrays), partitions by kind on
+# the host, runs its own (jobs block, lanes block) cell of each partition
+# through the unsharded scans on its device (K1 once a slot on the cell's
+# AHAP rows), then all-gathers the cells so every rank returns the whole
+# result. Cells are independent and every op is elementwise over both grid
+# axes, so the result equals the unsharded one bit for bit.
+
+def _pad_leading(x, pad: int):
+    """Pad axis 0 by repeating the last entry ``pad`` times (a host array or
+    a tensor, returned as the same kind; dropped from the result after the
+    sharded run)."""
+    if not pad:
+        return x
+    if torch.is_tensor(x):
+        return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+    x = np.asarray(x)
+    return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+
+
+def _run_partitioned_sharded(pool_arrays: dict, jobs: JobArrays, tput,
+                             prices, avail, pred, backend, mesh, *,
+                             delta_mig=None, collect: bool = False,
+                             fallback=None, p_od=None) -> dict:
+    """Sharded twin of :func:`_run_partitioned`: partition by kind on the
+    host, then lay each partition's (jobs x lanes) grid over ``mesh``.
+
+    Jobs shard the mesh's job axes; on a 2-D ``("jobs", "lanes")`` mesh
+    each partition's lane axis also shards over ``"lanes"`` (the kind split
+    comes first, so a lane shard is uniformly DP-heavy or cheap). Both axes
+    pad to divisibility by repeating the last entry. This rank runs its
+    cell; one all-gather over the mesh's ranks brings every cell to every
+    rank, which drops the padding and scatter-merges back to pool order."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding as shardlib
+    from repro_torch.launch.mesh import (all_gather, mesh_coordinates,
+                                         pool_mesh_job_axes, rank_device)
+
+    if mesh.mesh.numel() != dist.get_world_size():
+        raise ValueError(f"pool mesh over {mesh.mesh.numel()} ranks in a "
+                         f"world of {dist.get_world_size()}")
+    dev = rank_device(mesh)
+    jobs_axes, n_jobs_dev, n_lane_dev = pool_mesh_job_axes(mesh)
+    n_jobs = int(np.shape(jobs.workload)[0])
+    pad_j = (-n_jobs) % n_jobs_dev
+    # resolve the logical axes against the mesh (divisibility holds after
+    # padding; a non-matching mesh degrades to replication)
+    rules = {**shardlib.DEFAULT_RULES, "jobs": jobs_axes}
+    jspec = shardlib.resolve_spec(("jobs",), (n_jobs + pad_j,), mesh,
+                                  rules)[0]
+    n_jb, jb = shardlib.shard_block(jspec, mesh)
+    bj = (n_jobs + pad_j) // n_jb
+    cut = lambda x: _pad_leading(x, pad_j)[jb * bj:(jb + 1) * bj]
+    jobs_c, prices_c, avail_c, pred_c, p_od = _market_to(
+        JobArrays(*[cut(f) for f in jobs]), cut(prices), cut(avail),
+        cut(pred), p_od, dev)
+
+    ahap_idx, other_idx, ahap_args, cheap_args = _partition_lane_args(
+        pool_arrays, with_regions=delta_mig is not None)
+    cells, layout = [], []
+    for ahap, idx, args in ((True, ahap_idx, ahap_args),
+                            (False, other_idx, cheap_args)):
+        if not idx.size:
+            continue
+        p_l = int(idx.size)
+        pad_l = (-p_l) % n_lane_dev
+        lspec = shardlib.resolve_spec(("lanes",), (p_l + pad_l,), mesh,
+                                      rules)[0]
+        n_lb, lb = shardlib.shard_block(lspec, mesh)
+        bl = (p_l + pad_l) // n_lb
+        lane_in = [_pad_leading(a, pad_l)[lb * bl:(lb + 1) * bl]
+                   for a in args]
+        cells.append(_run_part(ahap, lane_in, jobs_c, tput, prices_c,
+                               avail_c, pred_c, backend, dev, delta_mig,
+                               collect, fallback, p_od))
+        layout.append((idx, p_l, lspec, n_lb))
+
+    # every rank's cells, one collective; rank r's cell sits at its
+    # coordinate's (jobs block, lanes block)
+    flat = [v for cell in cells for v in cell.values()]
+    gathered = all_gather(flat)
+    coords = mesh_coordinates(mesh)
+    parts, at = [], 0
+    for cell, (idx, p_l, lspec, n_lb) in zip(cells, layout):
+        keys = list(cell)
+        grid = {}
+        for rank, items in enumerate(gathered):
+            block = (shardlib.shard_block(jspec, mesh, coords[rank])[1],
+                     shardlib.shard_block(lspec, mesh, coords[rank])[1])
+            grid.setdefault(block, items[at:at + len(keys)])
+        at += len(keys)
+        parts.append({
+            k: torch.cat([torch.cat([grid[(a, b)][i] for b in range(n_lb)],
+                                    dim=1) for a in range(n_jb)])[:, :p_l]
+            for i, k in enumerate(keys)})
+    out = _scatter_merge(parts, [lay[0] for lay in layout], dev)
+    if pad_j:
+        out = {k: v[:n_jobs] for k, v in out.items()}
+    return out
+
+
+def simulate_pool_jobs_sharded(pool_arrays: dict, jobs: JobArrays,
+                               tput: ThroughputConfig, prices, avail, pred,
+                               backend: Optional[str] = None, mesh=None,
+                               collect: bool = False, fallback=None,
+                               device=None) -> dict:
+    """:func:`simulate_pool_jobs` with the (jobs x lanes) grid laid over
+    ``mesh`` (a pool mesh from ``launch.mesh.make_pool_mesh``; None: the
+    1-D pool mesh over the default process group if one is initialized).
+    Call it on every rank of the mesh with the same inputs; each rank
+    simulates on its own device (``launch.mesh.rank_device``) and returns
+    the whole (K, P, ...) result.
+
+    On a 1-D mesh jobs ride the mesh axis and lanes stay whole per rank; a
+    2-D ``("jobs", "lanes")`` mesh also shards each kind partition's lane
+    axis. Jobs and lanes that do not divide their mesh axis pad by
+    repeating the last entry. Per-(job, lane) cells are independent, so
+    the result (``collect`` series and the armed ``fallback`` monitor
+    included) equals ``simulate_pool_jobs``'s bit for bit. With no process
+    group, or a mesh of one rank, this is ``simulate_pool_jobs`` itself
+    (``device`` is where it runs when there is no mesh)."""
+    from repro_torch.launch.mesh import default_pool_mesh, rank_device
+
+    mesh = default_pool_mesh(device) if mesh is None else mesh
+    if mesh is None or mesh.mesh.numel() == 1:
+        return simulate_pool_jobs(
+            pool_arrays, jobs, tput, prices, avail, pred, backend=backend,
+            device=device if mesh is None else rank_device(mesh),
+            collect=collect, fallback=fallback)
+    return _run_partitioned_sharded(
+        pool_arrays, jobs, tput, prices, avail, pred, backend, mesh,
+        collect=collect, fallback=fallback)
 
 
 # ---------------------------------------------------------------------------
@@ -1002,34 +1182,174 @@ def simulate_pool_regions(pool_arrays: dict, jobs: JobArrays,
     ``p_od`` (scalar or (R,)) multiplies the jobs' on-demand price by the
     occupied region (``market.p_od``)."""
     dev = resolve_device(device)
-    jobs = jobs_to(jobs, dev)
-    prices = to_device(prices, _F32, dev)
-    avail = to_device(avail, _I32, dev)
-    pred = to_device(pred, _F32, dev)
-    if p_od is not None:
-        p_od = to_device(np.asarray(_host(p_od), np.float32).reshape(-1),
-                         _F32, dev).expand(prices.shape[1])
-    ahap_idx, other_idx, ahap_args, cheap_args = _partition_lane_args(
-        pool_arrays, with_regions=True
-    )
-    lane = lambda a, dt: to_device(a, dt, dev)
-    dts = (_I32, _I32, _F32, _F32, _I32, _F32)
-    parts, idxs = [], []
-    if ahap_idx.size:
-        parts.append(_simulate_lanes_ahap_regions(
-            *[lane(a, dt) for a, dt in zip(ahap_args, dts)], jobs, tput,
-            prices, avail, pred, backend, dev, int(delta_mig),
-            collect=collect, fallback=fallback, p_od=p_od,
-        ))
-        idxs.append(ahap_idx)
-    if other_idx.size:
-        parts.append(_simulate_one_cheap_regions(
-            *[lane(a, dt) for a, dt in zip(cheap_args, (_I32,) + dts[2:])],
-            jobs, tput, prices, avail, pred, int(delta_mig),
-            collect=collect, fallback=fallback, p_od=p_od,
-        ))
-        idxs.append(other_idx)
-    return _scatter_merge(parts, idxs, dev)
+    jobs, prices, avail, pred, p_od = _market_to(jobs, prices, avail, pred,
+                                                 p_od, dev)
+    return _run_partitioned(pool_arrays, jobs, tput, prices, avail, pred,
+                            backend, dev, int(delta_mig), collect, fallback,
+                            p_od)
+
+
+def simulate_pool_regions_sharded(pool_arrays: dict, jobs: JobArrays,
+                                  tput: ThroughputConfig, prices, avail,
+                                  pred, backend: Optional[str] = None, *,
+                                  delta_mig: int, mesh=None,
+                                  collect: bool = False, fallback=None,
+                                  p_od=None, device=None) -> dict:
+    """:func:`simulate_pool_regions` over the pool mesh: jobs (and, on a
+    2-D mesh, lanes) shard exactly as in :func:`simulate_pool_jobs_sharded`;
+    the small region axis rides along whole in each rank's (K, R, T) market
+    (``p_od`` is given to every rank). Equal to ``simulate_pool_regions``
+    bit for bit, ``collect`` / ``fallback`` / ``p_od`` included; with no
+    process group, or a mesh of one rank, it is that function."""
+    from repro_torch.launch.mesh import default_pool_mesh, rank_device
+
+    mesh = default_pool_mesh(device) if mesh is None else mesh
+    if mesh is None or mesh.mesh.numel() == 1:
+        return simulate_pool_regions(
+            pool_arrays, jobs, tput, prices, avail, pred, backend=backend,
+            device=device if mesh is None else rank_device(mesh),
+            delta_mig=delta_mig, collect=collect, fallback=fallback,
+            p_od=p_od)
+    return _run_partitioned_sharded(
+        pool_arrays, jobs, tput, prices, avail, pred, backend, mesh,
+        delta_mig=int(delta_mig), collect=collect, fallback=fallback,
+        p_od=p_od)
+
+
+# ---------------------------------------------------------------------------
+# The seed path: every lane runs every rule (benchmark baseline and the
+# partitioned path's equivalence oracle)
+# ---------------------------------------------------------------------------
+
+def _simulate_lanes_monolithic(kind, omega, v, sigma, rho, cfrac,
+                               jobs: JobArrays, tput, prices, avail, pred,
+                               backend, device):
+    """The seed formulation over (K jobs, P lanes): every lane runs all six
+    decision rules every slot, the window solve included (ONE solve over
+    the (K * P) rows a slot: one K1 launch on the card), and takes its
+    ``kind``'s decision. Lane parameters are (P,) tensors."""
+    k, dmax = prices.shape
+    p = kind.shape[0]
+    j, j3 = _columns(jobs), _columns(jobs, 2)
+    rows = _job_cfg(JobArrays(*[f[:, None].expand(k, p).reshape(k * p)
+                                for f in jobs]))
+    lane_kind, lane_sigma, lane_cfrac = kind[None], sigma[None], cfrac[None]
+    z, n_prev, cost, done, T = _init_state(k, p, device)
+    plans = torch.zeros((k, p, VMAX, W1MAX, 2), dtype=_F32, device=device)
+    prev_avail = avail[:, :1].expand(k, p)
+    no_hist, ns_hist = [], []
+    for t in range(dmax):
+        price, av = prices[:, t:t + 1], avail[:, t:t + 1]
+        pr_t, thr_t, zee_t, eff_t = _ahap_precompute(
+            j3, omega, sigma, rho, t, pred[:, t])
+        ah_o, ah_s, plans = _ahap_rule_batch(
+            rows, j, tput, v, backend, device, z, t, price, av, plans,
+            pr_t, thr_t, zee_t, eff_t)
+        n_o, n_s = _cheap_rules(lane_kind, lane_sigma, lane_cfrac, j, tput,
+                                z, t, price, av, n_prev, prev_avail)
+        n_o = torch.where(lane_kind == KIND_AHAP, ah_o, n_o)
+        n_s = torch.where(lane_kind == KIND_AHAP, ah_s, n_s)
+        z, n_prev, cost, done, T, n_o, n_s, active = _execute(
+            j, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av)
+        prev_avail = torch.where(active, av, prev_avail)
+        no_hist.append(n_o)
+        ns_hist.append(n_s)
+    return _finalize(j, tput, z, cost, done, T, no_hist, ns_hist)
+
+
+def simulate_pool_jobs_monolithic(pool_arrays: dict, jobs: JobArrays,
+                                  tput: ThroughputConfig, prices, avail,
+                                  pred, backend: Optional[str] = None,
+                                  device=None) -> dict:
+    """The seed path over K jobs: every lane of the pool runs every rule
+    (the window DP included, one K1 launch a slot over all (K * P) rows)
+    and selects by kind. Inputs as :func:`simulate_pool_jobs`; returns
+    the same (K, P, ...) leaves in pool order, equal to its bit for bit."""
+    dev = resolve_device(device)
+    jobs, prices, avail, pred, _ = _market_to(jobs, prices, avail, pred,
+                                              None, dev)
+    arr = {k: _host(v) for k, v in pool_arrays.items()}
+    n = len(arr["kind"])
+    lane = lambda key, default, dt: to_device(arr.get(key, default), dt, dev)
+    return _simulate_lanes_monolithic(
+        lane("kind", None, _I32), lane("omega", None, _I32),
+        lane("v", None, _I32), lane("sigma", None, _F32),
+        lane("rho", np.ones(n, np.float32), _F32),
+        lane("cfrac", np.zeros(n, np.float32), _F32),
+        jobs, tput, prices, avail, pred, backend, dev)
+
+
+def _one_job(j: JobArrays, prices, avail, pred):
+    """One job's scalar leaves and (d_max, ...) market as a K = 1 batch."""
+    return (JobArrays(*[np.asarray(_host(f))[None] for f in j]),
+            _host(prices)[None], _host(avail)[None], _host(pred)[None])
+
+
+def simulate_pool_monolithic(pool_arrays: dict, j: JobArrays,
+                             tput: ThroughputConfig, prices, avail, pred,
+                             backend: Optional[str] = None,
+                             device=None) -> dict:
+    """The seed path for one job (``j`` scalar leaves, prices / avail
+    (d_max,), pred (d_max, W1MAX, 2)): every lane runs every rule and
+    selects by kind. The perf baseline and the parity cross-check of the
+    partitioned :func:`simulate_pool`; (P, ...) leaves in pool order."""
+    jobs, prices, avail, pred = _one_job(j, prices, avail, pred)
+    out = simulate_pool_jobs_monolithic(pool_arrays, jobs, tput, prices,
+                                        avail, pred, backend=backend,
+                                        device=device)
+    return {k: v[0] for k, v in out.items()}
+
+
+def simulate_one(kind, omega, v, sigma, j: JobArrays, tput, prices, avail,
+                 pred, rho=1.0, cfrac=0.0, backend: Optional[str] = None,
+                 device=None) -> dict:
+    """One lane of the seed path (scalar policy encoding, one job): all six
+    rules every slot, selected by ``kind``. Returns per-lane scalars and
+    (d_max,) allocation histories."""
+    pool = {"kind": [kind], "omega": [omega], "v": [v], "sigma": [sigma],
+            "rho": [rho], "cfrac": [cfrac]}
+    out = simulate_pool_monolithic(pool, j, tput, prices, avail, pred,
+                                   backend=backend, device=device)
+    return {k: v_[0] for k, v_ in out.items()}
+
+
+def _simulate_one_ahap(omega, v, sigma, rho, j: JobArrays, tput, prices,
+                       avail, pred, backend: Optional[str] = None,
+                       device=None) -> dict:
+    """One AHAP lane of one job, the pre-batching formulation: the lane's
+    scaffolding for every slot (rho-discounted forecasts, threshold plans,
+    schedule line, effective window lengths) built once before the loop,
+    then the batched rule at P = 1 each slot. Over lanes it is the
+    equivalence oracle of :func:`_simulate_lanes_ahap`."""
+    dev = resolve_device(device)
+    jobs, prices, avail, pred = _one_job(j, prices, avail, pred)
+    jobs, prices, avail, pred, _ = _market_to(jobs, prices, avail, pred,
+                                              None, dev)
+    scalar = lambda x, dt: to_device(np.asarray(_host(x)).reshape(1), dt,
+                                     dev)
+    omega, v = scalar(omega, _I32), scalar(v, _I32)
+    sigma, rho = scalar(sigma, _F32), scalar(rho, _F32)
+    dmax = prices.shape[1]
+    jc, j3 = _columns(jobs), _columns(jobs, 2)
+    # every slot at once: the slots ride the job axis of _ahap_precompute
+    ts = torch.arange(dmax, dtype=_I32, device=dev)[:, None]
+    pr, thr_s, z_exp_end, eff_slots = _ahap_precompute(j3, omega, sigma,
+                                                       rho, ts, pred[0])
+    z, n_prev, cost, done, T = _init_state(1, 1, dev)
+    plans = torch.zeros((1, 1, VMAX, W1MAX, 2), dtype=_F32, device=dev)
+    no_hist, ns_hist = [], []
+    for t in range(dmax):
+        price, av = prices[:, t:t + 1], avail[:, t:t + 1]
+        n_o, n_s, plans = _ahap_rule_batch(
+            _job_cfg(jobs), jc, tput, v, backend, dev, z, t, price, av,
+            plans, pr[:, t:t + 1], thr_s[t:t + 1], z_exp_end[t:t + 1],
+            eff_slots[t:t + 1])
+        z, n_prev, cost, done, T, n_o, n_s, _ = _execute(
+            jc, tput, z, n_prev, cost, done, T, t, n_o, n_s, price, av)
+        no_hist.append(n_o)
+        ns_hist.append(n_s)
+    out = _finalize(jc, tput, z, cost, done, T, no_hist, ns_hist)
+    return {k: v_[0, 0] for k, v_ in out.items()}
 
 
 def prepare_inputs(trace, pred_matrix, d_max: int):

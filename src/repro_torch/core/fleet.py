@@ -19,10 +19,18 @@ those of the host oracle ``core.multi_job.MultiJobScheduler``:
   * **execute**: ``fast_sim._execute`` on the granted spot, arrivals and
     retirements gated by ``t - arrival`` masks.
 
+Sharding (:func:`simulate_fleet_sharded`) lays the job axis over the pool
+mesh's ``"jobs"`` axis, one rank a shard (2-D meshes replicate over
+``"lanes"``: the fleet has no lane axis). Each rank holds an equal ``[AHAP
+block | cheap block]`` slice, both blocks padded to the rank count with
+``arrival = T`` sentinel jobs (never live, zero demand), and each slot
+all-gathers (demand, slack) over the ``"jobs"`` group: every rank grants
+the identical global order and keeps its own slice, so the result equals
+the unsharded loop's bit for bit.
+
 Per-job policy rows come from EG selector weights
 (:func:`policy_rows_from_weights`, ``engine.SelectionResult.
-admission_rows``): the select -> admit loop. The sharded engine
-(``simulate_fleet_sharded``) is not ported yet (ROADMAP Queue 1, item 12).
+admission_rows``): the select -> admit loop.
 """
 from __future__ import annotations
 
@@ -91,8 +99,9 @@ _TEL_FLEET = ("tel_demand", "tel_grant", "tel_slack", "tel_rank",
 
 def _fleet_scan(pol, jobs: JobArrays, arrivals, ids, tput, prices, avail,
                 pred, backend, device, n_ahap: int, collect: bool = False,
-                fallback=None):
-    """One loop over market slots for a fleet on ``device``.
+                fallback=None, group=None):
+    """One loop over market slots for a fleet (or a rank's shard of one) on
+    ``device``.
 
     ``jobs`` / ``arrivals`` / ``ids`` are (J,) tensors ordered ``[AHAP
     block | cheap block]``, split at ``n_ahap``; ``pol`` holds the per-job
@@ -106,7 +115,13 @@ def _fleet_scan(pol, jobs: JobArrays, arrivals, ids, tput, prices, avail,
     once a job has arrived; above the threshold the job demands by the
     AHANP rule, whose "previous availability" is the shifted supply. With
     collect also on, the ``fast_sim._TEL_FALLBACK`` series join (all zero
-    for the cheap block)."""
+    for the cheap block).
+
+    With a process ``group`` (the pool mesh's ``"jobs"`` group) these are
+    this rank's rows: the ids are gathered once, and each slot (demand,
+    slack) is gathered over the group, in its own dtype, so that every rank
+    runs the waterfall (and the rank of ``collect``) on the whole fleet and
+    keeps its own slice."""
     dmax = prices.shape[0]
     n_jobs = arrivals.shape[0]
     has_ahap = n_ahap > 0
@@ -139,6 +154,15 @@ def _fleet_scan(pol, jobs: JobArrays, arrivals, ids, tput, prices, avail,
         kind_c = pol["kind"][n_ahap:]
         sigma_c = pol["sigma"][n_ahap:]
         cfrac_c = pol["cfrac"][n_ahap:]
+
+    if group is not None:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import all_gather
+
+        ids_all = torch.cat([p[0] for p in all_gather([ids], group)])
+        start = dist.get_rank(group) * n_jobs
+        mine = slice(start, start + n_jobs)
 
     h_max = tput.alpha * jobs.n_max.to(_F32) + tput.beta
     z, n_prev, cost, done, T = (s[:, 0] for s in
@@ -201,7 +225,17 @@ def _fleet_scan(pol, jobs: JobArrays, arrivals, ids, tput, prices, avail,
         # not; the key is built so -0.0 cannot occur (a difference of an
         # integer and a non-negative quotient), checked once after the loop
         negative_zero |= ((slack == 0) & torch.signbit(slack)).any()
-        grant = _waterfall(d_s, slack, ids, sup)
+        if group is None:
+            grant = _waterfall(d_s, slack, ids, sup)
+            if collect:
+                rank = _demand_rank(d_s, slack, ids)
+        else:
+            parts = all_gather([d_s, slack], group)
+            d_all = torch.cat([p[0] for p in parts])
+            s_all = torch.cat([p[1] for p in parts])
+            grant = _waterfall(d_all, s_all, ids_all, sup)[mine]
+            if collect:
+                rank = _demand_rank(d_all, s_all, ids_all)[mine]
 
         # ---- execute: local clock, pre-arrival masked to inactive
         mt = torch.where(lt >= 0, lt, jobs.deadline)
@@ -214,8 +248,7 @@ def _fleet_scan(pol, jobs: JobArrays, arrivals, ids, tput, prices, avail,
         if collect:
             sample = fast_sim._slot_telemetry(
                 jobs, n_prev0, z, n_o, n_s, active, price, grant) + (
-                d_s, grant, torch.where(live, slack, 0.0),
-                _demand_rank(d_s, slack, ids),
+                d_s, grant, torch.where(live, slack, 0.0), rank,
                 live & (d_s > 0) & (grant < d_s))
             if fallback is not None:
                 fb_all = torch.zeros((n_jobs,), dtype=torch.bool,
@@ -280,6 +313,38 @@ def _take_jobs(jobs: JobArrays, idx) -> JobArrays:
     return JobArrays(*[np.asarray(fast_sim._host(f))[idx] for f in jobs])
 
 
+def _fleet_host(pool_rows, jobs: JobArrays, arrivals, prices, avail, pred):
+    """Both engines' host prep: (rows, n, arrivals (J,) i32, prices,
+    avail, pred), the row count checked against the jobs' and the
+    arrivals'."""
+    rows, n = _norm_rows(pool_rows)
+    arrivals = np.asarray(fast_sim._host(arrivals), np.int32)
+    if not n == int(np.shape(jobs.workload)[0]) == int(arrivals.shape[0]):
+        raise ValueError(f"{n} policy rows, {np.shape(jobs.workload)[0]} "
+                         f"jobs and {arrivals.shape[0]} arrivals")
+    return (rows, n, arrivals) + _prepare_market(prices, avail, pred)
+
+
+# policy-row dtypes on the device (the rest are i32)
+_POL_DTYPES = {"sigma": _F32, "rho": _F32, "cfrac": _F32}
+
+
+def _scan_rows(rows, jobs: JobArrays, idx, arrivals, ids, market, tput,
+               backend, dev, n_ahap: int, collect, fallback, group=None):
+    """:func:`_fleet_scan` on ``dev`` over the jobs ``idx`` (host indices
+    into ``rows`` and ``jobs``, ordered [AHAP block | cheap block]) with
+    their ``arrivals`` and ``ids``; ``market`` is (prices, avail, pred)."""
+    prices, avail, pred = market
+    pol = {k: to_device(v[idx], _POL_DTYPES.get(k, _I32), dev)
+           for k, v in rows.items()}
+    return _fleet_scan(
+        pol, fast_sim.jobs_to(_take_jobs(jobs, idx), dev),
+        to_device(arrivals, _I32, dev), to_device(ids, _I32, dev), tput,
+        to_device(prices, _F32, dev), to_device(avail, _I32, dev),
+        to_device(pred, _F32, dev), backend, dev, n_ahap, collect, fallback,
+        group=group)
+
+
 def simulate_fleet(pool_rows, jobs: JobArrays, arrivals, tput, prices,
                    avail, pred=None, backend: Optional[str] = None,
                    device=None, collect: bool = False, fallback=None):
@@ -300,27 +365,87 @@ def simulate_fleet(pool_rows, jobs: JobArrays, arrivals, tput, prices,
     series. Semantics match ``multi_job.MultiJobScheduler``: completion
     times are on each job's local clock."""
     dev = resolve_device(device)
-    rows, n = _norm_rows(pool_rows)
-    arrivals = np.asarray(fast_sim._host(arrivals), np.int32)
-    if not n == int(np.shape(jobs.workload)[0]) == int(arrivals.shape[0]):
-        raise ValueError(f"{n} policy rows, {np.shape(jobs.workload)[0]} "
-                         f"jobs and {arrivals.shape[0]} arrivals")
-    prices, avail_np, pred = _prepare_market(prices, avail, pred)
+    rows, _, arrivals, *market = _fleet_host(pool_rows, jobs, arrivals,
+                                             prices, avail, pred)
     aidx = np.flatnonzero(rows["kind"] == KIND_AHAP)
     cidx = np.flatnonzero(rows["kind"] != KIND_AHAP)
     order = np.concatenate([aidx, cidx]).astype(np.int32)
-    pos = np.argsort(order, kind="stable")
-    dts = {"sigma": _F32, "rho": _F32, "cfrac": _F32}
-    pol = {k: to_device(v[order], dts.get(k, _I32), dev)
-           for k, v in rows.items()}
-    out = _fleet_scan(
-        pol, fast_sim.jobs_to(_take_jobs(jobs, order), dev),
-        to_device(arrivals[order], _I32, dev), to_device(order, _I32, dev),
-        tput, to_device(prices, _F32, dev), to_device(avail_np, _I32, dev),
-        to_device(pred, _F32, dev), backend, dev, len(aidx), collect,
-        fallback)
-    take = torch.as_tensor(pos, device=dev)
+    out = _scan_rows(rows, jobs, order, arrivals[order], order, market,
+                     tput, backend, dev, len(aidx), collect, fallback)
+    take = torch.as_tensor(np.argsort(order, kind="stable"), device=dev)
     return {k: v.index_select(0, take) for k, v in out.items()}
+
+
+def simulate_fleet_sharded(pool_rows, jobs: JobArrays, arrivals, tput,
+                           prices, avail, pred=None,
+                           backend: Optional[str] = None, mesh=None,
+                           collect: bool = False, fallback=None,
+                           device=None):
+    """:func:`simulate_fleet` with the job axis laid over the pool mesh
+    (``launch.mesh.make_pool_mesh``; None: the 1-D pool mesh over the
+    default process group if one is initialized). Call it on every rank of
+    the mesh with the same inputs; each rank runs its shard on its own
+    device (``launch.mesh.rank_device``) and returns the whole result in
+    submission order.
+
+    Only the ``"jobs"`` axis shards (lanes replicate), so a lanes-only
+    ``(1, n)`` mesh, a one-rank mesh or no process group falls through to
+    the unsharded loop (on ``device`` when there is no mesh). Each kind
+    block pads to the rank count with ``arrival = T`` sentinel jobs (never
+    live, zero demand: inert in the waterfall), and the results equal
+    :func:`simulate_fleet`'s bit for bit."""
+    from repro_torch.launch.mesh import (all_gather, default_pool_mesh,
+                                         pool_mesh_job_axes, rank_device)
+
+    mesh = default_pool_mesh(device) if mesh is None else mesh
+    d = 1 if mesh is None else pool_mesh_job_axes(mesh)[1]
+    if d <= 1:
+        return simulate_fleet(
+            pool_rows, jobs, arrivals, tput, prices, avail, pred, backend,
+            device if mesh is None else rank_device(mesh), collect, fallback)
+    import torch.distributed as dist
+
+    dev = rank_device(mesh)
+    group = mesh.get_group("jobs")
+    rows, n, arr_np, *market = _fleet_host(pool_rows, jobs, arrivals,
+                                           prices, avail, pred)
+    dmax = market[0].shape[0]
+    aidx = np.flatnonzero(rows["kind"] == KIND_AHAP)
+    cidx = np.flatnonzero(rows["kind"] != KIND_AHAP)
+    j_a = -(-len(aidx) // d) if len(aidx) else 0   # per-rank block sizes
+    j_c = -(-len(cidx) // d) if len(cidx) else 0
+
+    def block(idx, per_rank):
+        lay = np.full(d * per_rank, -1, np.int64)
+        lay[: len(idx)] = idx
+        return lay.reshape(d, per_rank)
+
+    # interleave [AHAP block | cheap block] per rank: every shard has the
+    # same (j_a + j_c) structure with the AHAP split at j_a
+    lay = np.concatenate([block(aidx, j_a), block(cidx, j_c)], axis=1)
+    lay = lay.reshape(-1)
+    fill = np.concatenate([
+        np.full((d, j_a), aidx[0] if len(aidx) else 0, np.int64),
+        np.full((d, j_c), cidx[0] if len(cidx) else 0, np.int64),
+    ], axis=1).reshape(-1)
+    gidx = np.where(lay >= 0, lay, fill)
+    is_pad = lay < 0
+    arr_l = arr_np[gidx].copy()
+    arr_l[is_pad] = dmax                       # sentinel: never live
+    ids_l = np.where(is_pad, n + np.arange(lay.shape[0]), lay)
+
+    # this rank's row of the layout, by its place in the "jobs" group
+    per = j_a + j_c
+    me = slice(dist.get_rank(group) * per, (dist.get_rank(group) + 1) * per)
+    out = _scan_rows(rows, jobs, gidx[me], arr_l[me], ids_l[me], market,
+                     tput, backend, dev, j_a, collect, fallback, group=group)
+    # every rank's rows (group order is layout order), then the real ids
+    # 0..n-1 in submission order; pads (ids >= n) dropped
+    keys = list(out)
+    parts = all_gather([out[k] for k in keys], group)
+    take = torch.as_tensor(np.argsort(ids_l, kind="stable")[:n], device=dev)
+    return {k: torch.cat([p[i] for p in parts]).index_select(0, take)
+            for i, k in enumerate(keys)}
 
 
 # ---------------------------------------------------------------------------

@@ -1093,3 +1093,69 @@ def test_train_step_cuda_matches_cpu_in_f32(cuda, remat):
     np.testing.assert_allclose(l1, l0, rtol=1e-5)
     for x, y in zip(p1, p0):
         torch.testing.assert_close(x, y, rtol=0, atol=2e-5)
+
+
+def test_nccl_world_of_one_falls_through_bitwise(cuda, tmp_path):
+    """A one-rank NCCL world on cuda:0: the pool mesh (1,) and (1, 1)
+    sharded entry points (pool, regions, fleet) are their unsharded runs
+    on the card, bit for bit, and the collective helper's NCCL route
+    (gathered on the card) returns each dtype's bits."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import fast_sim, fleet
+    from repro_torch.core.region_market import vast_like_regions
+    from repro_torch.core.policy_pool import KIND_AHAP, region_pool
+    from repro_torch.launch.mesh import all_gather, make_pool_mesh
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        f = torch.tensor([-0.0, 1.5], device=cuda)
+        b = torch.tensor([True, False], device=cuda)
+        i = torch.arange(3, dtype=torch.int32, device=cuda)
+        (got,) = all_gather([f, b, i])
+        assert all(g.is_cuda for g in got)
+        assert torch.equal(got[0].view(torch.int32), f.view(torch.int32))
+        assert torch.equal(got[1], b) and torch.equal(got[2], i)
+        rng = np.random.default_rng(3)
+        jobs = job_stream_arrays(rng, 6)
+        trace = paper_market(seed=21, days=2)
+        t0s = rng.integers(0, len(trace) - 11, size=6)
+        mkt = engine.prepare_noisy_inputs(trace, t0s, 10, "fixed_uniform",
+                                          0.1, np.arange(6))
+        pool = specs_to_arrays(paper_pool(omegas=(2, 3), sigmas=(0.3, 0.7))
+                               + baseline_specs())
+        regions = vast_like_regions(3, seed=1, days=1)
+        rmkt = engine.prepare_noisy_inputs_regions(
+            regions, np.arange(6) * 4, 10, "fixed_uniform", 0.1,
+            np.arange(6))
+        rpool = specs_to_arrays(region_pool())
+        rows = {k: v[rng.integers(0, len(pool["kind"]), size=6)]
+                for k, v in pool.items()}
+        assert (rows["kind"] == KIND_AHAP).any()
+        fargs = (rows, jobs, rng.integers(0, 4, size=6), PAPER_TPUT,
+                 mkt[0][0], mkt[1][0], mkt[2][0])
+        base = fast_sim.simulate_pool_jobs(pool, jobs, PAPER_TPUT, *mkt,
+                                           collect=True)
+        rbase = fast_sim.simulate_pool_regions(
+            rpool, jobs, PAPER_TPUT, *rmkt, delta_mig=1, p_od=[1, 1.3, 0.8])
+        fbase = fleet.simulate_fleet(*fargs, collect=True)
+        for shape in ((1,), (1, 1)):
+            mesh = make_pool_mesh(shape)
+            for got, want in (
+                    (fast_sim.simulate_pool_jobs_sharded(
+                        pool, jobs, PAPER_TPUT, *mkt, mesh=mesh,
+                        collect=True), base),
+                    (fast_sim.simulate_pool_regions_sharded(
+                        rpool, jobs, PAPER_TPUT, *rmkt, mesh=mesh,
+                        delta_mig=1, p_od=[1, 1.3, 0.8]), rbase),
+                    (fleet.simulate_fleet_sharded(*fargs, mesh=mesh,
+                                                  collect=True), fbase)):
+                assert set(got) == set(want)
+                for k in want:
+                    assert got[k].is_cuda and torch.equal(got[k], want[k]), k
+    finally:
+        dist.destroy_process_group()

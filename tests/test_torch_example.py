@@ -162,3 +162,26 @@ def test_serve_and_multijob_matches_reference_example():
                           max_len=128).generate_batch(
         [JRequest(p, 8) for p in prompts])
     assert served == [w.tolist() for w in want]
+
+
+def test_market_forecast_prints_reference_figures():
+    """``examples/market_forecast_torch.py`` against the JAX package's
+    ``examples/market_forecast.py``: the trace statistics, the persistence
+    and ARIMA MAPE by horizon, ARIMA's availability MAPE and the four
+    noise regimes' MAPE print the same figures, line for line (both
+    forecast chains are host numpy)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for script in ("market_forecast_torch.py", "market_forecast.py"):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / script)], env=env,
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        runs[script] = proc.stdout
+    got = runs["market_forecast_torch.py"]
+    horizons = re.findall(r"^\s*([1-5])\s+([0-9.]+)\s+([0-9.]+)$", got,
+                          re.MULTILINE)
+    assert [h for h, _, _ in horizons] == ["1", "2", "3", "4", "5"]
+    assert re.search(r"availability MAPE \(ARIMA\): \[[0-9., ]+\]", got)
+    assert len(re.findall(r"^  \w+_\w+\s+[0-9.]+$", got, re.MULTILINE)) == 4
+    assert got == runs["market_forecast.py"]

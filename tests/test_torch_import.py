@@ -91,11 +91,13 @@ def test_host_packages_load_neither_jax_nor_reference(module):
     "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.mixtral_8x22b",
     "repro_torch.models.frontends", "repro_torch.models.rope",
     "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.hubert_xlarge",
+    "repro_torch.launch.mesh", "repro_torch.sharding",
 ])
 def test_reference_chain_modules_load_neither_jax_nor_reference(module):
     """The host reference chain (python policies, simulator, offline
-    optimum, regional market and forecasters) and the regional engine
-    stand alone, each imported first in a fresh process."""
+    optimum, regional market and forecasters), the regional engine and
+    the pool mesh with its sharding rules stand alone, each imported first
+    in a fresh process."""
     proc = _run(
         "import sys\n"
         f"import {module}\n"
