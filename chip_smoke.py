@@ -94,6 +94,16 @@ card:
   examples/elastic_finetune_torch.py at its full setting (``[elastic]``:
   the scheduler's plan equal to the JAX package's, AHAP's windows on K1,
   real checkpoint round trips).
+- The dry run and the step roofline, after every timing: ``[dryrun]``
+  runs ``python -m repro_torch.launch.dryrun`` on olmo-1b train_4k at
+  full size on (16, 16), over a fake process group of 256 (CPU counts on
+  fake tensors, not a run; the smoke combinations are the CPU tests'),
+  and fails on a FAILED record; ``[roofline]`` counts llama2-7b's
+  prefill, decode step and training step on one device as the card runs
+  them (K2, K3 by their own traffic and operations) and sets each beside
+  its H100 bound, [serve]'s and [train]'s measured time (failing when a
+  time is below the compute term, a strict lower bound), the step MFU and
+  the counted against the measured peak memory.
 
 It times each kernel beside its bound, its plain version and a PyTorch
 yardstick. Any failed phase raises and the script exits nonzero. Without a
@@ -103,6 +113,8 @@ result. Its last line is the device JSON.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2056,6 +2068,16 @@ def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
           f"{launches[0]} times, K3 {launches[1]}, K4 {launches[2]}")
 
 
+# [dryrun]: one full-size combination on the production mesh, a subprocess
+# under DRYRUN_TIMEOUT seconds
+DRYRUN_ARGS = ["--arch", "olmo-1b", "--shape", "train_4k", "--mesh",
+               "single"]
+DRYRUN_TIMEOUT = 300
+
+# [serve]'s kernel-run timings and peak memory, by phase tag, for [roofline]
+STEP_RUNS = {}
+
+
 def _teacher_forced(torch, tf, cfg, params, prompts, tokens, max_len,
                     kcfg):
     """Prefill on the prompts, then one decode step per given token.
@@ -2178,6 +2200,7 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
                                               KernelConfig(False))
     if not bool(torch.isfinite(kern).all()):
         _fail(f"[{tag}] non-finite logits in the kernel run")
+    STEP_RUNS[tag] = {"prefill_s": pre_s, "decode_s": dec_s, "peak": peak}
     print(f"[{tag}] teacher-forced on the engine's tokens: kernel run "
           f"prefill {pre_s:.3f} s, decode {dec_s * 1e3:.2f} ms/step; plain "
           f"run prefill {pre_p:.3f} s, decode {dec_p * 1e3:.2f} ms/step")
@@ -3525,7 +3548,8 @@ def _phase_train(torch, np, dev, kernels) -> dict:
     print(f"[train] the base weights are bit-unchanged (torch.equal against "
           f"a host copy taken before step 0 in {copy_s:.1f} s) and hold no "
           ".grad")
-    return {"launches": launches, "step_s": med, "shares": shares}
+    return {"launches": launches, "step_s": med, "shares": shares,
+            "peak": peak}
 
 
 def _load_example(name):
@@ -4002,6 +4026,130 @@ def _entry(name, source, replaces, launches, err, row):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]}
+
+
+def _phase_dryrun() -> None:
+    """[dryrun]: ``python -m repro_torch.launch.dryrun`` on olmo-1b x
+    train_4k at full size on (16, 16), in a subprocess. The record's
+    counts are printed; a FAILED record, a non-zero exit or a missing
+    count fails. CPU work on fake tensors: the counts of a step, not a
+    run."""
+    out = ROOT / "build" / "dryrun"
+    if out.exists():
+        shutil.rmtree(out)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+             "--out", str(out)], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _fail(f"[dryrun] no end within {DRYRUN_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        _fail(f"[dryrun] exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+    recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+    if len(recs) != 1:
+        _fail(f"[dryrun] {len(recs)} records, expected 1")
+    r = recs[0]
+    if r["status"] != "ok":
+        _fail(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: "
+              f"{r['status']} {r.get('error') or r.get('reason')}")
+    if not (r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+            and r["collective_bytes"] > 0 and r["while_trips"]):
+        _fail(f"[dryrun] a count is missing: {r}")
+    mem = r["memory"]
+    print(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']} "
+          f"({r['devices']} ranks, plain kernels): per device "
+          f"{r['flops_per_device']:.4e} FLOPs, "
+          f"{r['bytes_per_device']:.4e} bytes, collectives "
+          f"{r['collective_bytes']:.4e} bytes ("
+          + ", ".join(f"{k} {v['count']:.0f}" for k, v in
+                      r["collectives"].items() if v["count"])
+          + f"), loops {r['while_trips']}, arguments "
+          f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, peak "
+          f"{mem['peak_size_in_bytes'] / 2**30:.3f} GiB; counted in "
+          f"{r['run_s']} s, {wall:.1f} s with the process")
+
+
+def _phase_roofline(torch, card: str, train: dict) -> None:
+    """[roofline]: llama2-7b at full width and depth counted on one device
+    as the card runs it (``launch.dryrun.count(kernels=True)``, mesh None,
+    on meta tensors: each K2 / K3 launch one op, its inputs read and
+    outputs written once, its own operations; the rest op by op) at the
+    three steps [serve] and [train] timed: the prefill of 8 x 1024 (into
+    a 1024-slot cache; [serve]'s has 2048, 4.3 GB more zeros), a
+    decode step of batch 8 against [serve]'s 2048-slot cache, and the
+    training step of 8 x 1024, remat full. Each beside its roofline bound
+    (``launch.roofline``, the H100's peaks), its measured time from those
+    phases (no second run), the step MFU and the counted peak memory
+    against the phase's ``torch.cuda.max_memory_allocated``. The counted
+    kernel launches must equal the main path's, and a measured time below
+    the compute term fails: that term is a strict lower bound, so the
+    count would be wrong. The memory term counts every op's operands at
+    the HBM rate, which the L2 can beat where they fit: it is reported,
+    not held."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+
+    cfg = get_config(SERVE_ARCH)
+    serve = STEP_RUNS["serve"]
+    arch, seq, batch = TRAIN_RUN
+    if arch != SERVE_ARCH:
+        _fail(f"[roofline] [serve] runs {SERVE_ARCH}, [train] {arch}")
+    k2_fwd, k3_fwd, _ = _launches_per_forward(cfg)
+    k2_train = (train["launches"][0] + train["launches"][1]) // TRAIN_STEPS
+    k3_train = train["launches"][2] // TRAIN_STEPS
+    steps = (
+        ("prefill", ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH,
+                                "prefill"), serve["prefill_s"],
+         "one timed prefill of [serve]'s teacher-forced kernel run",
+         serve["peak"], (k2_fwd, k3_fwd)),
+        ("decode", ShapeConfig("decode", SERVE_MAX_LEN, SERVE_BATCH,
+                               "decode"), serve["decode_s"],
+         f"the mean of [serve]'s {SERVE_NEW} teacher-forced decode steps",
+         serve["peak"], (k2_fwd, 0)),
+        ("train", ShapeConfig("train", seq, batch, "train"),
+         train["step_s"], f"the median of [train]'s {TRAIN_STEPS} timed "
+         "steps", train["peak"], (k2_train, k3_train)),
+    )
+    print(f"[roofline] card {card}; bounds from PEAK_FLOPS_BF16 "
+          f"{PEAK_FLOPS_BF16:.3e} FLOP/s and HBM_BW {roofline.HBM_BW:.3e} "
+          "B/s (NVIDIA H100 SXM datasheet)")
+    for name, shape, measured, origin, peak, want in steps:
+        acc = dryrun.count(cfg, shape, None, microbatches=1, kernels=True)
+        ks = acc["kernels"]
+        got = tuple(ks.get(k, {}).get("count", 0)
+                    for k in ("lora_matmul", "flash_attention"))
+        if got != want:
+            _fail(f"[roofline] {name}: counted K2 / K3 launches {got}, the "
+                  f"main path's {want}")
+        mf = roofline.model_flops_per_device(cfg, shape, 1)
+        t = roofline.terms(acc["dot_flops"], acc["traffic_bytes"], 0.0)
+        bound = t["bound_s"]
+        mfu = mf / (measured * PEAK_FLOPS_BF16)
+        print(f"[roofline] {cfg.name} {name} ({shape.global_batch} x "
+              f"{shape.seq_len}): dot FLOPs {acc['dot_flops']:.4e}, model "
+              f"FLOPs {mf:.4e} (ratio {mf / acc['dot_flops']:.3f}), bytes "
+              f"{acc['traffic_bytes']:.4e} ("
+              + ", ".join(f"{k} {v['count']} launches {v['bytes']:.4e} "
+                          f"bytes {v['flops']:.4e} FLOPs"
+                          for k, v in sorted(ks.items()))
+              + f"); bound {bound * 1e3:.3f} ms by "
+              f"{t['dominant']} (compute {t['compute_s'] * 1e3:.3f} ms, "
+              f"memory {t['memory_s'] * 1e3:.3f} ms); measured "
+              f"{measured * 1e3:.3f} ms ({origin}), measured / bound "
+              f"{measured / bound:.3f}, MFU {mfu:.4f}; counted peak "
+              f"{acc['memory']['peak_size_in_bytes'] / 2**30:.2f} GiB "
+              f"against the phase's max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB; counted in {acc['run_s']:.1f} s")
+        if measured < t["compute_s"]:
+            _fail(f"[roofline] {name}: measured {measured} s below its "
+                  f"compute term {t['compute_s']} s")
 
 
 def main() -> int:
@@ -4503,6 +4651,10 @@ def main() -> int:
           f"{k2_back['ms'] / k2_back['library_ms']:.2f}x); the W^T copy "
           f"before it {k2_back['copy_ms'] * 1e3:.1f} us (bound "
           f"{k2_back['copy_bound_ms'] * 1e3:.1f} us by bytes)")
+    # ---- phase 8: the dry run and the step roofline (CPU counts; after
+    # every timing, so its processes share no time with a measurement) ----
+    _phase_dryrun()
+    _phase_roofline(torch, card, train)
     print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'

@@ -1,9 +1,10 @@
 """Config registry of the port: the model configs of every family (copies
-of the reference's files), the training config and the scheduling
-configs."""
-from repro_torch.configs.base import (JobConfig, LoRAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig, ThroughputConfig,
-                                      TrainConfig)
+of the reference's files), the assigned input shapes, the training config
+and the scheduling configs."""
+from repro_torch.configs.base import (INPUT_SHAPES, JobConfig, LoRAConfig,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig, ThroughputConfig,
+                                      TrainConfig, shape_applicable)
 from repro_torch.configs import (command_r_plus_104b, granite_20b,
                                  hubert_xlarge, llama2_7b, mamba2_370m,
                                  mixtral_8x7b, mixtral_8x22b, olmo_1b,
@@ -26,6 +27,21 @@ _MODULES = {
 }
 
 
+# the dry run's architectures (``--arch all``)
+ASSIGNED_ARCHS = (
+    "qwen2-vl-7b",
+    "mamba2-370m",
+    "olmo-1b",
+    "zamba2-2.7b",
+    "qwen1.5-110b",
+    "mixtral-8x7b",
+    "mixtral-8x22b",
+    "granite-20b",
+    "command-r-plus-104b",
+    "hubert-xlarge",
+)
+
+
 def list_archs():
     return list(_MODULES)
 
@@ -42,6 +58,7 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _MODULES[name].smoke_config()
 
 
-__all__ = ["JobConfig", "LoRAConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+__all__ = ["ASSIGNED_ARCHS", "INPUT_SHAPES", "JobConfig", "LoRAConfig",
+           "ModelConfig", "MoEConfig", "SSMConfig", "ShapeConfig",
            "ThroughputConfig", "TrainConfig", "get_config", "get_smoke_config",
-           "list_archs"]
+           "list_archs", "shape_applicable"]

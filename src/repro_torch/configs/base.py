@@ -1,7 +1,8 @@
 """Configs: the model configuration (a copy of the reference's, with its
 LoRA, MoE and SSM parts; the MoE and SSM parts only because ModelConfig names
-them), the training config and the scheduling configs (the job four-tuple,
-the throughput model).
+them), the assigned input shapes with their skip rules (the dry run's), the
+training config and the scheduling configs (the job four-tuple, the
+throughput model).
 """
 from __future__ import annotations
 
@@ -230,6 +231,37 @@ class ModelConfig:
             small["sliding_window"] = min(self.sliding_window, 64)
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig,
+                     shape: ShapeConfig) -> Tuple[bool, str]:
+    """The skip rules. Returns (applicable, reason-if-not)."""
+    if shape.mode == "decode" and not model.supports_decode:
+        return False, "encoder-only architecture has no decode step"
+    if shape.name == "long_500k" and not model.is_sub_quadratic:
+        return False, ("full-attention arch without SWA/block-sparse "
+                       "variant (see DESIGN.md)")
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

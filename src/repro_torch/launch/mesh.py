@@ -1,6 +1,12 @@
-"""The pool mesh: how the policy-pool simulator and the fleet engine lay
-their grids over ranks. Port of the JAX package's ``launch/mesh.py`` (its
-pool-mesh half).
+"""Meshes: the production mesh the dry run lays a model step on, the
+pool mesh the policy-pool simulator and the fleet engine lay their grids
+on, and the card's peak rates the roofline divides by. Port of the JAX
+package's ``launch/mesh.py``.
+
+Production topology, as the reference's: (data=16, model=16) = 256 ranks
+on one pod, (pod=2, data=16, model=16) = 512 on two. The dry run builds it
+over a ``fake`` process group (:func:`fake_group`), whose collectives move
+nothing: it counts a step, it does not run one.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the default
 process group, one rank a shard (SPMD: every rank runs the same program on
@@ -13,10 +19,74 @@ stages its tensors through the host.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
 import torch
+
+# Per-card peak rates of an NVIDIA H100 SXM 80GB at its 700 W limit, from
+# NVIDIA's H100 Tensor Core GPU datasheet (the roofline's divisors).
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12              # bytes/s, HBM3
+# The rate a collective term divides by (bytes/s per card). NVLink 4 gives
+# 450e9 B/s each way between the 8 cards of one node, but a 16-way model
+# axis spans two nodes, so the term takes one 400 Gb/s NIC per card, as in
+# a DGX H100: 50e9 B/s.
+LINK_BW = 50e9
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """(16, 16) ``("data", "model")`` or (2, 16, 16) ``("pod", "data",
+    "model")`` over the default process group, which must hold that many
+    ranks. ``device_type`` None is the card, as every entry point; the dry
+    run passes "cpu" (its fake group)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, device_type)
+
+
+def make_cpu_mesh():
+    """The (1, 1) mesh with the production axis names on the CPU, over a
+    default process group of one rank (tests, examples)."""
+    return _mesh((1, 1), ("data", "model"), "cpu")
+
+
+def _mesh(shape, axes, device_type):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("a mesh needs an initialized default process "
+                           "group (torch.distributed)")
+    if int(np.prod(shape)) != dist.get_world_size():
+        raise ValueError(f"mesh {shape} does not cover "
+                         f"{dist.get_world_size()} ranks")
+    if device_type is None:
+        from repro_torch.device import resolve_device
+
+        device_type = resolve_device(None).type
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A default process group of ``world_size`` ranks on PyTorch's
+    ``fake`` backend, this process rank 0, destroyed on exit. Its
+    collectives return without moving data: for counting a sharded step
+    on fake tensors, never for running one. Refuses when a group is
+    already initialized."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_pool_mesh(shape=None, device_type=None):

@@ -24,8 +24,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_FILL
 from repro_torch.models import lora as lora_lib
-from repro_torch.models.common import normal_param
+from repro_torch.models.common import normal_param, zeros_param
 from repro_torch.models.rope import apply_m_rope, apply_rope
+from repro_torch.sharding import shard
 
 
 # ---------------------------------------------------------------------------
@@ -43,20 +44,23 @@ def init_attention(generator: torch.Generator, cfg, dtype) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = generator.device
     p = {
-        "wq": normal_param(generator, (d, h, hd), dtype),
-        "wk": normal_param(generator, (d, kv, hd), dtype),
-        "wv": normal_param(generator, (d, kv, hd), dtype),
-        "wo": normal_param(generator, (h, hd, d), dtype,
-                           stddev=1.0 / math.sqrt(h * hd)),
+        "wq": normal_param(generator, (d, h, hd), ("fsdp", "heads", None),
+                           dtype),
+        "wk": normal_param(generator, (d, kv, hd), ("fsdp", "kv_heads", None),
+                           dtype),
+        "wv": normal_param(generator, (d, kv, hd), ("fsdp", "kv_heads", None),
+                           dtype),
+        "wo": normal_param(generator, (h, hd, d), ("heads", None, "fsdp"),
+                           dtype, stddev=1.0 / math.sqrt(h * hd)),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
-        p["bk"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
-        p["bv"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
+        p["bq"] = zeros_param((h, hd), ("heads", None), dtype, dev)
+        p["bk"] = zeros_param((kv, hd), ("kv_heads", None), dtype, dev)
+        p["bv"] = zeros_param((kv, hd), ("kv_heads", None), dtype, dev)
     if cfg.o_bias:
-        p["bo"] = torch.zeros((d,), dtype=dtype, device=dev)
-    lora_tree = {t: lora_lib.init_lora_pair(generator, in_dim, out_shape,
-                                            cfg.lora.rank)
+        p["bo"] = zeros_param((d,), (None,), dtype, dev)
+    lora_tree = {t: lora_lib.lora_pair_params(generator, in_dim, out_shape,
+                                              cfg.lora.rank)
                  for t, (in_dim, out_shape) in lora_shapes(cfg).items()
                  if t in cfg.lora.targets}
     if lora_tree:
@@ -75,6 +79,9 @@ def qkv_project(cfg, p, x, positions, kcfg: ops.KernelConfig = ops.DEFAULT):
     q = lora_lib.proj(x, p["wq"], p.get("bq"), lt.get("q"), scale, kcfg)
     k = lora_lib.proj(x, p["wk"], p.get("bk"), lt.get("k"), scale, kcfg)
     v = lora_lib.proj(x, p["wv"], p.get("bv"), lt.get("v"), scale, kcfg)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     if cfg.m_rope:
         q = apply_m_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
         k = apply_m_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
@@ -122,6 +129,12 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, n_layers: int,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_specs(cfg, batch: int, max_len: int, n_layers: int) -> dict:
+    """Logical axes of the cache tree :func:`init_kv_cache` makes."""
+    axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": axes, "v": axes}
 
 
 def write_prefill(cfg, cache_k, cache_v, k, v):

@@ -11,11 +11,13 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.sharding import shard
 
 
 def init_transformer_block(generator: torch.Generator, cfg, dtype) -> dict:
     """A MoE layer after attention for the moe family, a dense MLP
-    otherwise (the hybrid family's shared block included)."""
+    otherwise (the hybrid family's shared block included). Param
+    leaves."""
     p = {
         "attn_norm": init_norm(cfg, dtype, generator.device),
         "attn": attn.init_attention(generator, cfg, dtype),
@@ -57,9 +59,11 @@ def transformer_block_full(cfg, p, h, positions, q_pos=None,
     out = attn.attend(q, k, v, q_pos, q_pos, causal=cfg.causal,
                       window=cfg.sliding_window, kcfg=kcfg)
     h = h + attn.out_project(cfg, p["attn"], out, kcfg)
+    h = shard(h, "batch", "seq", "embed")
     x = apply_norm(cfg, p["mlp_norm"], h)
     y, aux = _ffn(cfg, p, x, kcfg)
     h = h + y
+    h = shard(h, "batch", "seq", "embed")
     if want_cache:
         return h, aux, (k, v)
     return h, aux
@@ -96,7 +100,8 @@ def mamba_block_full(cfg, p, h, return_cache: bool = False,
         y, cache = ssm_lib.apply_mamba(cfg, p["mamba"], x, return_cache=True,
                                        kcfg=kcfg)
         return h + y, cache
-    return h + ssm_lib.apply_mamba(cfg, p["mamba"], x, kcfg=kcfg)
+    h = h + ssm_lib.apply_mamba(cfg, p["mamba"], x, kcfg=kcfg)
+    return shard(h, "batch", "seq", "embed")
 
 
 def mamba_block_decode(cfg, p, h1, cache, kcfg: ops.KernelConfig = ops.DEFAULT):

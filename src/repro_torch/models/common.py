@@ -1,5 +1,7 @@
 """Shared building blocks: initializers, norms, activations (the
-reference's ``models/common.py``)."""
+reference's ``models/common.py``). The initializers return
+:class:`repro_torch.sharding.Param` leaves: the value and its logical
+axes."""
 from __future__ import annotations
 
 import math
@@ -8,20 +10,34 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import Param
+
 
 # ---------------------------------------------------------------------------
 # Init helpers
 # ---------------------------------------------------------------------------
 
-def normal_param(generator: torch.Generator, shape, dtype,
-                 stddev: Optional[float] = None) -> torch.Tensor:
+def normal_param(generator: torch.Generator, shape, axes, dtype,
+                 stddev: Optional[float] = None) -> Param:
     """A normal draw in f32 on the generator's device, scaled and then cast
     (fan-in scaling ``1/sqrt(shape[0])`` by default, as the reference)."""
     if stddev is None:
         stddev = 1.0 / math.sqrt(shape[0])
     v = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (v * stddev).to(dtype)
+    return Param((v * stddev).to(dtype), axes)
+
+
+def zeros_param(shape, axes, dtype, device) -> Param:
+    return Param(torch.zeros(tuple(shape), dtype=dtype, device=device), axes)
+
+
+def ones_param(shape, axes, dtype, device) -> Param:
+    return Param(torch.ones(tuple(shape), dtype=dtype, device=device), axes)
+
+
+def const_param(value: torch.Tensor, axes) -> Param:
+    return Param(value, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -57,10 +73,10 @@ def init_norm(cfg, dtype, device) -> dict:
     """Norm params per config.norm_type. layernorm_np (OLMo) has no params."""
     d = cfg.d_model
     if cfg.norm_type == "rmsnorm":
-        return {"scale": torch.ones(d, dtype=dtype, device=device)}
+        return {"scale": ones_param((d,), (None,), dtype, device)}
     if cfg.norm_type == "layernorm":
-        return {"scale": torch.ones(d, dtype=dtype, device=device),
-                "bias": torch.zeros(d, dtype=dtype, device=device)}
+        return {"scale": ones_param((d,), (None,), dtype, device),
+                "bias": zeros_param((d,), (None,), dtype, device)}
     if cfg.norm_type == "layernorm_np":
         return {}
     raise ValueError(cfg.norm_type)

@@ -16,16 +16,27 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import normal_param
+from repro_torch.models.common import normal_param, zeros_param
+from repro_torch.sharding import split_params
+
+
+def lora_pair_params(generator: torch.Generator, in_dim: int,
+                     out_shape: Tuple[int, ...], rank: int) -> dict:
+    """A:(in, r) gaussian, B:(r, *out) zeros  (standard LoRA init: AB = 0),
+    as :class:`~repro_torch.sharding.Param` leaves."""
+    a = normal_param(generator, (in_dim, rank), ("fsdp", "lora_rank"),
+                     torch.float32)
+    out_axes = ("lora_rank", "tensor") + (None,) * (len(out_shape) - 1)
+    b = zeros_param((rank,) + tuple(out_shape), out_axes[:1 + len(out_shape)],
+                    torch.float32, generator.device)
+    return {"a": a, "b": b}
 
 
 def init_lora_pair(generator: torch.Generator, in_dim: int,
                    out_shape: Tuple[int, ...], rank: int) -> dict:
-    """A:(in, r) gaussian, B:(r, *out) zeros  (standard LoRA init: AB = 0)."""
-    a = normal_param(generator, (in_dim, rank), torch.float32)
-    b = torch.zeros((rank,) + tuple(out_shape), dtype=torch.float32,
-                    device=generator.device)
-    return {"a": a, "b": b}
+    """:func:`lora_pair_params`' values."""
+    return split_params(lora_pair_params(generator, in_dim, out_shape,
+                                         rank))[0]
 
 
 def lora_delta(x: torch.Tensor, lora: dict, scale: float) -> torch.Tensor:

@@ -8,8 +8,9 @@ expert runs one dense product, and the outputs are combined back with the
 router weights. Routing is grouped per batch row, as in the reference, and
 all rows are routed at once here (the reference vmaps one group). The
 expert products are ``torch.bmm`` (the reference leaves them to XLA
-einsums, outside any Pallas kernel). The reference's sharding hints have
-no counterpart on one device.
+einsums, outside any Pallas kernel). The reference's four sharding hints
+stand at the same points, in the port's (E, B * C, d) layout of the
+expert products.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import act_fn, normal_param
+from repro_torch.sharding import shard
 
 # named ranges around the layer's four stages, so that a profiler trace
 # shows the device time of each (a few us of host time a layer otherwise)
@@ -30,10 +32,14 @@ def init_moe(generator: torch.Generator, cfg, dtype) -> dict:
     default fan-in scaling (1/sqrt of the leading axis, E)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     return {
-        "router": normal_param(generator, (d, e), torch.float32, stddev=0.02),
-        "w1": normal_param(generator, (e, d, f), dtype),
-        "w3": normal_param(generator, (e, d, f), dtype),
-        "w2": normal_param(generator, (e, f, d), dtype),
+        "router": normal_param(generator, (d, e), ("fsdp", None),
+                               torch.float32, stddev=0.02),
+        "w1": normal_param(generator, (e, d, f), ("experts", "fsdp", "tensor"),
+                           dtype),
+        "w3": normal_param(generator, (e, d, f), ("experts", "fsdp", "tensor"),
+                           dtype),
+        "w2": normal_param(generator, (e, f, d), ("experts", "tensor", "fsdp"),
+                           dtype),
     }
 
 
@@ -133,12 +139,16 @@ def apply_moe(cfg, p, x):
         idx, wts, aux = route(cfg, p["router"], x)
     with rf(DISPATCH):
         buf, info = _dispatch(cfg, x, idx, cap)               # (B, E, C, d)
+        buf = shard(buf, "batch", "experts", None, "embed")
         xe = buf.transpose(0, 1).reshape(e, b * cap, d)
     with rf(EXPERTS):
         h = act(torch.bmm(xe, p["w1"]))
         if cfg.mlp_act == "silu":
             h = h * torch.bmm(xe, p["w3"])
+        h = shard(h, "experts", "batch", "tensor")
         out = torch.bmm(h, p["w2"]).reshape(e, b, cap, d).transpose(0, 1)
+        out = shard(out, "batch", "experts", None, "embed")
     with rf(COMBINE):
         y = _combine(cfg, out, info, wts, s).to(x.dtype)
+        y = shard(y, "batch", "seq", "embed")
     return y, aux.mean()

@@ -23,7 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import lora as lora_lib
-from repro_torch.models.common import normal_param
+from repro_torch.models.common import (const_param, normal_param, ones_param,
+                                      zeros_param)
+from repro_torch.sharding import shard
 
 
 # ---------------------------------------------------------------------------
@@ -39,25 +41,29 @@ def init_mamba(generator: torch.Generator, cfg, dtype) -> dict:
     dev = generator.device
     f32 = dict(dtype=torch.float32, device=dev)
     p = {
-        "wz": normal_param(generator, (d, di), dtype),
-        "wx": normal_param(generator, (d, di), dtype),
-        "wB": normal_param(generator, (d, G, N), dtype),
-        "wC": normal_param(generator, (d, G, N), dtype),
-        "wdt": normal_param(generator, (d, H), dtype),
-        "conv_w": normal_param(generator, (di + 2 * G * N, wc), dtype,
-                               stddev=0.3),
-        "conv_b": torch.zeros((di + 2 * G * N,), dtype=dtype, device=dev),
+        "wz": normal_param(generator, (d, di), ("fsdp", "tensor"), dtype),
+        "wx": normal_param(generator, (d, di), ("fsdp", "tensor"), dtype),
+        "wB": normal_param(generator, (d, G, N), ("fsdp", None, None), dtype),
+        "wC": normal_param(generator, (d, G, N), ("fsdp", None, None), dtype),
+        "wdt": normal_param(generator, (d, H), ("fsdp", "ssm_heads"), dtype),
+        "conv_w": normal_param(generator, (di + 2 * G * N, wc),
+                               ("tensor", None), dtype, stddev=0.3),
+        "conv_b": zeros_param((di + 2 * G * N,), ("tensor",), dtype, dev),
         # A in (-inf, 0): A = -exp(A_log); init A in [-1, -e]
-        "A_log": torch.log(torch.linspace(1.0, math.e, H, **f32)),
-        "D": torch.ones((H,), **f32),
-        "dt_bias": torch.log(torch.expm1(torch.full((H,), 0.01, **f32))),
-        "norm_scale": torch.ones((di,), dtype=dtype, device=dev),
-        "out_proj": normal_param(generator, (di, d), dtype),
+        "A_log": const_param(torch.log(torch.linspace(1.0, math.e, H, **f32)),
+                             ("ssm_heads",)),
+        "D": ones_param((H,), ("ssm_heads",), torch.float32, dev),
+        "dt_bias": const_param(
+            torch.log(torch.expm1(torch.full((H,), 0.01, **f32))),
+            ("ssm_heads",)),
+        "norm_scale": ones_param((di,), ("tensor",), dtype, dev),
+        "out_proj": normal_param(generator, (di, d), ("tensor", "fsdp"),
+                                 dtype),
     }
     r = cfg.lora.rank
     p["lora"] = {
-        "in": lora_lib.init_lora_pair(generator, d, (di,), r),
-        "out": lora_lib.init_lora_pair(generator, di, (d,), r),
+        "in": lora_lib.lora_pair_params(generator, d, (di,), r),
+        "out": lora_lib.lora_pair_params(generator, di, (d,), r),
     }
     return p
 
@@ -223,6 +229,7 @@ def apply_mamba(cfg, p, x, return_cache: bool = False,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
+    xs = shard(xs, "batch", "seq", "ssm_heads", None)
     if kcfg.use_cuda:
         y, h_final = ops.ssd(xs, dt, A, B, C, kcfg=kcfg)
         h_final = h_final.transpose(2, 3)  # the kernel's (N, P) -> (P, N)
@@ -256,6 +263,12 @@ def init_mamba_cache(cfg, batch: int, dtype, device) -> dict:
         "ssd": torch.zeros((batch, H, P, N), dtype=torch.float32,
                            device=device),
     }
+
+
+def mamba_cache_specs() -> dict:
+    """Logical axes of one layer's cache (:func:`init_mamba_cache`)."""
+    return {"conv": ("batch", None, "tensor"),
+            "ssd": ("batch", "ssm_heads", None, None)}
 
 
 def apply_mamba_decode(cfg, p, x_t, cache, kcfg: ops.KernelConfig = ops.DEFAULT):

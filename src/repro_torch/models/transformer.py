@@ -18,6 +18,10 @@ bring its own ``positions`` ((B, S), or (B, S, 3) under M-RoPE); attention
 then masks by batch row 0's positions (its temporal stream under M-RoPE),
 as the reference does, through K3's position inputs. Encoder-only configs
 (HuBERT) have ``forward`` only.
+
+:func:`init_model` also gives every parameter's logical axes (the
+reference's, without its leading stacked "layers" axis), and
+:func:`cache_axes` the cache's: ``launch.dryrun`` lays both out on a mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm, normal_param
 from repro_torch.models.rope import default_m_positions, default_positions
+from repro_torch.sharding import Param, axes_to_str, shard, split_params
+from repro_torch.utils.tree import flatten, unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,20 +65,30 @@ def super_blocks(cfg) -> tuple:
 # Init
 # ---------------------------------------------------------------------------
 
-def init_params(generator: torch.Generator, cfg) -> dict:
-    """Random parameters drawn on the generator's device (each tensor in f32,
-    then cast to the model dtype; adapters and the SSM's A_log, D and
-    dt_bias stay f32). LoRA B is zero, as the standard init. An
-    ``embed_inputs`` config has no input table and always an output head."""
+def stack_param_trees(trees):
+    """Per-layer Param trees -> one tree of stacked Params with a leading
+    "layers" axis (the reference's scanned layout)."""
+    leaves = [flatten(t)[0] for t in trees]
+    treedef = flatten(trees[0])[1]
+    return unflatten(treedef, [
+        Param(torch.stack([p.value for p in ps]), ("layers",) + ps[0].axes)
+        for ps in zip(*leaves)])
+
+
+def _param_tree(generator: torch.Generator, cfg) -> dict:
+    """:func:`init_params` with :class:`~repro_torch.sharding.Param`
+    leaves."""
     dt = model_dtype(cfg)
     p = {}
     if not cfg.embed_inputs:
+        # vocab not sharded: the table is small once d_model is
+        # FSDP-sharded (the reference's choice)
         p["embed"] = normal_param(generator, (cfg.vocab_size, cfg.d_model),
-                                  dt, stddev=0.02)
+                                  (None, "fsdp"), dt, stddev=0.02)
     p["final_norm"] = init_norm(cfg, dt, generator.device)
     if not cfg.tie_embeddings or cfg.embed_inputs:
-        p["head"] = normal_param(generator, (cfg.d_model, cfg.vocab_size), dt,
-                                 stddev=0.02)
+        p["head"] = normal_param(generator, (cfg.d_model, cfg.vocab_size),
+                                 ("fsdp", "vocab"), dt, stddev=0.02)
     if cfg.arch_type in _ATTENTION_STACKS:
         p["layers"] = [blk.init_transformer_block(generator, cfg, dt)
                        for _ in range(cfg.num_layers)]
@@ -87,14 +103,30 @@ def init_params(generator: torch.Generator, cfg) -> dict:
     return p
 
 
+def init_params(generator: torch.Generator, cfg) -> dict:
+    """Random parameters drawn on the generator's device (each tensor in f32,
+    then cast to the model dtype; adapters and the SSM's A_log, D and
+    dt_bias stay f32). LoRA B is zero, as the standard init. An
+    ``embed_inputs`` config has no input table and always an output head."""
+    return init_model(generator, cfg)[0]
+
+
+def init_model(generator: torch.Generator, cfg):
+    """(parameter values, logical axes): the axes tree has the values'
+    structure, with :func:`~repro_torch.sharding.axes_to_str` leaves."""
+    return split_params(_param_tree(generator, cfg))
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg, params, batch) -> torch.Tensor:
     if cfg.embed_inputs:
-        return batch["embeds"].to(model_dtype(cfg))
-    return params["embed"][batch["tokens"]].to(model_dtype(cfg))
+        h = batch["embeds"].to(model_dtype(cfg))
+    else:
+        h = params["embed"][batch["tokens"]].to(model_dtype(cfg))
+    return shard(h, "batch", "seq", "embed")
 
 
 def unembed(cfg, params, h) -> torch.Tensor:
@@ -103,6 +135,7 @@ def unembed(cfg, params, h) -> torch.Tensor:
         logits = h @ params["head"]
     else:
         logits = h @ params["embed"].t()
+    logits = shard(logits, "batch", "seq", "vocab")
     return logits.float()
 
 
@@ -196,6 +229,27 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
             c.update(attn.init_kv_cache(cfg, batch, max_len, dt, lead[0],
                                         device))
     c["index"] = 0
+    return c
+
+
+def cache_axes(cfg) -> dict:
+    """Logical axes of :func:`init_cache`'s tree (string leaves): the
+    reference's, in the port's flat cache (its "kv" / "mamba" subtrees'
+    leaves at the top)."""
+    kv = axes_to_str(("layers", "batch", "kv_seq", "kv_heads", None))
+    c = {"index": axes_to_str(())}
+    if cfg.arch_type in _ATTENTION_STACKS:
+        c.update(k=kv, v=kv)
+    elif cfg.arch_type == "ssm":
+        c.update(conv=axes_to_str(("layers", "batch", None, "tensor")),
+                 ssd=axes_to_str(("layers", "batch", "ssm_heads", None,
+                                  None)))
+    else:
+        c.update(conv=axes_to_str(("layers", "layers", "batch", None,
+                                   "tensor")),
+                 ssd=axes_to_str(("layers", "layers", "batch", "ssm_heads",
+                                  None, None)),
+                 k=kv, v=kv)
     return c
 
 

@@ -1,15 +1,24 @@
-"""Logical-axis sharding rules with a divisibility fallback. Port of the
-pool-mesh half of the JAX package's ``sharding.py``: the rule table and
-the resolution of logical axes against a mesh.
+"""Logical-axis sharding rules with a divisibility fallback (the JAX
+package's ``sharding.py``).
 
-Code names the logical axes of an array ("jobs", "lanes", ...); the rules
-map each to mesh axes, dropping any mesh axis that does not evenly divide
-the dimension (fallback: replicate). The pool simulator resolves its
-(jobs, lanes) grid this way over the pool mesh (``launch.mesh``).
+Code names the logical axes of an array ("batch", "heads", "jobs", ...);
+the rules map each to mesh axes, dropping any mesh axis that does not
+evenly divide the dimension (fallback: replicate). The pool simulator
+resolves its (jobs, lanes) grid this way over the pool mesh
+(``launch.mesh``). The models record each parameter's axes (:class:`Param`)
+and constrain their activations with :func:`shard`, which is the identity
+outside a sharding context (:func:`use_sharding`) and on plain tensors, so
+every unsharded path runs exactly as without it. Inside one, on a DTensor
+(``torch.distributed.tensor``), it redistributes to the placements the
+axes resolve to: one ``Shard(d)`` or ``Replicate()`` per mesh dimension.
+The dry run (``launch.dryrun``) is the one user of that path.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+from repro_torch.utils.tree import flatten, unflatten
 
 # logical axis -> tuple of mesh axes (tried in order, divisibility permitting)
 DEFAULT_RULES = {
@@ -59,7 +68,7 @@ def resolve_spec(
         raise ValueError(f"axes {logical_axes} against shape {shape}")
     used = set()
     out = []
-    axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     for name, dim in zip(logical_axes, shape):
         if name is None:
             out.append(None)
@@ -101,3 +110,147 @@ def shard_block(entry, mesh, coord=None) -> Tuple[int, int]:
         index = index * size + int(coord[names.index(ax)])
         count *= size
     return count, index
+
+
+# ---------------------------------------------------------------------------
+# Context
+# ---------------------------------------------------------------------------
+
+class ShardingCtx(NamedTuple):
+    mesh: object  # a DeviceMesh
+    rules: dict
+
+
+_CTX: list = []  # stack
+
+
+def current_ctx() -> Optional[ShardingCtx]:
+    return _CTX[-1] if _CTX else None
+
+
+@contextlib.contextmanager
+def use_sharding(mesh, rules: Optional[dict] = None):
+    """Install ``mesh`` (a DeviceMesh) and the rules (DEFAULT_RULES updated
+    with ``rules``) for :func:`shard` and the sharded constructors."""
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    _CTX.append(ShardingCtx(mesh, merged))
+    try:
+        yield
+    finally:
+        _CTX.pop()
+
+
+def placements(logical_axes, shape, mesh, rules: dict) -> tuple:
+    """Logical axes -> DTensor placements, one per mesh dimension:
+    ``Shard(d)`` where :func:`resolve_spec` gives tensor dimension d that
+    mesh axis, else ``Replicate()``. An entry naming two mesh axes (batch
+    over ("pod", "data")) shards one dimension over both, the first
+    outermost, which is the mesh's own order; an entry against it
+    raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(resolve_spec(logical_axes, shape, mesh,
+                                             rules)):
+        if entry is None:
+            continue
+        idx = [names.index(a) for a in ((entry,) if isinstance(entry, str)
+                                        else entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"entry {entry} is against the mesh order "
+                             f"{names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def named_sharding(logical_axes, shape, ctx: Optional[ShardingCtx] = None):
+    """(mesh, placements) of an array of ``shape`` with these axes."""
+    ctx = ctx or current_ctx()
+    if ctx is None:
+        raise RuntimeError("named_sharding outside a sharding context")
+    return ctx.mesh, placements(logical_axes, shape, ctx.mesh, ctx.rules)
+
+
+def shard(x, *logical_axes: Optional[str]):
+    """Activation sharding constraint: ``x`` itself outside a sharding
+    context or when ``x`` is a plain tensor; a DTensor redistributed to
+    the placements of ``logical_axes`` inside one."""
+    if current_ctx() is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh, pl = named_sharding(logical_axes, x.shape)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
+
+
+# ---------------------------------------------------------------------------
+# Param annotation
+# ---------------------------------------------------------------------------
+
+class Param:
+    """A parameter leaf paired with its logical axes. The models' init
+    functions build trees of these; :func:`split_params` separates the
+    values (what the model runs on) from the axes (how a mesh lays them
+    out)."""
+
+    __slots__ = ("value", "axes")
+
+    def __init__(self, value, axes: Tuple[Optional[str], ...]):
+        self.value = value
+        self.axes = tuple(axes)
+
+    def __repr__(self):
+        shape = tuple(getattr(self.value, "shape", ()))
+        return f"Param(shape={shape}, axes={self.axes})"
+
+
+def is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+# axes trees use ','-joined string leaves, so they are leaves of a tree
+def axes_to_str(axes: Tuple[Optional[str], ...]) -> str:
+    return ",".join("" if a is None else a for a in axes)
+
+
+def str_to_axes(s: str) -> Tuple[Optional[str], ...]:
+    if s == "":
+        return ()
+    return tuple(None if a == "" else a for a in s.split(","))
+
+
+def split_params(tree):
+    """Tree of Param -> (values tree, logical-axes tree with string
+    leaves)."""
+    leaves, treedef = flatten(tree)
+    return (unflatten(treedef, [p.value for p in leaves]),
+            unflatten(treedef, [axes_to_str(p.axes) for p in leaves]))
+
+
+def tree_shardings(values_tree, axes_tree, mesh, rules: Optional[dict] = None):
+    """A tree of placement tuples (:func:`placements`), one per leaf of
+    ``values_tree``, resolved against its shape; ``axes_tree`` has the
+    same structure with string (or tuple) leaves, "" for a leaf whose
+    every dimension is replicated."""
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    values, treedef = flatten(values_tree)
+    axes, _ = flatten(axes_tree)
+    if len(axes) != len(values):
+        raise ValueError(f"{len(axes)} axes leaves for {len(values)} values")
+    out = []
+    for v, ax in zip(values, axes):
+        ax = str_to_axes(ax) if isinstance(ax, str) else tuple(ax)
+        if len(ax) == 0:
+            ax = (None,) * len(v.shape)
+        out.append(placements(ax, tuple(v.shape), mesh, merged))
+    return unflatten(treedef, out)

@@ -8,8 +8,10 @@ import torch
 def cross_entropy(logits, targets, loss_mask=None, z_loss: float = 0.0):
     """logits (B,S,V) f32, targets (B,S) int. Mean over unmasked tokens."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = logz - gold
+    # the gathered logit stays (B, S, 1) until the subtraction: on a
+    # vocab-sharded DTensor its pending reduction is in that shape
+    gold = torch.gather(logits, -1, targets[..., None].long())
+    nll = (logz[..., None] - gold)[..., 0]
     if z_loss:
         nll = nll + z_loss * torch.square(logz)
     if loss_mask is not None:

@@ -21,6 +21,7 @@ from repro_torch.core.job import exact_div
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.sharding import shard
 from repro_torch.train.losses import task_loss
 from repro_torch.utils.partition import is_lora_path, partition_by_path
 from repro_torch.utils.tree import flatten
@@ -90,11 +91,16 @@ def make_train_step(cfg, tcfg, kcfg: ops.KernelConfig = ops.DEFAULT):
         lora0, merge = partition_by_path(params, is_lora_path)
         a = tcfg.microbatches
         if a > 1:
+            # under a sharding context the batch is gathered once, and each
+            # microbatch laid out over the batch axes (the reference's
+            # constraint); both are the identity otherwise
+            batch = {k: shard(x, *(None,) * x.ndim) for k, x in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=lora0[0].device)
             grads = [torch.zeros_like(leaf) for leaf in lora0]
             for i in range(a):
-                mb = {k: x.reshape((a, x.shape[0] // a) + x.shape[1:])[i]
+                mb = {k: shard(x.reshape((a, x.shape[0] // a) + x.shape[1:])[i],
+                               "batch", *(None,) * (x.ndim - 1))
                       for k, x in batch.items()}
                 l_i, g_i = _value_and_grad(cfg, tcfg, kcfg, merge, lora0, mb)
                 loss = loss + l_i

@@ -332,3 +332,25 @@ def test_fleet_and_moe_entry_points_raise_without_cuda(monkeypatch):
     params = convert.model_params(vals, cfg, "cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg, params)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+    "repro_torch.launch.roofline", "repro_torch.launch.perf",
+    "repro_torch.launch.reanalyze", "repro_torch.launch.specs",
+    "repro_torch.launch.stand_ins",
+])
+def test_launch_modules_load_no_jax_and_start_no_process_group(module):
+    """The dry run and its accounting stand alone, each imported first in
+    a fresh process, and importing one starts no process group (the dry
+    run makes its fake group inside a run and destroys it)."""
+    proc = _run(
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        f"import {module}\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or"
+        " k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert not dist.is_initialized()\n"
+    )
+    assert proc.returncode == 0, proc.stderr

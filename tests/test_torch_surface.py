@@ -60,3 +60,71 @@ def test_package_docstring_names_every_family_and_training():
     for word in ("dense", "moe", "ssm", "hybrid", "vlm", "audio",
                  "fine-tuning", "checkpoint", "elastic"):
         assert word in doc, word
+
+
+# reference module -> its counterpart in the port, where the name differs
+MODULE_PAIRS = {"launch/hlo_analysis.py": "launch/op_analysis.py"}
+# (reference module, top-level name) with no counterpart, and why
+NO_COUNTERPART = {
+    ("core/predictor.py", "noisy_matrix_batch_jax"):
+        "the JAX forecaster route; the port's is noisy_matrix_batch_torch",
+    ("core/predictor.py", "regional_noisy_matrix_jax"):
+        "the JAX forecaster route; the port's is "
+        "regional_noisy_matrix_torch",
+    ("kernels/ops.py", "on_tpu"):
+        "the port routes by KernelConfig.use_cuda and the tensor's device",
+    ("kernels/window_dp.py", "LANE_BLOCK"):
+        "the Pallas grid's TPU lane tile; K1's CUDA grid has its own",
+    ("launch/mesh.py", "ICI_BW"):
+        "the TPU interconnect's rate; the H100's collective rate is LINK_BW",
+    ("models/common.py", "softplus"):
+        "the port calls torch.nn.functional.softplus",
+    **{("launch/hlo_analysis.py", n): "HLO text parsing: the port has no "
+       "HLO, it counts an op stream" for n in ("parse_module",
+                                               "extract_trip_counts",
+                                               "Instr", "Computation",
+                                               "type_shape")},
+}
+REF_SRC = Path(__file__).resolve().parents[1] / "src" / "repro"
+
+
+def _top_level_names(path: Path) -> set:
+    """Public names a module defines (def, class, assignment) and, for a
+    package's ``__init__``, the names it imports."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {n.id for t in node.targets for n in ast.walk(t)
+                    if isinstance(n, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+        elif path.name == "__init__.py" and isinstance(node, ast.ImportFrom):
+            out |= {a.asname or a.name for a in node.names}
+    return {n for n in out if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", sorted(
+    str(p.relative_to(REF_SRC)) for p in REF_SRC.rglob("*.py")))
+def test_every_reference_module_has_its_counterpart(rel):
+    """Each top-level name of each reference module has a counterpart of
+    the same name in the port's module of the same path (the HLO
+    analysis's is ``launch/op_analysis``), but for the stated list."""
+    port_rel = MODULE_PAIRS.get(rel, rel)
+    name = "repro_torch." + port_rel[:-3].replace("/", ".") \
+        .replace(".__init__", "")
+    module = importlib.import_module(name)
+    missing = []
+    for n in sorted(_top_level_names(REF_SRC / rel)):
+        if (rel, n) in NO_COUNTERPART:
+            assert not hasattr(module, n), (rel, n)
+            continue
+        if hasattr(module, n):
+            continue
+        if rel.endswith("__init__.py") and importlib.util.find_spec(
+                f"{name}.{n}") is not None:
+            continue  # a submodule the reference's package imports
+        missing.append(n)
+    assert missing == [], (rel, missing)
