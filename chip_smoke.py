@@ -6,10 +6,10 @@ Run from the repo root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four kernels (``src/repro_torch/kernels/csrc/*.cu``: K1
-window_dp, K2 lora_matmul, K3 flash_attention, K4 ssd_scan), one nvcc for
-sm_90a each, all started together, and then drives these paths on the
-card:
+It builds the kernels (``src/repro_torch/kernels/csrc/*.cu``: K1
+window_dp, K2 lora_matmul, K3 flash_attention, K4 ssd_scan and K4's
+backward ssd_scan_bwd), one nvcc for sm_90a each, all started together,
+and then drives these paths on the card:
 
 - the paper's online policy selection (Fig. 9: four noise settings, 1000
   jobs x ``paper_pool()``) through ``engine.simulate_and_select``, whose
@@ -82,15 +82,21 @@ card:
   its launch counts checked, its logits held against the plain run and a
   traced prefill or forward.
 - LoRA fine-tuning, the paper's workload: K2's autograd Function (forward
-  K2, dx by K2 on W^T, B^T, A^T) and K3's and K4's (forward the kernel,
-  backward autograd through the plain version) against autograd through
-  the plain versions (``[k2-grad]``, ``[k3-grad]``, ``[k4-grad]``; a direct
-  launch under grad raises); the llama2-7b smoke config trained 4 steps
-  against the JAX package's train step (``[train-ref]``); llama2-7b at
-  full width and depth, bf16, trained with remat (``[train]``: step 0's
-  LoRA gradients finite, non-zero and held against the plain runs in bf16
-  and f32, step time, tokens/s, peak memory, launch counts, a traced
-  step, the base weights bit-unchanged); and the elastic trainer of
+  K2, dx by K2 on W^T, B^T, A^T), K3's (forward the kernel, backward
+  autograd through the plain version) and K4's (forward K4, backward K4's
+  backward kernel) against autograd through the plain versions
+  (``[k2-grad]``, ``[k3-grad]``, ``[k4-grad]``; a direct launch under grad
+  raises), K4's backward also against its full-size plain version at the
+  SSM training shapes; the llama2-7b smoke config trained 4 steps against
+  the JAX package's train step (``[train-ref]``); llama2-7b at full width
+  and depth, bf16, trained with remat (``[train]``: step 0's LoRA
+  gradients finite, non-zero and held against the plain runs in bf16 and
+  f32, step time, tokens/s, peak memory, launch counts, a traced step, the
+  base weights bit-unchanged); the mamba2-370m and zamba2-2.7b smoke
+  configs trained 4 steps against the JAX package (``[train-ssm-ref]``)
+  and both at full width and depth the same way as llama2-7b
+  (``[train-ssm]``: 8 x 2048 and 8 x 1024, K2, K3, K4 and K4's backward,
+  no plain version on mamba2's path); and the elastic trainer of
   examples/elastic_finetune_torch.py at its full setting (``[elastic]``:
   the scheduler's plan equal to the JAX package's, AHAP's windows on K1,
   real checkpoint round trips).
@@ -99,9 +105,11 @@ card:
   full size on (16, 16), over a fake process group of 256 (CPU counts on
   fake tensors, not a run; the smoke combinations are the CPU tests'),
   and fails on a FAILED record; ``[roofline]`` counts llama2-7b's
-  prefill, decode step and training step on one device as the card runs
-  them (K2, K3 by their own traffic and operations) and sets each beside
-  its H100 bound, [serve]'s and [train]'s measured time (failing when a
+  prefill, decode step and training step, and mamba2-370m's training
+  step, on one device as the card runs them (K2, K3, K4 and K4's backward
+  by their own traffic and operations) and sets each beside
+  its H100 bound, [serve]'s, [train]'s and [train-ssm]'s measured time
+  (failing when a
   time is below the compute term, a strict lower bound), the step MFU and
   the counted against the measured peak memory.
 
@@ -541,6 +549,46 @@ TRAIN_REF = {
         'move_sq': 0.4842421250897805,
     },
 }
+# [train-ssm-ref]: the same runs on the mamba2-370m and zamba2-2.7b smoke
+# configs (f32, 2 layers, d 256, N 16, P 32; zamba2's shared attention
+# block after each), K2, K4 forward and K4's backward kernel (and K3 for
+# zamba2) on the card; TRAIN_SSM_REF from tools/jax_train_refs.py, held
+# within TRAIN_REF_RTOL.
+TRAIN_SSM_ARCHS = ("mamba2-370m", "zamba2-2.7b")
+TRAIN_SSM_REF = {
+    'mamba2-370m': {
+        1: {
+            'loss': (6.311740875244141, 6.310910701751709, 6.2799201011657715, 6.28609037399292),
+            'grad_norm': (0.35621070861816406, 0.3457562029361725, 0.3592727780342102, 0.3503274917602539),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 162.6069953162146,
+            'move_sq': 0.7259793197924962,
+        },
+        2: {
+            'loss': (6.311741828918457, 6.310911655426025, 6.2799201011657715, 6.28609037399292),
+            'grad_norm': (0.35621073842048645, 0.3457562327384949, 0.3592727780342102, 0.3503274619579315),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 162.60700696887992,
+            'move_sq': 0.725979330289577,
+        },
+    },
+    'zamba2-2.7b': {
+        1: {
+            'loss': (6.323063373565674, 6.249260425567627, 6.29502534866333, 6.289777755737305),
+            'grad_norm': (0.4170707166194916, 0.41770634055137634, 0.41536760330200195, 0.4223538339138031),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 217.06604938499083,
+            'move_sq': 0.970797681524198,
+        },
+        2: {
+            'loss': (6.323063850402832, 6.249259948730469, 6.295024871826172, 6.2897772789001465),
+            'grad_norm': (0.4170707166194916, 0.41770634055137634, 0.41536763310432434, 0.4223538935184479),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 217.06604225369517,
+            'move_sq': 0.9707976438804526,
+        },
+    },
+}
 # f32 on both sides, sums in another order (the CPU test's loss tolerance
 # is 1e-5 and holds ~1e-7; the card's K2 / K3 add their own order): loss
 # and lr 1e-5, grad norm 1e-4, the leaves' movement 1e-4
@@ -554,6 +602,15 @@ TRAIN_REF_RTOL = {"loss": 1e-5, "lr": 1e-5, "grad_norm": 1e-4,
 TRAIN_RUN = ("llama2-7b", 1024, 8)
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
+# [train-ssm]: the SSM and hybrid families trained the same way (bf16,
+# remat full, LoRA on Mamba2's wx and out_proj, and the shared attention
+# block's q and v): mamba2-370m (arXiv:2405.21060) at full width and depth
+# (48 layers, d 1024, H 32, N 128, P 64) and zamba2-2.7b (arXiv:2411.15242)
+# at full width and depth (54 Mamba2 layers, H 80, N 64, the shared block
+# every 6); TRAIN_WARMUP warm-up steps, then TRAIN_SSM_STEPS timed. (arch,
+# seq, batch)
+TRAIN_SSM_RUNS = (("mamba2-370m", 2048, 8), ("zamba2-2.7b", 1024, 8))
+TRAIN_SSM_STEPS = 3
 # [elastic]: examples/elastic_finetune_torch.py's full setting (tiny-100m,
 # ~134M parameters, seq 128, batch 8, AHAP(3, 1, 0.7) on
 # vast_like_trace(seed=4, days=2) with ARIMA forecasts) on the card. The
@@ -1921,18 +1978,21 @@ def _ssd_case(torch, gen, bh, s, p, n, dtype):
             _randn(torch, gen, (bh, s, n), 0.3, dtype))
 
 
+def _ssd_layout(arch, batch, seq):
+    """K4's (Bt, S, H, P, G, N) in ``arch``'s layer at (batch, seq)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    sc = cfg.ssm
+    return (batch, seq, sc.heads(cfg.d_model), sc.head_dim, sc.n_groups,
+            sc.state_size)
+
+
 def _ssd_layouts():
     """K4 on the two full-width prefills, in the model's layout: tag ->
     (Bt, S, H, P, G, N)."""
-    from repro_torch.configs import get_config
-
-    layouts = {}
-    for tag, (arch, batch, prompt, _, _) in FAMILY_RUNS.items():
-        cfg = get_config(arch)
-        sc = cfg.ssm
-        layouts[tag] = (batch, prompt, sc.heads(cfg.d_model), sc.head_dim,
-                        sc.n_groups, sc.state_size)
-    return layouts
+    return {tag: _ssd_layout(arch, batch, prompt)
+            for tag, (arch, batch, prompt, _, _) in FAMILY_RUNS.items()}
 
 
 def _ssd_grouped_case(torch, gen, bt, s, hh, p, g, n, dtype):
@@ -2417,6 +2477,15 @@ def _reset_counts(k2, k3, k4) -> None:
     k3.flash_attention.launches = 0
     k3.flash_attention.position_launches = 0
     k4.ssd_scan.launches = 0
+    k4.ssd_scan.backward_launches = 0
+
+
+def _train_counts(k2, k3, k4) -> tuple:
+    """(K2 forward, K2 backward, K3, K4, K4 backward) launches since the
+    last reset."""
+    return (k2.lora_matmul.launches, k2.lora_matmul.backward_launches,
+            k3.flash_attention.launches, k4.ssd_scan.launches,
+            k4.ssd_scan.backward_launches)
 
 
 def _counts(k2, k3) -> tuple:
@@ -2879,7 +2948,8 @@ def _trace_line(torch, what, prof, wall_s, exclusive=None):
     ``exclusive`` ({range name: part}) also splits busy time into exclusive
     parts: a kernel inside the device span of one of those ranges counts
     for its part, any other by its name (K2, K3, cuBLAS, elementwise, the
-    rest). Returns those parts in ms with ``wall_ms`` and ``busy_ms`` (None
+    rest). Returns those parts in ms with ``wall_ms``, ``busy_ms`` and
+    ``kernels_in`` (each exclusive part's count of device kernels) (None
     without ``exclusive`` or device events)."""
     import bisect
 
@@ -2945,17 +3015,21 @@ def _trace_line(torch, what, prof, wall_s, exclusive=None):
     starts = [a for a, _, _ in spans]
     parts = dict.fromkeys([*KERNEL_NAMES, *exclusive.values(),
                            *LIBRARY_NAMES, "other"], 0.0)
+    kernels_in = dict.fromkeys(exclusive.values(), 0)
     for a, b, name in kernels:
         i = bisect.bisect_right(starts, a) - 1
         inside = i >= 0 and b <= spans[i][1]
         parts[exclusive[spans[i][2]] if inside else part_of(name)] += \
             (b - a) / 1e6
+        if inside:
+            kernels_in[exclusive[spans[i][2]]] += 1
     busy_ms, wall_ms = busy_us / 1e3, wall_s * 1e3
     print(f"[trace] {what}: idle {1 - busy_ms / wall_ms:.1%} of wall; busy "
           "split (exclusive): " + "; ".join(
               f"{k} {v:.1f} ms ({v / busy_ms:.1%})" for k, v in parts.items())
           + f"; {len(spans)} range spans, {len(kernels)} kernels")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, **parts}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, **parts,
+            "kernels_in": kernels_in}
 
 
 def _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, max_len, name,
@@ -3131,6 +3205,56 @@ def _phase_time_k4(torch, gen, k4, ssd_scan_ref, ssd_scan_grouped_ref, bt,
     return rows
 
 
+def _phase_time_k4_backward(torch, gen, k4, bt, s, hh, p, g, n):
+    """K4's backward at a training shape (bf16 x, B, C as views of one
+    buffer, dy bf16, dt, A and the state cotangent f32): the kernel by
+    ``_graph_ms`` and by events, its plain version
+    ``ssd_scan_grouped_bwd_ref`` and autograd's backward through
+    ``models/ssm.ssd_chunked`` at the model's chunk (what the plain
+    training run executes; the forward's graph kept), each by events. The
+    bound counts each input and output once (x, dy, dx, B, C, dB, dC at 2
+    bytes, dt, d(dt), A, dA and the state cotangent at 4) and
+    ``op_analysis.ssd_backward_flops`` at the bf16 tensor-core rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import ssd_scan_grouped_bwd_ref
+    from repro_torch.launch.op_analysis import ssd_backward_flops
+    from repro_torch.models.ssm import ssd_chunked
+
+    ins = _ssd_grouped_case(torch, gen, bt, s, hh, p, g, n, torch.bfloat16)
+    dy = _randn(torch, gen, (bt, s, hh, p), 1.0, torch.bfloat16)
+    dh = _randn(torch, gen, (bt, hh, n, p), 1.0, torch.float32)
+
+    def kernel():
+        return k4.ssd_scan_grouped_backward(*ins, dy, dh)
+
+    before = k4.ssd_scan.backward_launches   # timing launches do not count
+    for _ in range(2):
+        kernel()
+    events = _event_ms(torch, kernel, 5)
+    ms = _graph_ms(torch, kernel, reps=5, rounds=3)
+    k4.ssd_scan.backward_launches = before
+    plain = _event_ms(torch, lambda: ssd_scan_grouped_bwd_ref(*ins, dy, dh),
+                      3)
+    chunk = next(get_config(a).ssm.chunk_size for a, _, _ in TRAIN_SSM_RUNS)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    y, h = ssd_chunked(*leaves, chunk)
+    dht = dh.transpose(-1, -2)   # ssd_chunked's state is (P, N)
+    chunked = _event_ms(torch, lambda: torch.autograd.grad(
+        (y, h), leaves, (dy, dht), retain_graph=True), 3)
+    del y, h, leaves
+    torch.cuda.empty_cache()
+    bh = bt * hh
+    n_bytes = 2 * (3 * bh * s * p + 4 * bt * g * s * n) + 4 * (
+        2 * bh * s + 2 * hh + bh * n * p)
+    n_ops = ssd_backward_flops(bh, s, p, n)
+    bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"Bt": bt, "S": s, "H": hh, "P": p, "G": g, "N": n, "ms": ms,
+            "event_ms": events, "plain_ms": plain, "chunked_ms": chunked,
+            "chunk": chunk, "library_ms": None, "bound_ms": bound,
+            "bound_by": _bound_by(b_ms, o_ms), "bytes": n_bytes,
+            "ops": n_ops}
+
+
 def _k2_shapes(launches=None):
     """K2's timed shapes and launch counts on each serving path: llama2-7b's
     q / v projection (K = N = 4096) at prefill (M = 8 x 1024) and decode
@@ -3181,8 +3305,12 @@ def _before(name) -> str:
 # K2's dA and dB are sums over M (8,192 terms at the train shape) taken in
 # another order on each side, so a value near 0 carries an error of the
 # tensor's scale, not its own; f32 1e-4 / 1e-5, bf16 one rounding of the
-# f32 result (2^-7) / 2^-9. K3's and K4's backward are the plain version's
-# own ops on both sides (only cuBLAS's batch layout may differ).
+# f32 result (2^-7) / 2^-9. K3's backward is the plain version's own ops
+# on both sides (only cuBLAS's batch layout may differ). K4's backward
+# kernel sums the chunked scan in f32 in another order than the plain
+# version's step-by-step recurrence and rounds each gradient once; the
+# plain route in bf16 also rounds each head's dB / dC before its group's
+# sum.
 GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -9)}
 
 
@@ -3289,15 +3417,29 @@ def _phase_k3_grad(torch, gen, k3) -> float:
     return max_err
 
 
-def _phase_k4_grad(torch, gen, k4) -> float:
+def _ssd_train_layouts():
+    """K4 on [train-ssm]'s runs, in the model's layout: arch -> (Bt, S, H,
+    P, G, N)."""
+    return {arch: _ssd_layout(arch, batch, seq)
+            for arch, seq, batch in TRAIN_SSM_RUNS}
+
+
+def _phase_k4_grad(torch, gen, k4) -> tuple:
     """[k4-grad]: K4's Function through ops.ssd on the model's layout (x,
-    B, C views of one buffer, G 2 over H 4) against the plain version: y
-    and the state within K4's tolerance, the input gradients against
-    autograd through the plain route. Returns the largest |err| of y."""
+    B, C views of one buffer, G 2 over H 4), forward K4 and backward K4's
+    backward kernel, against autograd through the plain version (step by
+    step): y and the state within K4's tolerance, the input gradients
+    within GRAD_TOL, one launch of each. Then the backward kernel alone
+    against its full-size plain version ``ssd_scan_grouped_bwd_ref`` at
+    [train-ssm]'s shapes (mamba2-370m's and zamba2-2.7b's), f32 and bf16,
+    with a state cotangent: every gradient within GRAD_TOL and in its
+    input's dtype. Comparison launches do not count. Returns the largest
+    |err| of y and of the backward kernel's dx."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_grouped_bwd_ref
 
     bt, s, hh, p, g, n = 2, 100, 4, 64, 2, 64
-    max_err = 0.0
+    max_err = max_dx = 0.0
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         width = hh * p + 2 * g * n
@@ -3313,15 +3455,17 @@ def _phase_k4_grad(torch, gen, k4) -> float:
             x = xbc[..., :hh * p].unflatten(-1, (hh, p))
             B = xbc[..., hh * p:hh * p + g * n].unflatten(-1, (g, n))
             C = xbc[..., hh * p + g * n:].unflatten(-1, (g, n))
-            before = k4.ssd_scan.launches
+            before = (k4.ssd_scan.launches, k4.ssd_scan.backward_launches)
             y, h = ops.ssd(x, d_t, a_t, B, C,
                            kcfg=ops.KernelConfig(use_cuda))
             grads = torch.autograd.grad((y, h), (xbc, d_t, a_t), (dy, dh))
             torch.cuda.synchronize()
-            launched = k4.ssd_scan.launches - before
-            k4.ssd_scan.launches = before
-            if launched != int(use_cuda):
-                _fail(f"[k4-grad] {dt}: K4 launched {launched} times")
+            launched = (k4.ssd_scan.launches - before[0],
+                        k4.ssd_scan.backward_launches - before[1])
+            k4.ssd_scan.launches, k4.ssd_scan.backward_launches = before
+            if launched != (int(use_cuda),) * 2:
+                _fail(f"[k4-grad] {dt}: K4 forward / backward launched "
+                      f"{launched} times")
             outs.append((y, h, grads))
         (y, h, got), (want_y, want_h, want) = outs
         err = _close(torch, f"[k4-grad] y {dt}", y, want_y, *K4_TOL[dt])
@@ -3333,9 +3477,43 @@ def _phase_k4_grad(torch, gen, k4) -> float:
         print(f"[k4-grad] {dt} (Bt, S, H, P, G, N) = {(bt, s, hh, p, g, n)}, "
               f"x / B / C views of one buffer: y max |err| {err:.3e} (rtol/"
               f"atol {K4_TOL[dt]}); d(xBC), d(dt), dA "
-              f"{', '.join(f'{e:.3e}' for e in errs)} against autograd "
-              "through the plain version")
-    return max_err
+              f"{', '.join(f'{e:.3e}' for e in errs)} (rtol, atol x "
+              f"max|want| {GRAD_TOL[dt]}) against autograd through the "
+              "plain version; 1 forward + 1 backward K4 launch")
+    names = ("dx", "d(dt)", "dA", "dB", "dC")
+    for arch, shape in _ssd_train_layouts().items():
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            ins = _ssd_grouped_case(torch, gen, *shape, dtype)
+            bt, s, hh, p, g, n = shape
+            dy = _randn(torch, gen, (bt, s, hh, p), 1.0, dtype)
+            dh = _randn(torch, gen, (bt, hh, n, p), 1.0, torch.float32)
+            before = k4.ssd_scan.backward_launches
+            got = k4.ssd_scan_grouped_backward(*ins, dy, dh)
+            torch.cuda.synchronize()
+            launched = k4.ssd_scan.backward_launches - before
+            k4.ssd_scan.backward_launches = before
+            if launched != 1:
+                _fail(f"[k4-grad] {arch} {dt}: K4's backward launched "
+                      f"{launched} times")
+            want = ssd_scan_grouped_bwd_ref(*ins, dy, dh)
+            kinds = (dtype, torch.float32, torch.float32, dtype, dtype)
+            if any(a.dtype != k or a.shape != b.shape
+                   for a, b, k in zip(got, want, kinds)):
+                _fail(f"[k4-grad] {arch} {dt}: gradients "
+                      f"{[(a.dtype, tuple(a.shape)) for a in got]}")
+            errs = [_grad_close(torch, f"[k4-grad] {arch} {nm} {dt}", a, b,
+                                dt) for nm, a, b in zip(names, got, want)]
+            max_dx = max(max_dx, errs[0])
+            print(f"[k4-grad] K4 backward at {arch}'s training shape (Bt, "
+                  f"S, H, P, G, N) = {shape} {dt}, x / B / C views of one "
+                  "buffer: max |err| "
+                  + ", ".join(f"{nm} {e:.3e}" for nm, e in zip(names, errs))
+                  + f" against ssd_scan_grouped_bwd_ref (rtol, atol x "
+                  f"max|want| {GRAD_TOL[dt]})")
+            del ins, dy, dh, got, want
+            torch.cuda.empty_cache()
+    return max_err, max_dx
 
 
 def _lora_movement(torch, before, after):
@@ -3344,11 +3522,12 @@ def _lora_movement(torch, before, after):
             float(sum(x.square().sum() for x in d)))
 
 
-def train_ref_run(torch, dev, microbatches: int) -> dict:
-    """[train-ref]'s port run: TRAIN_REF_STEPS steps of make_train_step on
-    the TRAIN_REF_ARCH smoke config with ``KernelConfig(use_cuda=True)`` on
-    ``dev`` (the CPU runs the plain versions). Returns TRAIN_REF's keys and
-    ``base_unchanged``."""
+def train_ref_run(torch, dev, microbatches: int,
+                  arch: str = TRAIN_REF_ARCH) -> dict:
+    """[train-ref]'s and [train-ssm-ref]'s port run: TRAIN_REF_STEPS steps
+    of make_train_step on ``arch``'s smoke config with
+    ``KernelConfig(use_cuda=True)`` on ``dev`` (the CPU runs the plain
+    versions). Returns TRAIN_REF's keys and ``base_unchanged``."""
     from repro_torch import convert
     from repro_torch.configs import TrainConfig, get_smoke_config
     from repro_torch.data import ShardedLMLoader
@@ -3356,7 +3535,7 @@ def train_ref_run(torch, dev, microbatches: int) -> dict:
     from repro_torch.train.step import init_opt_state, make_train_step
     from repro_torch.utils.partition import is_lora_path, partition_by_path
 
-    cfg = get_smoke_config(TRAIN_REF_ARCH)
+    cfg = get_smoke_config(arch)
     tcfg = TrainConfig(**TRAIN_REF_RUNS[microbatches])
     params = convert.model_params(
         convert.random_model_params(cfg, TRAIN_REF_SEED), cfg, dev)
@@ -3383,25 +3562,36 @@ def train_ref_run(torch, dev, microbatches: int) -> dict:
                                   for a, b in zip(base, base0))}
 
 
-def _phase_train_ref(torch, dev, kernels):
-    """[train-ref]: train_ref_run on the card for every TRAIN_REF_RUNS entry
-    against the JAX constants TRAIN_REF."""
+def _phase_train_ref(torch, dev, kernels, tag="train-ref",
+                     arch=TRAIN_REF_ARCH, refs=None):
+    """[train-ref] / [train-ssm-ref]: train_ref_run on the card for every
+    TRAIN_REF_RUNS entry on ``arch``'s smoke config against the JAX
+    constants ``refs`` (TRAIN_REF unless given). Every kernel of the
+    config's training path must launch: K2 forward and backward, K3 where
+    it has attention, K4 and K4's backward where it has Mamba2 layers."""
     import numpy as np
 
+    from repro_torch.configs import get_smoke_config
+
     k2, k3, k4 = kernels
-    for mb, want in TRAIN_REF.items():
+    cfg = get_smoke_config(arch)
+    has_k3 = cfg.arch_type != "ssm"
+    has_k4 = cfg.arch_type in ("ssm", "hybrid")
+    names = ("K2 forward", "K2 backward", "K3", "K4", "K4 backward")
+    for mb, want in (TRAIN_REF if refs is None else refs).items():
         _reset_counts(k2, k3, k4)
-        got = train_ref_run(torch, dev, mb)
+        got = train_ref_run(torch, dev, mb, arch)
         torch.cuda.synchronize()
-        fwd, bwd, k3n = (k2.lora_matmul.launches,
-                         k2.lora_matmul.backward_launches,
-                         k3.flash_attention.launches)
-        if not (fwd and bwd and k3n):
-            _fail(f"[train-ref] microbatches {mb}: K2 forward {fwd}, K2 "
-                  f"backward {bwd}, K3 {k3n} launches; each must run")
+        counts = _train_counts(k2, k3, k4)
+        needed = (True, True, has_k3, has_k4, has_k4)
+        if any(bool(c) != need for c, need in zip(counts, needed)):
+            _fail(f"[{tag}] {arch} microbatches {mb}: launches "
+                  + ", ".join(f"{k} {c}" for k, c in zip(names, counts))
+                  + f"; each of {[k for k, n in zip(names, needed) if n]} "
+                  "must run, and no other")
         if not got["base_unchanged"]:
-            _fail(f"[train-ref] microbatches {mb}: a base leaf changed or "
-                  "holds a .grad")
+            _fail(f"[{tag}] {arch} microbatches {mb}: a base leaf changed "
+                  "or holds a .grad")
         worst = {}
         for key, rtol in TRAIN_REF_RTOL.items():
             g = np.asarray(got[key], np.float64)
@@ -3409,17 +3599,17 @@ def _phase_train_ref(torch, dev, kernels):
             rel = float(np.max(np.abs(g - w) / np.abs(w)))
             worst[key] = rel
             if not rel <= rtol:
-                _fail(f"[train-ref] microbatches {mb}: {key} {got[key]} "
-                      f"against JAX's {want[key]} (relative {rel:.2e} > "
-                      f"{rtol})")
-        print(f"[train-ref] {TRAIN_REF_ARCH} smoke config, f32, "
-              f"{TRAIN_REF_RUNS[mb]}: {TRAIN_REF_STEPS} steps on the card, "
-              f"losses {', '.join(f'{x:.6f}' for x in got['loss'])}; "
-              "largest relative distance from JAX's: " + ", ".join(
+                _fail(f"[{tag}] {arch} microbatches {mb}: {key} "
+                      f"{got[key]} against JAX's {want[key]} (relative "
+                      f"{rel:.2e} > {rtol})")
+        print(f"[{tag}] {arch} smoke config, f32, {TRAIN_REF_RUNS[mb]}: "
+              f"{TRAIN_REF_STEPS} steps on the card, losses "
+              f"{', '.join(f'{x:.6f}' for x in got['loss'])}; largest "
+              "relative distance from JAX's: " + ", ".join(
                   f"{k} {v:.2e} (bound {TRAIN_REF_RTOL[k]})"
                   for k, v in worst.items())
-              + f"; base leaves bit-unchanged; K2 {fwd} forward + {bwd} "
-              f"backward launches, K3 {k3n}")
+              + "; base leaves bit-unchanged; launches " + ", ".join(
+                  f"{k} {c}" for k, c in zip(names, counts) if c))
 
 
 def _grad_distance(torch, a, b) -> tuple:
@@ -3430,14 +3620,31 @@ def _grad_distance(torch, a, b) -> tuple:
     return sq ** 0.5, mx
 
 
-def _phase_train(torch, np, dev, kernels) -> dict:
-    """[train]: llama2-7b at full width and depth, bf16 (TRAIN_RUN), LoRA
-    fine-tuning through make_train_step with remat="full". Step 0's LoRA
-    gradients: finite and non-zero (the detach the autograd Functions
-    close), and within twice the bf16 plain run's distance from an f32
-    plain run; then TRAIN_WARMUP + TRAIN_STEPS steps timed, launch counts,
-    peak memory, one traced step; the base weights bit-unchanged. Returns
-    the timed steps' (K2 forward, K2 backward, K3) launches."""
+def _train_launches(cfg) -> tuple:
+    """(K2 forward, K2 backward, K3, K4, K4 backward) launches of one
+    training step with remat full: each forward's K2, K3 and K4 launches
+    twice (the recompute), K2's dx once for every adapted projection but
+    the first layer's (its input, the frozen embedding, carries no
+    gradient: q and v of a dense layer, wx of a Mamba2 one), K4's backward
+    once a Mamba2 layer."""
+    k2, k3, k4 = _launches_per_forward(cfg)
+    first = 1 if cfg.arch_type in ("ssm", "hybrid") else len(cfg.lora.targets)
+    return 2 * k2, k2 - first, 2 * k3, 2 * k4, k4
+
+
+def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
+                 steps=TRAIN_STEPS) -> dict:
+    """[train] / [train-ssm]: ``run`` = (arch, seq, batch) at full width
+    and depth, bf16, LoRA fine-tuning through make_train_step with
+    remat="full". Step 0's LoRA gradients: finite and non-zero (the detach
+    the autograd Functions close), and within twice the bf16 plain run's
+    distance from an f32 plain run (``KernelConfig(False)``: the plain
+    attention, ``ssd_chunked``); then TRAIN_WARMUP + ``steps`` steps timed,
+    launch counts (``_train_launches``), peak memory, one traced step (a
+    K4 backward range holding the backward kernel's launches alone, no
+    step-by-step loop); the base weights bit-unchanged. Returns the timed
+    steps' launches (``_train_counts``), the median step time, the trace's
+    shares and the peak memory."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
@@ -3450,18 +3657,18 @@ def _phase_train(torch, np, dev, kernels) -> dict:
                                              select_paths)
 
     k2, k3, k4 = kernels
-    arch, seq, batch = TRAIN_RUN
+    arch, seq, batch = run
     cfg = get_config(arch)
     params, _, init_s = _draw_model(torch, tf, cfg, dev)
     tcfg = TrainConfig(seq_len=seq, global_batch=batch, remat="full")
     loader = ShardedLMLoader(cfg.vocab_size, batch, seq, seed=SEED)
     t0 = time.perf_counter()
     batches = [batch_to(loader.batch_at(i), dev)
-               for i in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+               for i in range(TRAIN_WARMUP + steps + 1)]
     data_s = time.perf_counter() - t0
     base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
     t0 = time.perf_counter()
-    base_host = [x.cpu() for x in base]       # 13.5 GB, off the card's peak
+    base_host = [x.cpu() for x in base]       # off the card's peak
     copy_s = time.perf_counter() - t0
 
     # step 0's gradients: kernel run, plain run, f32 plain run
@@ -3471,8 +3678,8 @@ def _phase_train(torch, np, dev, kernels) -> dict:
     paths = [p for p, _ in select_paths(params, is_lora_path)]
     for path, g in zip(paths, g_k):
         if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
-            _fail(f"[train] step 0: the gradient of {path} is not finite or "
-                  "is zero")
+            _fail(f"[{tag}] {arch} step 0: the gradient of {path} is not "
+                  "finite or is zero")
     _, g_p = make_grad_step(cfg, tcfg, KernelConfig(False))(params,
                                                             batches[0])
     p32 = _widen(params)
@@ -3484,15 +3691,15 @@ def _phase_train(torch, np, dev, kernels) -> dict:
     d_kp, mx_kp = _grad_distance(torch, g_k, g_p)
     d_p32, mx_p32 = _grad_distance(torch, g_p, g_32)
     d_k32, _ = _grad_distance(torch, g_k, g_32)
-    print(f"[train] step 0: loss {float(loss0):.4f}; all {len(g_k)} LoRA "
-          f"gradients finite and non-zero; |kernel - plain| {d_kp:.4e} (L2 "
-          f"over the leaves; max {mx_kp:.3e}) against twice the bf16 plain "
-          f"run's distance from the f32 plain run {2 * d_p32:.4e} (max "
-          f"{mx_p32:.3e}); the kernel run's own distance from f32 "
-          f"{d_k32:.4e}")
+    print(f"[{tag}] {arch} step 0: loss {float(loss0):.4f}; all {len(g_k)} "
+          f"LoRA gradients finite and non-zero; |kernel - plain| "
+          f"{d_kp:.4e} (L2 over the leaves; max {mx_kp:.3e}) against twice "
+          f"the bf16 plain run's distance from the f32 plain run "
+          f"{2 * d_p32:.4e} (max {mx_p32:.3e}); the kernel run's own "
+          f"distance from f32 {d_k32:.4e}")
     if not d_kp <= 2 * d_p32:
-        _fail(f"[train] step 0 LoRA gradients: kernel run {d_kp} from the "
-              f"plain run, bound {2 * d_p32}")
+        _fail(f"[{tag}] {arch} step 0 LoRA gradients: kernel run {d_kp} "
+              f"from the plain run, bound {2 * d_p32}")
     del g_k, g_p, g_32
 
     opt = init_opt_state(params)
@@ -3505,51 +3712,69 @@ def _phase_train(torch, np, dev, kernels) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(k2, k3, k4)
     times = []
-    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + steps):
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batches[i])
         losses.append(float(m.loss))      # waits for the step
         times.append(time.perf_counter() - t0)
-    launches = (k2.lora_matmul.launches, k2.lora_matmul.backward_launches,
-                k3.flash_attention.launches)
+    launches = _train_counts(k2, k3, k4)
     peak = torch.cuda.max_memory_allocated()
     n = cfg.num_layers
-    per = (2 * 2 * n, 2 * n - 2, 2 * n)
-    if launches != tuple(TRAIN_STEPS * x for x in per):
-        _fail(f"[train] launches K2 forward / backward, K3 {launches}, "
-              f"expected {tuple(TRAIN_STEPS * x for x in per)}")
+    per = _train_launches(cfg)
+    if launches != tuple(steps * x for x in per):
+        _fail(f"[{tag}] {arch} launches K2 forward / backward, K3, K4, K4 "
+              f"backward {launches}, expected "
+              f"{tuple(steps * x for x in per)}")
     if not all(np.isfinite(losses)):
-        _fail(f"[train] non-finite loss: {losses}")
+        _fail(f"[{tag}] {arch} non-finite loss: {losses}")
     tokens = batch * seq
     med = statistics.median(times)
-    print(f"[train] {cfg.name} ({n} layers, d {cfg.d_model}, "
+    targets = ("wx, out_proj" + (f" and the shared block's "
+                                 f"{', '.join(cfg.lora.targets)}"
+                                 if cfg.arch_type == "hybrid" else "")
+               if cfg.ssm is not None else ", ".join(cfg.lora.targets))
+    print(f"[{tag}] {cfg.name} ({n} layers, d {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.2f} G parameters, bf16, LoRA r "
-          f"{cfg.lora.rank} on {cfg.lora.targets}: "
+          f"{cfg.lora.rank} on {targets}: "
           f"{cfg.lora_param_count() / 1e6:.2f} M trained) drawn on the card "
           f"in {init_s:.2f} s; {batch} x {seq} tokens a step, remat full, "
           f"batches made in {data_s:.2f} s (before timing); "
-          f"{TRAIN_STEPS} timed steps after {TRAIN_WARMUP} warm-up: "
+          f"{steps} timed steps after {TRAIN_WARMUP} warm-up: "
           f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s, "
           f"{tokens / med:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; "
-          f"launches a step K2 forward {launches[0] // TRAIN_STEPS}, K2 "
-          f"backward {launches[1] // TRAIN_STEPS} (layer 0's input carries "
-          f"no gradient), K3 {launches[2] // TRAIN_STEPS}; losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}")
+          f"launches a step K2 forward {launches[0] // steps}, K2 "
+          f"backward {launches[1] // steps} (layer 0's input carries "
+          f"no gradient), K3 {launches[2] // steps}, K4 "
+          f"{launches[3] // steps}, K4 backward {launches[4] // steps}; "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}")
     shares = _trace_call(
-        torch, "train step", lambda: step(params, opt, batches[-1]),
+        torch, f"{cfg.name} train step",
+        lambda: step(params, opt, batches[-1]),
         {k2.BACKWARD_DX: "K2 backward (dx)", k2.W_TRANSPOSE: "W^T copy",
          k2.BACKWARD_RANK_R: "dA / dB products",
-         k3.BACKWARD: "K3 backward (plain)"})
+         k3.BACKWARD: "K3 backward (plain)", k4.BACKWARD: "K4 backward"})
+    if per[4] and shares is not None:
+        # the backward's range holds its two kernels a launch (the scan and
+        # the finishing sums; a step-by-step plain route would launch
+        # thousands), and the step has no plain K4 range
+        inside = shares["kernels_in"]["K4 backward"]
+        if not per[4] <= inside <= 3 * per[4]:
+            _fail(f"[{tag}] {arch} traced step: {inside} device kernels "
+                  f"inside '{k4.BACKWARD}' over {per[4]} launches")
+        print(f"[{tag}] {arch} traced step: {inside} device kernels inside "
+              f"'{k4.BACKWARD}' over {per[4]} launches of K4's backward "
+              "(no step-by-step loop); plain K3 backward "
+              f"{shares['K3 backward (plain)']:.1f} ms")
     base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
     if any(not torch.equal(x, h.to(dev)) or x.grad is not None
            or x.requires_grad for x, h in zip(base, base_host)):
-        _fail("[train] a base weight changed, holds a .grad or requires "
-              "grad")
-    print(f"[train] the base weights are bit-unchanged (torch.equal against "
-          f"a host copy taken before step 0 in {copy_s:.1f} s) and hold no "
-          ".grad")
+        _fail(f"[{tag}] {arch} a base weight changed, holds a .grad or "
+              "requires grad")
+    print(f"[{tag}] {arch} the base weights are bit-unchanged (torch.equal "
+          f"against a host copy taken before step 0 in {copy_s:.1f} s) and "
+          "hold no .grad")
     return {"launches": launches, "step_s": med, "shares": shares,
-            "peak": peak}
+            "peak": peak, "steps": steps}
 
 
 def _load_example(name):
@@ -4074,7 +4299,8 @@ def _phase_dryrun() -> None:
           f"{r['run_s']} s, {wall:.1f} s with the process")
 
 
-def _phase_roofline(torch, card: str, train: dict) -> None:
+def _phase_roofline(torch, card: str, train: dict,
+                    train_ssm: dict) -> None:
     """[roofline]: llama2-7b at full width and depth counted on one device
     as the card runs it (``launch.dryrun.count(kernels=True)``, mesh None,
     on meta tensors: each K2 / K3 launch one op, its inputs read and
@@ -4090,7 +4316,9 @@ def _phase_roofline(torch, card: str, train: dict) -> None:
     the compute term fails: that term is a strict lower bound, so the
     count would be wrong. The memory term counts every op's operands at
     the HBM rate, which the L2 can beat where they fit: it is reported,
-    not held."""
+    not held. Then mamba2-370m's training step of [train-ssm] the same
+    way (K2, K4 and K4's backward by their own traffic and operations),
+    beside [train-ssm]'s median step."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, roofline
@@ -4104,30 +4332,41 @@ def _phase_roofline(torch, card: str, train: dict) -> None:
     k2_fwd, k3_fwd, _ = _launches_per_forward(cfg)
     k2_train = (train["launches"][0] + train["launches"][1]) // TRAIN_STEPS
     k3_train = train["launches"][2] // TRAIN_STEPS
+    ssm_arch, ssm_seq, ssm_batch = TRAIN_SSM_RUNS[0]
+    ssm = train_ssm[ssm_arch]
+    ssm_launches = tuple(x // ssm["steps"] for x in ssm["launches"])
+    ssm_cfg = get_config(ssm_arch)
     steps = (
-        ("prefill", ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH,
-                                "prefill"), serve["prefill_s"],
+        (cfg, "prefill", ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH,
+                                     "prefill"), serve["prefill_s"],
          "one timed prefill of [serve]'s teacher-forced kernel run",
          serve["peak"], (k2_fwd, k3_fwd)),
-        ("decode", ShapeConfig("decode", SERVE_MAX_LEN, SERVE_BATCH,
-                               "decode"), serve["decode_s"],
+        (cfg, "decode", ShapeConfig("decode", SERVE_MAX_LEN, SERVE_BATCH,
+                                    "decode"), serve["decode_s"],
          f"the mean of [serve]'s {SERVE_NEW} teacher-forced decode steps",
          serve["peak"], (k2_fwd, 0)),
-        ("train", ShapeConfig("train", seq, batch, "train"),
+        (cfg, "train", ShapeConfig("train", seq, batch, "train"),
          train["step_s"], f"the median of [train]'s {TRAIN_STEPS} timed "
          "steps", train["peak"], (k2_train, k3_train)),
+        (ssm_cfg, "train", ShapeConfig("train", ssm_seq, ssm_batch,
+                                       "train"),
+         ssm["step_s"], f"the median of [train-ssm]'s {ssm['steps']} timed "
+         "steps", ssm["peak"], (ssm_launches[0] + ssm_launches[1],
+                                ssm_launches[2], ssm_launches[3],
+                                ssm_launches[4])),
     )
     print(f"[roofline] card {card}; bounds from PEAK_FLOPS_BF16 "
           f"{PEAK_FLOPS_BF16:.3e} FLOP/s and HBM_BW {roofline.HBM_BW:.3e} "
           "B/s (NVIDIA H100 SXM datasheet)")
-    for name, shape, measured, origin, peak, want in steps:
+    for cfg, name, shape, measured, origin, peak, want in steps:
         acc = dryrun.count(cfg, shape, None, microbatches=1, kernels=True)
         ks = acc["kernels"]
         got = tuple(ks.get(k, {}).get("count", 0)
-                    for k in ("lora_matmul", "flash_attention"))
+                    for k in ("lora_matmul", "flash_attention", "ssd_scan",
+                              "ssd_scan_backward")[:len(want)])
         if got != want:
-            _fail(f"[roofline] {name}: counted K2 / K3 launches {got}, the "
-                  f"main path's {want}")
+            _fail(f"[roofline] {cfg.name} {name}: counted K2 / K3 / K4 / K4 "
+                  f"backward launches {got}, the main path's {want}")
         mf = roofline.model_flops_per_device(cfg, shape, 1)
         t = roofline.terms(acc["dot_flops"], acc["traffic_bytes"], 0.0)
         bound = t["bound_s"]
@@ -4148,8 +4387,8 @@ def _phase_roofline(torch, card: str, train: dict) -> None:
               f"against the phase's max_memory_allocated "
               f"{peak / 2**30:.2f} GiB; counted in {acc['run_s']:.1f} s")
         if measured < t["compute_s"]:
-            _fail(f"[roofline] {name}: measured {measured} s below its "
-                  f"compute term {t['compute_s']} s")
+            _fail(f"[roofline] {cfg.name} {name}: measured {measured} s "
+                  f"below its compute term {t['compute_s']} s")
 
 
 def main() -> int:
@@ -4199,11 +4438,14 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE, k4.SOURCE])
+    built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE, k4.SOURCE,
+                              k4.BACKWARD_SOURCE])
     for mod in (k1, k2, k3, k4):
         mod.load_library()
+    k4.load_backward_library()
     build_s = time.perf_counter() - t0
-    print(f"[id] K1, K2, K3, K4 built in parallel in {build_s:.2f} s")
+    print(f"[id] K1, K2, K3, K4 and K4's backward built in parallel in "
+          f"{build_s:.2f} s")
     for source, (lib_path, log) in built.items():
         print(f"[id] {source} -> {lib_path.relative_to(ROOT)}")
         for line in log.strip().splitlines():
@@ -4512,17 +4754,31 @@ def main() -> int:
     k2_y_err, k2_dx_err = _phase_k2_grad(torch, gen, k2, lora_matmul_ref)
     k2_err = max(k2_err, k2_y_err)
     k3_err = max(k3_err, _phase_k3_grad(torch, gen, k3))
-    k4_err = max(k4_err, _phase_k4_grad(torch, gen, k4))
+    k4_y_err, k4_bwd_err = _phase_k4_grad(torch, gen, k4)
+    k4_err = max(k4_err, k4_y_err)
     torch.cuda.empty_cache()
     _phase_train_ref(torch, dev, kernels)
     train = _phase_train(torch, np, dev, kernels)
     launches["train"] = train["launches"]
     torch.cuda.empty_cache()
+    # ---- the SSM and hybrid families (K2, K3, K4 and K4's backward) ----
+    for arch in TRAIN_SSM_ARCHS:
+        _phase_train_ref(torch, dev, kernels, "train-ssm-ref", arch,
+                         TRAIN_SSM_REF[arch])
+    train_ssm = {}
+    for run in TRAIN_SSM_RUNS:
+        train_ssm[run[0]] = _phase_train(torch, np, dev, kernels,
+                                         "train-ssm", run, TRAIN_SSM_STEPS)
+        torch.cuda.empty_cache()
     elastic_launches = _phase_elastic(torch, dev, kernels, k1)
     print(f"[launches] K1 table entry: elastic {elastic_launches[0]}; "
           f"[train] K2 {launches['train'][0]} forward + "
           f"{launches['train'][1]} backward, K3 {launches['train'][2]}; "
-          f"training phases {time.perf_counter() - t_train:.1f} s")
+          + "; ".join(f"[train-ssm] {arch} K2 {r['launches'][0]} forward + "
+                      f"{r['launches'][1]} backward, K3 {r['launches'][2]}, "
+                      f"K4 {r['launches'][3]} forward + {r['launches'][4]} "
+                      "backward" for arch, r in train_ssm.items())
+          + f"; training phases {time.perf_counter() - t_train:.1f} s")
 
     # ---- phase 7: K2's, K3's and K4's time beside their bounds ----
     k2_shapes = _k2_shapes(launches)
@@ -4623,6 +4879,26 @@ def main() -> int:
               f"{g_row['event_ms'] / f_row['event_ms']:.3f} by events; "
               f"{rows['grouped']['launches']} launches on its serving path")
 
+    k4_back = {}
+    for arch, shape in _ssd_train_layouts().items():
+        row = _phase_time_k4_backward(torch, gen, k4, *shape)
+        row["launches"] = train_ssm[arch]["launches"][4]
+        k4_back[arch] = row
+        print(f"[time] card {card}: K4 backward ({arch}'s training shape) "
+              f"at (Bt, S, H, P, G, N) = {shape} bf16, x / B / C views of "
+              f"one buffer: {row['ms'] * 1e3:.1f} us/launch in a CUDA graph, "
+              f"{row['event_ms'] * 1e3:.1f} us by events ({row['launches']} "
+              f"launches on [train-ssm]'s {TRAIN_SSM_STEPS} timed steps); "
+              f"bound {row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
+              f"({row['bytes'] / 1e6:.1f} MB, {row['ops'] / 1e9:.1f} G "
+              f"operations) = {row['bound_ms'] / row['ms']:.1%} of bound; "
+              f"plain (ssd_scan_grouped_bwd_ref) "
+              f"{row['plain_ms'] * 1e3:.1f} us; autograd's backward through "
+              f"models/ssm.ssd_chunked (the plain training run's, chunk "
+              f"{row['chunk']}) {row['chunked_ms'] * 1e3:.1f} us; no "
+              "library call (no PyTorch call computes the SSD scan's "
+              "gradients)")
+
     # each K1 entry with its own main-path launches (window_dp.launches
     # counts both): the forecast entry's in the Fig. 9 settings, the chaos
     # runs, the grid pass, the regional runs and the oracle's vectorized
@@ -4654,7 +4930,7 @@ def main() -> int:
     # ---- phase 8: the dry run and the step roofline (CPU counts; after
     # every timing, so its processes share no time with a measurement) ----
     _phase_dryrun()
-    _phase_roofline(torch, card, train)
+    _phase_roofline(torch, card, train, train_ssm)
     print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'
@@ -4671,7 +4947,12 @@ def main() -> int:
         # K4 as its serving paths launch it, in the model's layout
         _entry(name, "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:23",
                rows["grouped"]["launches"], k4_err, rows["grouped"])
-        for name, rows in k4_rows.items()]}))
+        for name, rows in k4_rows.items()] + [
+        # K4's backward on [train-ssm]'s paths (the TPU kernel has none: the
+        # backward of the function it computes)
+        _entry("ssd_scan_backward/" + arch.split("-")[0], "ssd_scan_bwd.cu",
+               "src/repro/kernels/ssd_scan.py:23", row["launches"],
+               k4_bwd_err, row) for arch, row in k4_back.items()]}))
     print(f"[id] chip_smoke.py: {time.perf_counter() - t_main:.1f} s from "
           "the build on")
     print(card)

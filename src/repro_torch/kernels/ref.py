@@ -12,6 +12,7 @@ import torch
 
 BIG = 1.0e9
 MASK_FILL = -2.0e38     # f32-safe masked score, as the reference's kernels
+SSD_CHUNK = 64          # K4's chunk along the sequence, forward and backward
 
 
 def lora_matmul_ref(x, w, a, b, scale: float):
@@ -145,3 +146,99 @@ def ssd_scan_grouped_ref(x, dt, A, B, C):
         C.transpose(1, 2).reshape(bt * hh, s, n))
     return (y.reshape(bt, hh, s, p).transpose(1, 2).contiguous(),
             h.reshape(bt, hh, n, p))
+
+
+def _clip_exp(v):
+    """exp of v clipped to [-60, 0], and where the clip passes a gradient
+    (inside or on its edges, as ``torch.clamp``'s backward: an exponent
+    that rounds to 0 off the diagonal, after a tiny dt, still carries
+    one)."""
+    return torch.exp(v.clamp(-60.0, 0.0)), (v >= -60.0) & (v <= 0.0)
+
+
+def ssd_scan_grouped_bwd_ref(x, dt, A, B, C, dy, dh=None):
+    """The gradients of the SSD scan on the model's layout by the chunked
+    reverse scan that K4's backward kernel runs, in torch ops: the plain
+    version beside ``csrc/ssd_scan_bwd.cu`` at full size.
+
+    x (Bt, S, H, P), dt (Bt, S, H) f32, A (H,) f32, B and C (Bt, S, G, N),
+    the cotangents dy (Bt, S, H, P) of y and dh (Bt, H, N, P) f32 of the
+    final state (None: zero). It differentiates the function the forward
+    kernel computes: chunks of SSD_CHUNK steps, cum the inclusive in-chunk
+    sum of dt A, every exponent clipped to [-60, 0] (no gradient past the
+    clip's edges); a ragged S is padded with dt = 0 steps. Per chunk, with H
+    the state entering it (a first forward pass) and G the gradient of the
+    state leaving it (the reverse scan G <- exp(cum_last) G + sum_i
+    exp(cum_i) C_i dy_i^T), every gradient is chunk-local. f32 throughout;
+    dB and dC are summed over the heads of their group, and each gradient
+    is rounded once to its input's dtype. Returns (dx, ddt, dA, dB, dC)."""
+    bt, s, hh, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = hh // g
+    chunk = SSD_CHUNK
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):  # (Bt, S, K, W) -> (Bt, K, nc, chunk, W) f32
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(bt, nc, chunk, *t.shape[2:]).permute(0, 3, 1, 2, 4)
+
+    xf, dyf = chunks(x), chunks(dy)
+    Bf = chunks(B).repeat_interleave(rep, 1)
+    Cf = chunks(C).repeat_interleave(rep, 1)
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad)).reshape(
+        bt, nc, chunk, hh).permute(0, 3, 1, 2)             # (Bt, H, nc, L)
+    a = A.float()[None, :, None, None]
+    cum = torch.cumsum(dtf * a, dim=-1)
+    e, ok_e = _clip_exp(cum)                               # decay in
+    d, ok_d = _clip_exp(cum[..., -1:] - cum)               # decay to end
+    ok_d[..., -1] = False   # cum_last - cum_last: its two sides cancel
+    E, ok_E = e[..., -1], ok_e[..., -1]                    # chunk decay
+    k = d * dtf
+    # states entering each chunk, and the state gradients leaving each
+    ins = torch.einsum("bhcln,bhclp->bhcnp", Bf * k[..., None], xf)
+    outs = torch.einsum("bhcln,bhclp->bhcnp", Cf * e[..., None], dyf)
+    h = torch.zeros((bt, hh, n, p), dtype=torch.float32, device=x.device)
+    G = h.clone() if dh is None else dh.float()
+    Hs, Gs = [], [None] * nc
+    for c in range(nc):
+        Hs.append(h)
+        h = h * E[:, :, c, None, None] + ins[:, :, c]
+    for c in reversed(range(nc)):
+        Gs[c] = G
+        G = G * E[:, :, c, None, None] + outs[:, :, c]
+    Hs, Gs = torch.stack(Hs, 2), torch.stack(Gs, 2)
+    # the intra-chunk terms: M_ij = (C_i . B_j) w_ij dt_j for i >= j
+    w, ok_w = _clip_exp(cum[..., :, None] - cum[..., None, :])
+    lower = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device)
+    w = w * lower.tril()
+    ok_w = ok_w & lower.tril(-1)   # the diagonal's two sides cancel
+    S = torch.einsum("bhcin,bhcjn->bhcij", Cf, Bf)
+    Q = torch.einsum("bhcip,bhcjp->bhcij", dyf, xf)
+    M, dS = S * w * dtf[..., None, :], Q * w * dtf[..., None, :]
+    V = Q * S * w
+    R = V * dtf[..., None, :] * ok_w
+    D1 = torch.einsum("bhcip,bhcnp->bhcin", dyf, Hs)
+    D2 = torch.einsum("bhcjp,bhcnp->bhcjn", xf, Gs)
+    D3 = torch.einsum("bhcjn,bhcnp->bhcjp", Bf, Gs)
+    dx = torch.einsum("bhcij,bhcip->bhcjp", M, dyf) + k[..., None] * D3
+    dBh = torch.einsum("bhcij,bhcin->bhcjn", dS, Cf) + k[..., None] * D2
+    dCh = torch.einsum("bhcij,bhcjn->bhcin", dS, Bf) + e[..., None] * D1
+    dk = (Bf * D2).sum(-1)
+    T = dtf * dk * d * ok_d
+    dcum = (R.sum(-1) - R.sum(-2) + (Cf * D1).sum(-1) * e * ok_e - T)
+    dcum[..., -1] += T.sum(-1) + (Gs * Hs).sum((-1, -2)) * E * ok_E
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = V.sum(-2) + d * dk + a * dda
+
+    def unchunk(t):  # (Bt, K, nc, L, W) -> (Bt, S, K, W)
+        return t.permute(0, 2, 3, 1, 4).reshape(bt, nc * chunk, -1,
+                                                 t.shape[-1])[:, :s]
+
+    def grouped(t):  # summed over the heads of each group, in order
+        return unchunk(t.reshape(bt, g, rep, nc, chunk, n).sum(2))
+
+    return (unchunk(dx).to(x.dtype),
+            ddt.permute(0, 2, 3, 1).reshape(bt, nc * chunk, hh)[:, :s],
+            (dtf * dda).sum((0, 2, 3)), grouped(dBh).to(B.dtype),
+            grouped(dCh).to(C.dtype))

@@ -23,11 +23,22 @@ launches of both entry points. Under grad mode both refuse an input that
 requires grad (their outputs would carry no gradient).
 
 :class:`SSDScan` is the way in under autograd (``ops.ssd`` takes it): its
-forward launches K4 on the model's layout, its backward recomputes the
-plain version (:func:`repro_torch.kernels.ref.ssd_scan_grouped_ref`) under
-autograd inside the profiler range :data:`BACKWARD` and returns its input
-gradients. The reference has no backward kernel (its models train through
-XLA); a backward kernel waits for SSM training on the card.
+forward launches K4 on the model's layout, its backward calls
+:func:`ssd_scan_grouped_backward` inside the profiler range
+:data:`BACKWARD`. On CUDA tensors that launches K4's backward kernel
+(``csrc/ssd_scan_bwd.cu``, design and bound in its header): the gradients
+of the function the forward computes (64-step chunks, exponents clipped
+to [-60, 0]) by a reverse scan over the chunks, dB and dC summed over the
+heads of their group and dA over the batch in a fixed order, with no
+float atomics. Its plain version at full size is
+:func:`repro_torch.kernels.ref.ssd_scan_grouped_bwd_ref` (the same scan in
+torch ops); on CPU tensors the backward is autograd through
+:func:`repro_torch.kernels.ref.ssd_scan_grouped_ref`. There is no
+fallback: on a CUDA tensor a failed build or launch raises.
+``ssd_scan.backward_launches`` counts the backward's launches (each one
+main kernel and one finishing kernel) apart from ``launches``. The
+reference has no backward kernel (its models train through XLA), so this
+is K4's own backward, not a port of one.
 """
 from __future__ import annotations
 
@@ -36,10 +47,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.ref import ssd_scan_grouped_ref, ssd_scan_ref
+from repro_torch.kernels.ref import (SSD_CHUNK, ssd_scan_grouped_ref,
+                                     ssd_scan_ref)
 
 SOURCE = "ssd_scan.cu"
-BACKWARD = "K4 backward (plain)"
+BACKWARD_SOURCE = "ssd_scan_bwd.cu"
+BACKWARD = "K4 backward"
 HEAD_DIMS = (32, 64)
 MAX_STATE = 128
 ALIGN = 8           # x, B and C strides and offsets, in elements
@@ -56,6 +69,18 @@ _SIGNATURES = {
                          _P, _P,                  # y, h_final
                          _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
 }
+_BACKWARD_SIGNATURES = {
+    "ssd_scan_bwd_launch": ([_P, _L, _L, _L,      # x and its strides
+                             _P, _L, _L, _L,      # dt
+                             _P, _L,              # A (head)
+                             _P, _L, _L, _L,      # B
+                             _P, _L, _L, _L,      # C
+                             _P, _L, _L, _L,      # dy
+                             _P,                  # dh
+                             _P, _P, _P, _P, _P,  # dx, ddt, dA, dB, dC
+                             _P, _P, _P, _P,      # partials, states
+                             _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+}
 
 
 def build() -> tuple:
@@ -67,6 +92,12 @@ def build() -> tuple:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load K4's shared library, once per process."""
     return _build.load(SOURCE, _SIGNATURES)
+
+
+def load_backward_library() -> ctypes.CDLL:
+    """Build (if needed) and load the library of K4's backward, once per
+    process."""
+    return _build.load(BACKWARD_SOURCE, _BACKWARD_SIGNATURES)
 
 
 def _check_devices_and_dtypes(name, ts):
@@ -201,26 +232,105 @@ def ssd_scan_grouped(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.backward_launches = 0
+
+
+def _launch_backward(x, dt, A, B, C, dy, dh):
+    """K4's backward kernel on the grouped layout (checked by the caller).
+    Returns (dx, ddt, dA, dB, dC)."""
+    lib = load_backward_library()
+    bt, s, hh, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = -(-s // SSD_CHUNK)
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((bt, s, hh, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((bt, s, hh), dtype=f32, device=dev)
+    dA = torch.empty((hh,), dtype=f32, device=dev)
+    dB = torch.empty((bt, s, g, n), dtype=B.dtype, device=dev)
+    dC = torch.empty((bt, s, g, n), dtype=C.dtype, device=dev)
+    # scratch: per-block dA, per-head dB / dC when G < H, the states
+    # entering chunks 1 .. nc - 1
+    dA_part = torch.empty((bt, hh), dtype=f32, device=dev)
+    parts = ([torch.empty((bt, s, hh, n), dtype=f32, device=dev)
+              for _ in range(2)] if g < hh else [None, None])
+    states = torch.empty((bt, hh, max(nc - 1, 0), n, p), dtype=f32,
+                         device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), *_strides3(x), dt.data_ptr(), *_strides3(dt),
+            A.data_ptr(), A.stride(0), B.data_ptr(), *_strides3(B),
+            C.data_ptr(), *_strides3(C), dy.data_ptr(), *_strides3(dy),
+            ptr(dh), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), dA_part.data_ptr(),
+            ptr(parts[0]), ptr(parts[1]), states.data_ptr(), bt, s, hh, g,
+            p, n, _DTYPES[x.dtype], stream)
+    _build.check(lib, BACKWARD_SOURCE, rc, "ssd_scan backward")
+    ssd_scan.backward_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+def ssd_scan_grouped_backward(x, dt, A, B, C, dy, dh=None,
+                              needs=(True,) * 5):
+    """The gradients (dx, ddt, dA, dB, dC) of :func:`ssd_scan_grouped`'s
+    (y, h_final) at the cotangents dy (Bt, S, H, P) in x's dtype and dh
+    (Bt, H, N, P) f32 (None: zero); None where ``needs`` says an input
+    wants none. CUDA tensors launch K4's backward kernel on the current
+    stream; CPU tensors run autograd through the plain version."""
+    ins = (x, dt, A, B, C)
+    if all(t.device.type == "cpu" for t in ins):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(ins, needs)]
+            y, h = ssd_scan_grouped_ref(*ins)
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(
+                (y, h), wanted,
+                (torch.zeros_like(y) if dy is None else dy,
+                 torch.zeros_like(h) if dh is None else dh)))
+        return tuple(next(got) if t.requires_grad else None for t in ins)
+    _build.refuse_grad("ssd_scan_grouped_backward", *ins, dy, dh)
+    _check_devices_and_dtypes("ssd_scan_grouped_backward", ins)
+    check_layout(*ins)
+    bt, s, hh, p = x.shape
+    n = B.shape[3]
+    dy = (torch.zeros(x.shape, dtype=x.dtype, device=x.device) if dy is None
+          else dy.contiguous())
+    if (tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype
+            or dy.device != x.device):
+        raise ValueError(f"ssd_scan_grouped_backward takes dy shaped as x "
+                         f"{tuple(x.shape)} in {x.dtype} on {x.device}, got "
+                         f"{tuple(dy.shape)} {dy.dtype} {dy.device}")
+    if dh is not None:
+        dh = dh.contiguous()
+        if (tuple(dh.shape) != (bt, hh, n, p) or dh.dtype != torch.float32
+                or dh.device != x.device):
+            raise ValueError(f"ssd_scan_grouped_backward takes dh "
+                             f"{(bt, hh, n, p)} float32 on {x.device}, got "
+                             f"{tuple(dh.shape)} {dh.dtype} {dh.device}")
+    grads = _launch_backward(x, dt, A, B, C, dy, dh)
+    return tuple(gr if need else None for gr, need in zip(grads, needs))
 
 
 class SSDScan(torch.autograd.Function):
     """K4 under autograd, on the model's layout: :func:`ssd_scan_grouped`
-    forward; the backward is autograd through
-    :func:`repro_torch.kernels.ref.ssd_scan_grouped_ref` on the saved
-    inputs (see the module's docstring). Returns (y, h_final)."""
+    forward, :func:`ssd_scan_grouped_backward` backward (see the module's
+    docstring). Returns (y, h_final)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C):
+        # an unused output's cotangent comes as None, not a zero tensor:
+        # training uses y alone, and the kernel reads no state cotangent
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, B, C)
         return ssd_scan_grouped(x, dt, A, B, C)
 
     @staticmethod
     def backward(ctx, dy, dh):
-        saved = ctx.saved_tensors
-        with torch.profiler.record_function(BACKWARD), torch.enable_grad():
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(saved, ctx.needs_input_grad)]
-            y, h = ssd_scan_grouped_ref(*ins)
-            wanted = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad((y, h), wanted, (dy, dh)))
-        return tuple(next(got) if t.requires_grad else None for t in ins)
+        with torch.profiler.record_function(BACKWARD):
+            return ssd_scan_grouped_backward(*ctx.saved_tensors, dy, dh,
+                                             ctx.needs_input_grad)

@@ -19,7 +19,8 @@ are not logged. :func:`analyze` reduces a log to:
                           collective, by kind)
 
 With ``kernels=True`` (:func:`count_ops`) the step runs the card's path
-and each launch of K2, K3 or K4 is logged as one op, ``kernel.<name>``:
+and each launch of K2, K3, K4 or K4's backward is logged as one op,
+``kernel.<name>``:
 its inputs read once, its outputs written once, and the operations the
 kernel does on this step's inputs (:func:`kernel_flops`). The plain body
 that stands in for a kernel off the card is not run, so the S x S scores
@@ -47,6 +48,8 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 from torch.utils._pytree import tree_leaves
+
+from repro_torch.kernels.ref import SSD_CHUNK
 
 COLLECTIVE_KINDS = (
     "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -209,9 +212,6 @@ def count_ops(arguments=(), kernels: bool = False):
 # The kernels, each launch one op
 # ---------------------------------------------------------------------------
 
-SSD_CHUNK = 64  # K4's tile along the sequence
-
-
 def lora_flops(m: int, k: int, n: int, r: int) -> int:
     """K2's products: x @ W, x @ A and (x @ A) @ B."""
     return 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
@@ -257,13 +257,25 @@ def ssd_flops(bh: int, s: int, p: int, n: int) -> int:
     return bh * -(-s // c) * 2 * (c * c * n + c * c * p + 2 * c * n * p)
 
 
+def ssd_backward_flops(bh: int, s: int, p: int, n: int) -> int:
+    """K4's backward products over its chunks of SSD_CHUNK steps: per
+    chunk the score and dy x^T tiles, three products against score-shaped
+    tiles (M^T dy, dS^T C, dS B) and four state-sized ones (B G, x G^T,
+    dy H^T, G's update); the forward's state update again for every chunk
+    but the last."""
+    c, nc = SSD_CHUNK, -(-s // SSD_CHUNK)
+    per_chunk = 3 * c * c * n + 2 * c * c * p + 4 * c * n * p
+    return bh * 2 * (nc * per_chunk + max(nc - 1, 0) * c * n * p)
+
+
 @contextlib.contextmanager
 def kernels_logged(counter: "OpCounter"):
     """Inside, K2's launch (``lora_matmul._run``, forward and backward
-    dx), K3's (``flash_attention.flash_attention``) and K4's
-    (``ssd_scan.ssd_scan_grouped``) make their outputs empty and log one
-    op each on ``counter``. Their plain bodies do not run: the count is
-    of the kernels' traffic and operations. Restored on exit."""
+    dx), K3's (``flash_attention.flash_attention``), K4's
+    (``ssd_scan.ssd_scan_grouped``) and K4's backward's
+    (``ssd_scan.ssd_scan_grouped_backward``) make their outputs empty and
+    log one op each on ``counter``. Their plain bodies do not run: the
+    count is of the kernels' traffic and operations. Restored on exit."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import lora_matmul as k2
     from repro_torch.kernels import ssd_scan as k4
@@ -293,12 +305,25 @@ def kernels_logged(counter: "OpCounter"):
                        ssd_flops(bt * h, s, p, n))
         return y, hfin
 
-    saved = (k2._run, k3.flash_attention, k4.ssd_scan_grouped)
-    k2._run, k3.flash_attention, k4.ssd_scan_grouped = lora, flash, ssd
+    def ssd_backward(x, dt, A, B, C, dy, dh=None, needs=(True,) * 5):
+        bt, s, h, p = x.shape
+        grads = tuple(torch.empty(t.shape, dtype=dtype, device=x.device)
+                      for t, dtype in ((x, x.dtype), (dt, torch.float32),
+                                       (A, torch.float32), (B, B.dtype),
+                                       (C, C.dtype)))
+        counter.kernel("ssd_scan_backward", (x, dt, A, B, C, dy, dh), grads,
+                       ssd_backward_flops(bt * h, s, p, B.shape[-1]))
+        return tuple(g if need else None for g, need in zip(grads, needs))
+
+    saved = (k2._run, k3.flash_attention, k4.ssd_scan_grouped,
+             k4.ssd_scan_grouped_backward)
+    (k2._run, k3.flash_attention, k4.ssd_scan_grouped,
+     k4.ssd_scan_grouped_backward) = lora, flash, ssd, ssd_backward
     try:
         yield
     finally:
-        k2._run, k3.flash_attention, k4.ssd_scan_grouped = saved
+        (k2._run, k3.flash_attention, k4.ssd_scan_grouped,
+         k4.ssd_scan_grouped_backward) = saved
 
 
 def analyze(log: List[dict], while_trips=(), top_k: int = 0) -> dict:

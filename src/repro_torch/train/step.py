@@ -7,7 +7,7 @@ paper's LoRA fine-tuning. The leaves are detached copies that require
 grad, merged into the tree for the forward; ``torch.autograd.grad`` over
 them alone gives the gradients, so no ``.grad`` is ever set on the base.
 Every step takes a ``kcfg`` as ``forward`` does: with
-``KernelConfig(use_cuda=True)`` K2 runs forward and backward and K3 / K4
+``KernelConfig(use_cuda=True)`` K2 and K4 run forward and backward and K3
 forward (``kernels/ops.py``).
 """
 from __future__ import annotations

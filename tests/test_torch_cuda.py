@@ -802,6 +802,110 @@ def test_k4_is_deterministic(cuda):
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
+
+# K4's backward against its plain version (the same chunked scan in torch
+# ops: f32 sums in another order, each gradient rounded once on both
+# sides) and against autograd through the step-by-step plain version:
+# |got - want| <= rtol |want| + atol max|want| (chip_smoke.py's GRAD_TOL)
+K4_GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7,
+                                                             2.0 ** -9)}
+
+
+def _grad_close(got, want, dtype):
+    rtol, atol = K4_GRAD_TOL[dtype]
+    torch.testing.assert_close(got.double(), want.double(), rtol=rtol,
+                               atol=atol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,s,hh,p,g,n", [
+    (2, 100, 4, 64, 2, 64), (2, 9, 4, 32, 2, 16), (1, 130, 6, 32, 3, 16),
+    (3, 300, 16, 32, 1, 16), (2, 2049, 4, 64, 1, 128), (2, 65, 4, 64, 4, 128),
+    (1, 1, 2, 64, 1, 96), (2, 63, 4, 32, 1, 24)])
+def test_k4_backward_matches_plain(cuda, bt, s, hh, p, g, n, dtype):
+    """The backward kernel on the model's layout (x, B, C views of one
+    buffer) against ``ssd_scan_grouped_bwd_ref``: ragged S, one chunk and
+    many, G < H (2, 3, 16 heads a group) and G = H, N off 16; every
+    gradient in its input's dtype; one launch."""
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels.ref import ssd_scan_grouped_bwd_ref
+
+    ins = _xbc_inputs(cuda, bt, s, hh, p, g, n, dtype, s * n + hh)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn((bt, s, hh, p), generator=gen, device=cuda).to(dtype)
+    dh = torch.randn((bt, hh, n, p), generator=gen, device=cuda)
+    before = k4.ssd_scan.backward_launches
+    got = k4.ssd_scan_grouped_backward(*ins, dy, dh)
+    torch.cuda.synchronize()
+    assert k4.ssd_scan.backward_launches == before + 1
+    want = ssd_scan_grouped_bwd_ref(*ins, dy, dh)
+    for a, b, kind in zip(got, want, (dtype, torch.float32, torch.float32,
+                                      dtype, dtype)):
+        assert a.dtype == kind and a.shape == b.shape
+        _grad_close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_function_backward_matches_autograd_through_plain(cuda, dtype):
+    """SSDScan through ops.ssd on views of one buffer: the buffer's, dt's
+    and A's gradients (the kernel's) against autograd through the
+    step-by-step plain route; no state cotangent is a zero one. The plain
+    route runs in f32 on the same values and its gradients are rounded
+    once to the input's dtype, the kernel's contract: run in bf16 it
+    rounds each head's dB / dC to bf16 before the group's sum, which put
+    one element 0.203 off where 0.188 is allowed (on the card)."""
+    from repro_torch.kernels import ops
+
+    bt, s, hh, p, g, n = 2, 150, 4, 64, 2, 64
+    xbc = torch.randn((bt, s, hh * p + 2 * g * n), device=cuda).to(dtype)
+    dt = torch.rand((bt, s, hh), device=cuda) * 0.5
+    A = -torch.rand((hh,), device=cuda)
+    dy = torch.randn((bt, s, hh, p), device=cuda).to(dtype)
+    grads = []
+    for use_cuda, wide in ((True, dtype), (False, torch.float32)):
+        leaves = [t.to(kind, copy=True).requires_grad_(True)
+                  for t, kind in ((xbc, wide), (dt, dt.dtype), (A, A.dtype))]
+        buf = leaves[0]
+        x = buf[..., :hh * p].unflatten(-1, (hh, p))
+        B = buf[..., hh * p:hh * p + g * n].unflatten(-1, (g, n))
+        C = buf[..., hh * p + g * n:].unflatten(-1, (g, n))
+        y, _ = ops.ssd(x, leaves[1], leaves[2], B, C,
+                       kcfg=ops.KernelConfig(use_cuda))
+        grads.append(torch.autograd.grad(y, leaves, dy.to(wide)))
+    for a, b in zip(*grads):
+        _grad_close(a, b.to(a.dtype), dtype)
+
+
+def test_k4_backward_is_deterministic(cuda):
+    """Two launches give the same bits: per-head dB / dC and per-block dA
+    partials summed in a fixed order, no float atomics."""
+    from repro_torch.kernels import ssd_scan as k4
+
+    ins = _xbc_inputs(cuda, 2, 700, 8, 64, 1, 128, torch.bfloat16, 9)
+    dy = torch.randn((2, 700, 8, 64), device=cuda).bfloat16()
+    g1 = k4.ssd_scan_grouped_backward(*ins, dy, None)
+    g2 = k4.ssd_scan_grouped_backward(*ins, dy, None)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_k4_backward_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import ssd_scan as k4
+
+    x, dt, a, b, c = _xbc_inputs(cuda, 2, 64, 4, 32, 2, 16, torch.bfloat16,
+                                 0)
+    dy = torch.zeros((2, 64, 4, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="takes dy"):
+        k4.ssd_scan_grouped_backward(x, dt, a, b, c, dy.float())
+    with pytest.raises(ValueError, match="takes dh"):
+        k4.ssd_scan_grouped_backward(x, dt, a, b, c, dy,
+                                     torch.zeros((2, 4, 32, 16), device=cuda))
+    with pytest.raises(ValueError, match="H a multiple of G"):
+        k4.ssd_scan_grouped_backward(x[:, :, :3], dt[:, :, :3], a[:3], b, c,
+                                     dy[:, :, :3])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        k4.ssd_scan_grouped_backward(x, dt, a.clone().requires_grad_(True),
+                                     b, c, dy)
+
 def test_k4_grouped_rejects_what_it_does_not_take(cuda):
     x, dt, a, b, c = _xbc_inputs(cuda, 2, 64, 4, 32, 2, 16, torch.bfloat16,
                                  0)

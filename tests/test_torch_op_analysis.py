@@ -152,6 +152,97 @@ def test_kernel_launches_count_their_own_traffic_and_operations():
                    for r in c.log for _, s in r["in"] + r["out"])
 
 
+
+def test_k4_backward_launch_counts_its_own_traffic_and_operations():
+    """K4's Function through ``ops.ssd`` under autograd on the model's
+    layout (x, B, C views of one buffer): one ``kernel.ssd_scan`` and one
+    ``kernel.ssd_scan_backward`` op, each reading its inputs and writing
+    its outputs once (the unused state's cotangent is none, and not read);
+    the backward's operations are
+    ``ssd_backward_flops``; the step-by-step plain route (a (BH, N, P)
+    state a step) never runs. The stand-ins are gone after the block."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as k4
+
+    saved = (k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward)
+    bt, s, h, p, g, n = 2, 100, 4, 32, 2, 16
+    bf16 = torch.bfloat16
+    with FakeTensorMode():
+        buf = torch.zeros(bt, s, h * p + 2 * g * n, dtype=bf16,
+                          requires_grad=True)
+        dt = torch.zeros(bt, s, h, requires_grad=True)
+        A = torch.zeros(h, requires_grad=True)
+        x = buf[..., :h * p].unflatten(-1, (h, p))
+        B = buf[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        C = buf[..., h * p + g * n:].unflatten(-1, (g, n))
+        with oa.count_ops(kernels=True) as c:
+            y, hfin = ops.ssd(x, dt, A, B, C,
+                              kcfg=ops.KernelConfig(use_cuda=True))
+            grads = torch.autograd.grad(y.float().sum(), (buf, dt, A))
+    assert (k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward) == saved
+    assert [gr.shape for gr in grads] == [buf.shape, dt.shape, A.shape]
+    kernels = [r for r in c.log if r["op"].startswith("kernel.")]
+    assert [r["op"] for r in kernels] == ["kernel.ssd_scan",
+                                          "kernel.ssd_scan_backward"]
+    acc = oa.analyze(kernels)
+    xb, bcb = bt * s * h * p * 2, bt * s * g * n * 2
+    dtb, ab, hb = bt * s * h * 4, h * 4, bt * h * n * p * 4
+    fwd_bytes = xb + dtb + ab + 2 * bcb + xb + hb
+    # the loss uses y alone: no state cotangent reaches the backward
+    bwd_bytes = (xb + dtb + ab + 2 * bcb + xb) + (xb + dtb + ab + 2 * bcb)
+    assert acc["kernels"]["ssd_scan"] == {
+        "count": 1, "bytes": fwd_bytes,
+        "flops": oa.ssd_flops(bt * h, s, p, n)}
+    assert acc["kernels"]["ssd_scan_backward"] == {
+        "count": 1, "bytes": bwd_bytes,
+        "flops": oa.ssd_backward_flops(bt * h, s, p, n)}
+    assert not any(s_ == [bt * h, n, p] for r in c.log
+                   for _, s_ in r["in"] + r["out"])
+
+
+def test_ssd_backward_flops():
+    """K4's backward products by hand: per 64-step chunk 3 L^2 N + 2 L^2 P
+    + 4 L N P multiply-adds, and the state update L N P again for every
+    chunk but the last."""
+    L = 64
+    per = 3 * L * L * 128 + 2 * L * L * 64 + 4 * L * 128 * 64
+    assert oa.ssd_backward_flops(256, 2048, 64, 128) == \
+        256 * 2 * (32 * per + 31 * L * 128 * 64)
+    assert oa.ssd_backward_flops(3, 65, 32, 16) == 3 * 2 * (
+        2 * (3 * L * L * 16 + 2 * L * L * 32 + 4 * L * 16 * 32)
+        + L * 16 * 32)
+    assert oa.ssd_backward_flops(1, 64, 32, 16) == 2 * (
+        3 * L * L * 16 + 2 * L * L * 32 + 4 * L * 16 * 32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_counted_kernel_path_of_an_ssm_train_step(arch, tmp_path):
+    """``dryrun.count(kernels=True)`` of the SSM and hybrid smoke configs'
+    training step (remat full) counts the card's path: K4 forward twice a
+    layer (the remat recompute), K4's backward once a layer, K2 on wx and
+    out_proj; no step-by-step plain route in the log."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    cfg = get_smoke_config(arch)
+    seq, batch = 48, 2
+    acc = dryrun.count(cfg, ShapeConfig("t", seq, batch, "train"), None,
+                       microbatches=1, kernels=True,
+                       trace_path=str(tmp_path / "ops.z"))
+    n = cfg.num_layers
+    ks = acc["kernels"]
+    assert (ks["ssd_scan"]["count"], ks["ssd_scan_backward"]["count"]) == \
+        (2 * n, n)
+    sc = cfg.ssm
+    heads = sc.heads(cfg.d_model)
+    assert ks["ssd_scan_backward"]["flops"] == n * oa.ssd_backward_flops(
+        batch * heads, seq, sc.head_dim, sc.state_size)
+    assert ks["lora_matmul"]["count"] >= 4 * n
+    log = oa.load_log(str(tmp_path / "ops.z"))[0]
+    state = [batch * heads, sc.state_size, sc.head_dim]
+    assert not any(s_ == state for r in log for _, s_ in r["in"] + r["out"])
+
 def test_attention_pairs():
     """K3's unmasked pairs: causal, windowed, bidirectional, and counted
     from positions where they hold data (a span of equal positions sees

@@ -9,6 +9,9 @@
   ``ShardedLMLoader`` batches, for each of ``chip_smoke.TRAIN_REF_RUNS``:
   every step's loss, grad norm and lr, and the LoRA leaves' movement over
   the steps (sum of |after - before| and of its squares, in f64).
+- ``TRAIN_SSM_REF``: the same for each of ``chip_smoke.TRAIN_SSM_ARCHS``
+  (the mamba2-370m and zamba2-2.7b smoke configs), held by
+  ``[train-ssm-ref]``.
 - ``ELASTIC_REF``: the reference's ``ElasticTrainer`` on the full setting of
   examples/elastic_finetune.py (tiny-100m, AHAP(3, 1, 0.7), ARIMA on
   ``vast_like_trace(seed=4, days=2)``, the calibrated switching cost) with
@@ -56,8 +59,8 @@ def _movement(before, after):
             float(sum(np.square(x).sum() for x in d)))
 
 
-def train_ref():
-    cfg = get_smoke_config(chip_smoke.TRAIN_REF_ARCH)
+def train_ref(arch=chip_smoke.TRAIN_REF_ARCH):
+    cfg = get_smoke_config(arch)
     out = {}
     for mb, kw in chip_smoke.TRAIN_REF_RUNS.items():
         tcfg = TrainConfig(**kw)
@@ -78,6 +81,10 @@ def train_ref():
         out[mb] = {**{k: tuple(v) for k, v in rows.items()},
                    "move_abs": move_abs, "move_sq": move_sq}
     return out
+
+
+def train_ssm_ref():
+    return {arch: train_ref(arch) for arch in chip_smoke.TRAIN_SSM_ARCHS}
 
 
 def elastic_ref():
@@ -107,6 +114,9 @@ def main():
     tr = train_ref()
     print(f"train: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
+    ssm = train_ssm_ref()
+    print(f"train ssm: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
     el = elastic_ref()
     print(f"elastic: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print("TRAIN_REF = {")
@@ -114,6 +124,16 @@ def main():
         print(f"    {mb}: {{")
         for k, v in row.items():
             print(f"        {k!r}: {v!r},")
+        print("    },")
+    print("}")
+    print("TRAIN_SSM_REF = {")
+    for arch, runs in ssm.items():
+        print(f"    {arch!r}: {{")
+        for mb, row in runs.items():
+            print(f"        {mb}: {{")
+            for k, v in row.items():
+                print(f"            {k!r}: {v!r},")
+            print("        },")
         print("    },")
     print("}")
     print("ELASTIC_REF = {")
