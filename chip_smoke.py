@@ -7,9 +7,10 @@ Run from the repo root, with no arguments:
     python3 chip_smoke.py
 
 It builds the kernels (``src/repro_torch/kernels/csrc/*.cu``: K1
-window_dp, K2 lora_matmul, K3 flash_attention, K4 ssd_scan and K4's
-backward ssd_scan_bwd), one nvcc for sm_90a each, all started together,
-and then drives these paths on the card:
+window_dp, K2 lora_matmul, K3 flash_attention and its backward
+flash_attention_bwd, K4 ssd_scan and its backward ssd_scan_bwd), one nvcc
+for sm_90a each, all started together, and then drives these paths on the
+card:
 
 - the paper's online policy selection (Fig. 9: four noise settings, 1000
   jobs x ``paper_pool()``) through ``engine.simulate_and_select``, whose
@@ -82,12 +83,13 @@ and then drives these paths on the card:
   its launch counts checked, its logits held against the plain run and a
   traced prefill or forward.
 - LoRA fine-tuning, the paper's workload: K2's autograd Function (forward
-  K2, dx by K2 on W^T, B^T, A^T), K3's (forward the kernel, backward
-  autograd through the plain version) and K4's (forward K4, backward K4's
-  backward kernel) against autograd through the plain versions
+  K2, dx by K2 on W^T, B^T, A^T), K3's (forward K3 keeping each row's max
+  and sum, backward K3's backward kernel) and K4's (forward K4, backward
+  K4's backward kernel) against autograd through the plain versions
   (``[k2-grad]``, ``[k3-grad]``, ``[k4-grad]``; a direct launch under grad
-  raises), K4's backward also against its full-size plain version at the
-  SSM training shapes; the llama2-7b smoke config trained 4 steps against
+  raises; no plain attention on the card's route), K3's and K4's backward
+  kernels also against their full-size plain versions at the training
+  shapes; the llama2-7b smoke config trained 4 steps against
   the JAX package's train step (``[train-ref]``); llama2-7b at full width
   and depth, bf16, trained with remat (``[train]``: step 0's LoRA
   gradients finite, non-zero and held against the plain runs in bf16 and
@@ -95,8 +97,8 @@ and then drives these paths on the card:
   base weights bit-unchanged); the mamba2-370m and zamba2-2.7b smoke
   configs trained 4 steps against the JAX package (``[train-ssm-ref]``)
   and both at full width and depth the same way as llama2-7b
-  (``[train-ssm]``: 8 x 2048 and 8 x 1024, K2, K3, K4 and K4's backward,
-  no plain version on mamba2's path); and the elastic trainer of
+  (``[train-ssm]``: 8 x 2048 and 8 x 1024, K2, K3 and K4 and their
+  backwards, no plain version on either path); and the elastic trainer of
   examples/elastic_finetune_torch.py at its full setting (``[elastic]``:
   the scheduler's plan equal to the JAX package's, AHAP's windows on K1,
   real checkpoint round trips).
@@ -106,8 +108,8 @@ and then drives these paths on the card:
   fake tensors, not a run; the smoke combinations are the CPU tests'),
   and fails on a FAILED record; ``[roofline]`` counts llama2-7b's
   prefill, decode step and training step, and mamba2-370m's training
-  step, on one device as the card runs them (K2, K3, K4 and K4's backward
-  by their own traffic and operations) and sets each beside
+  step, on one device as the card runs them (K2, K3, K4 and the K3 and K4
+  backwards by their own traffic and operations) and sets each beside
   its H100 bound, [serve]'s, [train]'s and [train-ssm]'s measured time
   (failing when a
   time is below the compute term, a strict lower bound), the step MFU and
@@ -2476,16 +2478,18 @@ def _reset_counts(k2, k3, k4) -> None:
     k2.lora_matmul.backward_launches = 0
     k3.flash_attention.launches = 0
     k3.flash_attention.position_launches = 0
+    k3.flash_attention_backward.launches = 0
     k4.ssd_scan.launches = 0
     k4.ssd_scan.backward_launches = 0
 
 
 def _train_counts(k2, k3, k4) -> tuple:
-    """(K2 forward, K2 backward, K3, K4, K4 backward) launches since the
-    last reset."""
+    """(K2 forward, K2 backward, K3, K4, K4 backward, K3 backward) launches
+    since the last reset."""
     return (k2.lora_matmul.launches, k2.lora_matmul.backward_launches,
             k3.flash_attention.launches, k4.ssd_scan.launches,
-            k4.ssd_scan.backward_launches)
+            k4.ssd_scan.backward_launches,
+            k3.flash_attention_backward.launches)
 
 
 def _counts(k2, k3) -> tuple:
@@ -3255,6 +3259,69 @@ def _phase_time_k4_backward(torch, gen, k4, bt, s, hh, p, g, n):
             "ops": n_ops}
 
 
+def _phase_time_k3_backward(torch, gen, k3, bh, s, d):
+    """K3's backward at a training shape (bf16 q, k, v, dO; causal; m and
+    l from the forward): the kernel by ``_graph_ms`` and by events, its
+    plain version ``flash_attention_bwd_ref``, the route the Function took
+    before the kernel (autograd through ``flash_attention_ref``: its
+    forward again and that forward's backward) and
+    ``F.scaled_dot_product_attention``'s backward (the library yardstick:
+    ``torch.autograd.grad`` of its output, the graph kept), each by
+    events. The bound counts the unmasked (q, k) pairs, 10 D operations
+    each (``op_analysis.attention_backward_flops``), and q, k, v, dO, dq,
+    dk, dv at 2 bytes and m, l at 4 once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
+    from repro_torch.launch.op_analysis import (attention_backward_flops,
+                                                attention_pairs)
+
+    q, k, v, do = (_randn(torch, gen, (bh, s, d), 1.0, torch.bfloat16)
+                   for _ in range(4))
+    before = (k3.flash_attention.launches,
+              k3.flash_attention_backward.launches)
+    _, m, l = k3.flash_attention(q, k, v, stats=True)
+
+    def kernel():
+        return k3.flash_attention_backward(q, k, v, m, l, do)
+
+    for _ in range(2):
+        kernel()
+    events = _event_ms(torch, kernel, 5)
+    ms = _graph_ms(torch, kernel)
+    # timing launches do not count
+    k3.flash_attention.launches, k3.flash_attention_backward.launches = \
+        before
+    plain = _event_ms(torch, lambda: flash_attention_bwd_ref(
+        q[None], k[None], v[None], m[None], l[None], do[None]), 3)
+
+    def autograd_plain():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention_ref(*(t[None] for t in leaves))[0]
+        return torch.autograd.grad(o, leaves, do)
+
+    old = _event_ms(torch, autograd_plain, 3)
+    leaves = [t.reshape(1, bh, s, d).clone().requires_grad_(True)
+              for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    do4 = do.reshape(1, bh, s, d)
+    for _ in range(2):
+        torch.autograd.grad(o, leaves, do4, retain_graph=True)
+    lib = _event_ms(torch, lambda: torch.autograd.grad(
+        o, leaves, do4, retain_graph=True), TIME_REPS)
+    del o, leaves
+    torch.cuda.empty_cache()
+    n_bytes = 2 * 7 * bh * s * d + 4 * 2 * bh * s
+    n_ops = attention_backward_flops(bh, s, s, d, True, None)
+    bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"BH": bh, "S": s, "D": d, "ms": ms, "event_ms": events,
+            "plain_ms": plain, "autograd_plain_ms": old, "library_ms": lib,
+            "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
+            "bytes": n_bytes, "ops": n_ops,
+            "pairs": attention_pairs(s, s, True, None)}
+
+
 def _k2_shapes(launches=None):
     """K2's timed shapes and launch counts on each serving path: llama2-7b's
     q / v projection (K = N = 4096) at prefill (M = 8 x 1024) and decode
@@ -3305,8 +3372,9 @@ def _before(name) -> str:
 # K2's dA and dB are sums over M (8,192 terms at the train shape) taken in
 # another order on each side, so a value near 0 carries an error of the
 # tensor's scale, not its own; f32 1e-4 / 1e-5, bf16 one rounding of the
-# f32 result (2^-7) / 2^-9. K3's backward is the plain version's own ops
-# on both sides (only cuBLAS's batch layout may differ). K4's backward
+# f32 result (2^-7) / 2^-9. K3's backward kernel sums dK and dV over the
+# queries and dQ over the keys in another order, and takes P and dS as hi
+# + lo bf16 halves; the plain routes run in f32 and round once. K4's backward
 # kernel sums the chunked scan in f32 in another order than the plain
 # version's step-by-step recurrence and rounds each gradient once; the
 # plain route in bf16 also rounds each head's dB / dC before its group's
@@ -3378,43 +3446,132 @@ def _attention_grads(torch, ops, ins, do, use_cuda, **mask):
     return o, torch.autograd.grad(o, leaves, do)
 
 
-def _phase_k3_grad(torch, gen, k3) -> float:
+def _k3_grad_cases(torch, dev):
+    """[k3-grad]'s masks through ops.attention at (B, S) = (2, 200): causal,
+    a window of 64, non-causal, and positions q_pos = k_pos - 8 (causal:
+    queries 0-7 keep no key, the position path's rows without a key)."""
+    ar = torch.arange(200, dtype=torch.int32, device=dev)
+    return ({"causal": True}, {"causal": True, "window": 64},
+            {"causal": False}, {"causal": True, "q_pos": ar - 8,
+                                "k_pos": ar})
+
+
+def _k3_train_shapes():
+    """K3's backward at [train]'s and [train-ssm]'s hybrid shapes: name ->
+    (BH, S, D), causal."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for name, (arch, seq, batch) in (
+            ("llama2", TRAIN_RUN),
+            ("zamba2", next(r for r in TRAIN_SSM_RUNS if r[0] == "zamba2-2.7b"))):
+        cfg = get_config(arch)
+        out[name] = (batch * cfg.num_heads, seq, cfg.head_dim)
+    return out
+
+
+def _phase_k3_grad(torch, gen, k3) -> tuple:
     """[k3-grad]: K3's Function through ops.attention (GQA: 8 query heads
-    over 2 K / V heads, repeated before K3) against the plain version: the
-    forward within K3_TOL, the input gradients (autograd through the plain
-    version inside the Function) against autograd through the plain route.
-    Returns the largest |err| of the forward."""
+    over 2 K / V heads, repeated before K3) at (2, 200, 8, 2, 128), f32 and
+    bf16, each of ``_k3_grad_cases``: one forward launch (with the row
+    statistics) and one launch of K3's backward kernel, the plain attention
+    never called on the card's route; the forward within K3_TOL and dq, dk,
+    dv within GRAD_TOL of autograd through the plain route. Then the
+    backward kernel alone at the training shapes (``_k3_train_shapes``,
+    causal, bf16 and f32) against its plain version
+    ``flash_attention_bwd_ref`` and against autograd through
+    ``flash_attention_ref``, every gradient in its input's dtype.
+    Comparison launches do not count. Returns (the largest |err| of the
+    forward, {shape name: the largest |err| of the kernel's bf16 gradients
+    against flash_attention_bwd_ref})."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
 
     max_err = 0.0
     for dt in ("float32", "bfloat16"):
-        for mask in ({"causal": True}, {"causal": True, "window": 64},
-                     {"causal": False}):
+        for mask in _k3_grad_cases(torch, gen.device):
             dtype = getattr(torch, dt)
             ins = [_randn(torch, gen, (2, 200, h, 128), 1.0, dtype)
                    for h in (8, 2, 2)]
             do = _randn(torch, gen, (2, 200, 8, 128), 1.0, dtype)
-            before = k3.flash_attention.launches
-            o, got = _attention_grads(torch, ops, ins, do, True, **mask)
-            torch.cuda.synchronize()
-            launched = k3.flash_attention.launches - before
-            k3.flash_attention.launches = before
-            if launched != 1:
-                _fail(f"[k3-grad] {dt} {mask}: K3 launched {launched} times, "
-                      "expected 1")
+            label = {k: v for k, v in mask.items() if k not in ("q_pos",
+                                                               "k_pos")}
+            if "q_pos" in mask:
+                label["q_pos"] = "k_pos - 8"
+            before = (k3.flash_attention.launches,
+                      k3.flash_attention_backward.launches)
+            plain = _count_plain_attention(k3)
+            try:
+                o, got = _attention_grads(torch, ops, ins, do, True, **mask)
+                torch.cuda.synchronize()
+            finally:
+                k3.flash_attention_ref = plain.plain
+            launched = (k3.flash_attention.launches - before[0],
+                        k3.flash_attention_backward.launches - before[1])
+            (k3.flash_attention.launches,
+             k3.flash_attention_backward.launches) = before
+            if launched != (1, 1) or plain.n:
+                _fail(f"[k3-grad] {dt} {label}: K3 forward / backward "
+                      f"launched {launched} times, the plain attention "
+                      f"{plain.n} times; expected (1, 1) and 0")
             want_o, want = _attention_grads(torch, ops, ins, do, False,
                                             **mask)
-            err = _close(torch, f"[k3-grad] o {dt} {mask}", o, want_o,
+            err = _close(torch, f"[k3-grad] o {dt} {label}", o, want_o,
                          *K3_TOL[dt])
-            errs = [_grad_close(torch, f"[k3-grad] d{n} {dt} {mask}", g, w,
+            errs = [_grad_close(torch, f"[k3-grad] d{n} {dt} {label}", g, w,
                                 dt) for n, g, w in zip("qkv", got, want)]
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
             max_err = max(max_err, err)
             print(f"[k3-grad] {dt} (B, S, H, KV, D) = (2, 200, 8, 2, 128) "
-                  f"{mask}: forward max |err| {err:.3e} (rtol/atol "
-                  f"{K3_TOL[dt]}); dq, dk, dv {', '.join(f'{e:.3e}' for e in errs)}"
-                  f" ({'bit-equal' if same else 'within GRAD_TOL'})")
-    return max_err
+                  f"{label}: forward max |err| {err:.3e} (rtol/atol "
+                  f"{K3_TOL[dt]}); dq, dk, dv "
+                  f"{', '.join(f'{e:.3e}' for e in errs)} (rtol, atol x "
+                  f"max|want| {GRAD_TOL[dt]}) against autograd through the "
+                  "plain route; 1 forward + 1 backward launch, no plain "
+                  "attention")
+    bwd_errs = {}
+    for name, (bh, s, d) in _k3_train_shapes().items():
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q, k, v, do = (_randn(torch, gen, (bh, s, d), 1.0, dtype)
+                           for _ in range(4))
+            before = (k3.flash_attention.launches,
+                      k3.flash_attention_backward.launches)
+            _, m, l = k3.flash_attention(q, k, v, stats=True)
+            got = k3.flash_attention_backward(q, k, v, m, l, do)
+            torch.cuda.synchronize()
+            launched = k3.flash_attention_backward.launches - before[1]
+            (k3.flash_attention.launches,
+             k3.flash_attention_backward.launches) = before
+            if launched != 1 or any(g.dtype != dtype or g.shape != t.shape
+                                    for g, t in zip(got, (q, k, v))):
+                _fail(f"[k3-grad] {name} {dt}: {launched} launches, "
+                      f"gradients {[(g.dtype, tuple(g.shape)) for g in got]}")
+            want = flash_attention_bwd_ref(q[None], k[None], v[None],
+                                           m[None], l[None], do[None])
+            errs = [_grad_close(torch, f"[k3-grad] {name} d{n} {dt}", g,
+                                w[0], dt)
+                    for n, g, w in zip("qkv", got, want)]
+            del want
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            ref_o = flash_attention_ref(*(t[None] for t in leaves))[0]
+            auto = torch.autograd.grad(ref_o, leaves, do)
+            del ref_o, leaves
+            errs_auto = [_grad_close(torch, f"[k3-grad] {name} d{n} {dt} "
+                                     "(autograd)", g, w, dt)
+                         for n, g, w in zip("qkv", got, auto)]
+            if dt == "bfloat16":
+                bwd_errs[name] = max(errs)
+            print(f"[k3-grad] K3 backward at {name}'s training shape (BH, "
+                  f"S, D) = {(bh, s, d)} causal {dt}: max |err| dq, dk, dv "
+                  f"{', '.join(f'{e:.3e}' for e in errs)} against "
+                  f"flash_attention_bwd_ref, "
+                  f"{', '.join(f'{e:.3e}' for e in errs_auto)} against "
+                  f"autograd through flash_attention_ref (rtol, atol x "
+                  f"max|want| {GRAD_TOL[dt]})")
+            del q, k, v, do, m, l, got, auto
+            torch.cuda.empty_cache()
+    return max_err, bwd_errs
 
 
 def _ssd_train_layouts():
@@ -3568,7 +3725,8 @@ def _phase_train_ref(torch, dev, kernels, tag="train-ref",
     TRAIN_REF_RUNS entry on ``arch``'s smoke config against the JAX
     constants ``refs`` (TRAIN_REF unless given). Every kernel of the
     config's training path must launch: K2 forward and backward, K3 where
-    it has attention, K4 and K4's backward where it has Mamba2 layers."""
+    it has attention (and K3's backward), K4 and K4's backward where it
+    has Mamba2 layers."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
@@ -3577,13 +3735,14 @@ def _phase_train_ref(torch, dev, kernels, tag="train-ref",
     cfg = get_smoke_config(arch)
     has_k3 = cfg.arch_type != "ssm"
     has_k4 = cfg.arch_type in ("ssm", "hybrid")
-    names = ("K2 forward", "K2 backward", "K3", "K4", "K4 backward")
+    names = ("K2 forward", "K2 backward", "K3", "K4", "K4 backward",
+             "K3 backward")
     for mb, want in (TRAIN_REF if refs is None else refs).items():
         _reset_counts(k2, k3, k4)
         got = train_ref_run(torch, dev, mb, arch)
         torch.cuda.synchronize()
         counts = _train_counts(k2, k3, k4)
-        needed = (True, True, has_k3, has_k4, has_k4)
+        needed = (True, True, has_k3, has_k4, has_k4, has_k3)
         if any(bool(c) != need for c, need in zip(counts, needed)):
             _fail(f"[{tag}] {arch} microbatches {mb}: launches "
                   + ", ".join(f"{k} {c}" for k, c in zip(names, counts))
@@ -3621,15 +3780,32 @@ def _grad_distance(torch, a, b) -> tuple:
 
 
 def _train_launches(cfg) -> tuple:
-    """(K2 forward, K2 backward, K3, K4, K4 backward) launches of one
-    training step with remat full: each forward's K2, K3 and K4 launches
-    twice (the recompute), K2's dx once for every adapted projection but
-    the first layer's (its input, the frozen embedding, carries no
-    gradient: q and v of a dense layer, wx of a Mamba2 one), K4's backward
-    once a Mamba2 layer."""
+    """(K2 forward, K2 backward, K3, K4, K4 backward, K3 backward) launches
+    of one training step with remat full: each forward's K2, K3 and K4
+    launches twice (the recompute), K2's dx once for every adapted
+    projection but the first layer's (its input, the frozen embedding,
+    carries no gradient: q and v of a dense layer, wx of a Mamba2 one), K3's
+    backward once an attention layer (or shared-block application), K4's
+    backward once a Mamba2 layer."""
     k2, k3, k4 = _launches_per_forward(cfg)
     first = 1 if cfg.arch_type in ("ssm", "hybrid") else len(cfg.lora.targets)
-    return 2 * k2, k2 - first, 2 * k3, 2 * k4, k4
+    return 2 * k2, k2 - first, 2 * k3, 2 * k4, k4, k3
+
+
+def _count_plain_attention(k3):
+    """Counts (``.n``) every call of ``flash_attention_ref`` made through
+    K3's module from here on: its CPU routes, which the card's route must
+    never reach. Restore ``k3.flash_attention_ref = calls.plain`` after
+    the run."""
+    plain = k3.flash_attention_ref
+
+    def calls(*a, **kw):
+        calls.n += 1
+        return plain(*a, **kw)
+
+    calls.n, calls.plain = 0, plain
+    k3.flash_attention_ref = calls
+    return calls
 
 
 def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
@@ -3640,9 +3816,11 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     the autograd Functions close), and within twice the bf16 plain run's
     distance from an f32 plain run (``KernelConfig(False)``: the plain
     attention, ``ssd_chunked``); then TRAIN_WARMUP + ``steps`` steps timed,
-    launch counts (``_train_launches``), peak memory, one traced step (a
-    K4 backward range holding the backward kernel's launches alone, no
-    step-by-step loop); the base weights bit-unchanged. Returns the timed
+    launch counts (``_train_launches``), no plain attention on the card's
+    route (``flash_attention_ref`` counted inside K3's module), peak
+    memory, one traced step (the K3 and K4 backward ranges holding their
+    kernels' launches alone: no plain attention ops, no step-by-step
+    loop); the base weights bit-unchanged. Returns the timed
     steps' launches (``_train_counts``), the median step time, the trace's
     shares and the peak memory."""
     import dataclasses
@@ -3712,18 +3890,25 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(k2, k3, k4)
     times = []
-    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + steps):
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batches[i])
-        losses.append(float(m.loss))      # waits for the step
-        times.append(time.perf_counter() - t0)
+    plain_calls = _count_plain_attention(k3)
+    try:
+        for i in range(TRAIN_WARMUP, TRAIN_WARMUP + steps):
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batches[i])
+            losses.append(float(m.loss))      # waits for the step
+            times.append(time.perf_counter() - t0)
+    finally:
+        k3.flash_attention_ref = plain_calls.plain
+    if plain_calls.n:
+        _fail(f"[{tag}] {arch}: the plain attention ran {plain_calls.n} "
+              "times on the card's route")
     launches = _train_counts(k2, k3, k4)
     peak = torch.cuda.max_memory_allocated()
     n = cfg.num_layers
     per = _train_launches(cfg)
     if launches != tuple(steps * x for x in per):
         _fail(f"[{tag}] {arch} launches K2 forward / backward, K3, K4, K4 "
-              f"backward {launches}, expected "
+              f"backward, K3 backward {launches}, expected "
               f"{tuple(steps * x for x in per)}")
     if not all(np.isfinite(losses)):
         _fail(f"[{tag}] {arch} non-finite loss: {losses}")
@@ -3744,15 +3929,16 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
           f"{tokens / med:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; "
           f"launches a step K2 forward {launches[0] // steps}, K2 "
           f"backward {launches[1] // steps} (layer 0's input carries "
-          f"no gradient), K3 {launches[2] // steps}, K4 "
-          f"{launches[3] // steps}, K4 backward {launches[4] // steps}; "
+          f"no gradient), K3 {launches[2] // steps}, K3 backward "
+          f"{launches[5] // steps}, K4 {launches[3] // steps}, K4 backward "
+          f"{launches[4] // steps}; no plain attention; "
           f"losses {', '.join(f'{x:.4f}' for x in losses)}")
     shares = _trace_call(
         torch, f"{cfg.name} train step",
         lambda: step(params, opt, batches[-1]),
         {k2.BACKWARD_DX: "K2 backward (dx)", k2.W_TRANSPOSE: "W^T copy",
          k2.BACKWARD_RANK_R: "dA / dB products",
-         k3.BACKWARD: "K3 backward (plain)", k4.BACKWARD: "K4 backward"})
+         k3.BACKWARD: "K3 backward", k4.BACKWARD: "K4 backward"})
     if per[4] and shares is not None:
         # the backward's range holds its two kernels a launch (the scan and
         # the finishing sums; a step-by-step plain route would launch
@@ -3763,8 +3949,18 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
                   f"inside '{k4.BACKWARD}' over {per[4]} launches")
         print(f"[{tag}] {arch} traced step: {inside} device kernels inside "
               f"'{k4.BACKWARD}' over {per[4]} launches of K4's backward "
-              "(no step-by-step loop); plain K3 backward "
-              f"{shares['K3 backward (plain)']:.1f} ms")
+              "(no step-by-step loop)")
+    if per[5] and shares is not None:
+        # K3's backward range holds its three kernels a launch (rowsum(P o
+        # dP), dK / dV, dQ) and nothing else: no plain attention op
+        inside = shares["kernels_in"]["K3 backward"]
+        if inside != 3 * per[5]:
+            _fail(f"[{tag}] {arch} traced step: {inside} device kernels "
+                  f"inside '{k3.BACKWARD}' over {per[5]} launches, expected "
+                  f"{3 * per[5]} (no plain attention ops)")
+        print(f"[{tag}] {arch} traced step: {inside} device kernels inside "
+              f"'{k3.BACKWARD}' over {per[5]} launches of K3's backward, "
+              f"{shares['K3 backward']:.1f} ms (no plain attention ops)")
     base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
     if any(not torch.equal(x, h.to(dev)) or x.grad is not None
            or x.requires_grad for x, h in zip(base, base_host)):
@@ -3791,7 +3987,8 @@ def _phase_elastic(torch, dev, kernels, k1) -> tuple:
     """[elastic]: examples/elastic_finetune_torch.py's full setting on the
     card, against ELASTIC_REF's plan exactly; wall time, optimizer steps/s,
     first and last loss, and each checkpoint round trip's bytes and save /
-    restore ms. Returns (K1, K2 forward, K2 backward, K3) launches."""
+    restore ms. Returns (K1, K2 forward, K2 backward, K3, K3 backward)
+    launches."""
     import tempfile
 
     import numpy as np
@@ -3837,7 +4034,8 @@ def _phase_elastic(torch, dev, kernels, k1) -> tuple:
         finally:
             elastic.save, elastic.restore = saved
     launches = (k1.window_dp.launches, k2.lora_matmul.launches,
-                k2.lora_matmul.backward_launches, k3.flash_attention.launches)
+                k2.lora_matmul.backward_launches, k3.flash_attention.launches,
+                k3.flash_attention_backward.launches)
     got = {"slots": tuple((s.t, s.n_od, s.n_spot, s.mu, s.steps)
                           for s in rep.slots),
            "total_steps": rep.total_steps, "utility": rep.utility,
@@ -3845,8 +4043,8 @@ def _phase_elastic(torch, dev, kernels, k1) -> tuple:
     if got != ELASTIC_REF:
         _fail(f"[elastic] plan {got} differs from JAX's {ELASTIC_REF}")
     if not all(launches):
-        _fail(f"[elastic] K1, K2 forward, K2 backward, K3 launches "
-              f"{launches}: each must run")
+        _fail(f"[elastic] K1, K2 forward, K2 backward, K3, K3 backward "
+              f"launches {launches}: each must run")
     if not all(np.isfinite(rep.losses)):
         _fail("[elastic] non-finite loss")
     pol = ex.POLICY
@@ -3863,7 +4061,8 @@ def _phase_elastic(torch, dev, kernels, k1) -> tuple:
           f"{', '.join(f'{x:.1f}' for x in timed['save'])} ms, restore "
           f"{', '.join(f'{x:.1f}' for x in timed['restore'])} ms; launches "
           f"K1 {launches[0]} (the AHAP windows), K2 {launches[1]} forward + "
-          f"{launches[2]} backward, K3 {launches[3]}")
+          f"{launches[2]} backward, K3 {launches[3]} forward + {launches[4]} "
+          "backward")
     return launches
 
 
@@ -4303,7 +4502,8 @@ def _phase_roofline(torch, card: str, train: dict,
                     train_ssm: dict) -> None:
     """[roofline]: llama2-7b at full width and depth counted on one device
     as the card runs it (``launch.dryrun.count(kernels=True)``, mesh None,
-    on meta tensors: each K2 / K3 launch one op, its inputs read and
+    on meta tensors: each K2 / K3 / K3-backward launch one op, its inputs
+    read and
     outputs written once, its own operations; the rest op by op) at the
     three steps [serve] and [train] timed: the prefill of 8 x 1024 (into
     a 1024-slot cache; [serve]'s has 2048, 4.3 GB more zeros), a
@@ -4330,30 +4530,36 @@ def _phase_roofline(torch, card: str, train: dict,
     if arch != SERVE_ARCH:
         _fail(f"[roofline] [serve] runs {SERVE_ARCH}, [train] {arch}")
     k2_fwd, k3_fwd, _ = _launches_per_forward(cfg)
-    k2_train = (train["launches"][0] + train["launches"][1]) // TRAIN_STEPS
-    k3_train = train["launches"][2] // TRAIN_STEPS
+    per_step = tuple(x // TRAIN_STEPS for x in train["launches"])
     ssm_arch, ssm_seq, ssm_batch = TRAIN_SSM_RUNS[0]
     ssm = train_ssm[ssm_arch]
     ssm_launches = tuple(x // ssm["steps"] for x in ssm["launches"])
     ssm_cfg = get_config(ssm_arch)
+
+    def kernels(counts):
+        """A step's launches (``_train_counts``' order) by the counter's
+        kernel names."""
+        return {"lora_matmul": counts[0] + counts[1],
+                "flash_attention": counts[2], "ssd_scan": counts[3],
+                "ssd_scan_backward": counts[4],
+                "flash_attention_backward": counts[5]}
+
     steps = (
         (cfg, "prefill", ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH,
                                      "prefill"), serve["prefill_s"],
          "one timed prefill of [serve]'s teacher-forced kernel run",
-         serve["peak"], (k2_fwd, k3_fwd)),
+         serve["peak"], kernels((k2_fwd, 0, k3_fwd, 0, 0, 0))),
         (cfg, "decode", ShapeConfig("decode", SERVE_MAX_LEN, SERVE_BATCH,
                                     "decode"), serve["decode_s"],
          f"the mean of [serve]'s {SERVE_NEW} teacher-forced decode steps",
-         serve["peak"], (k2_fwd, 0)),
+         serve["peak"], kernels((k2_fwd, 0, 0, 0, 0, 0))),
         (cfg, "train", ShapeConfig("train", seq, batch, "train"),
          train["step_s"], f"the median of [train]'s {TRAIN_STEPS} timed "
-         "steps", train["peak"], (k2_train, k3_train)),
+         "steps", train["peak"], kernels(per_step)),
         (ssm_cfg, "train", ShapeConfig("train", ssm_seq, ssm_batch,
                                        "train"),
          ssm["step_s"], f"the median of [train-ssm]'s {ssm['steps']} timed "
-         "steps", ssm["peak"], (ssm_launches[0] + ssm_launches[1],
-                                ssm_launches[2], ssm_launches[3],
-                                ssm_launches[4])),
+         "steps", ssm["peak"], kernels(ssm_launches)),
     )
     print(f"[roofline] card {card}; bounds from PEAK_FLOPS_BF16 "
           f"{PEAK_FLOPS_BF16:.3e} FLOP/s and HBM_BW {roofline.HBM_BW:.3e} "
@@ -4361,12 +4567,11 @@ def _phase_roofline(torch, card: str, train: dict,
     for cfg, name, shape, measured, origin, peak, want in steps:
         acc = dryrun.count(cfg, shape, None, microbatches=1, kernels=True)
         ks = acc["kernels"]
-        got = tuple(ks.get(k, {}).get("count", 0)
-                    for k in ("lora_matmul", "flash_attention", "ssd_scan",
-                              "ssd_scan_backward")[:len(want)])
-        if got != want:
-            _fail(f"[roofline] {cfg.name} {name}: counted K2 / K3 / K4 / K4 "
-                  f"backward launches {got}, the main path's {want}")
+        got = {k: ks.get(k, {}).get("count", 0) for k in want}
+        if got != want or set(ks) - set(want):
+            _fail(f"[roofline] {cfg.name} {name}: counted launches "
+                  f"{ {k: v['count'] for k, v in ks.items()} }, the main "
+                  f"path's {want}")
         mf = roofline.model_flops_per_device(cfg, shape, 1)
         t = roofline.terms(acc["dot_flops"], acc["traffic_bytes"], 0.0)
         bound = t["bound_s"]
@@ -4438,14 +4643,16 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE, k4.SOURCE,
+    built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE,
+                              k3.BACKWARD_SOURCE, k4.SOURCE,
                               k4.BACKWARD_SOURCE])
     for mod in (k1, k2, k3, k4):
         mod.load_library()
+    k3.load_backward_library()
     k4.load_backward_library()
     build_s = time.perf_counter() - t0
-    print(f"[id] K1, K2, K3, K4 and K4's backward built in parallel in "
-          f"{build_s:.2f} s")
+    print(f"[id] K1, K2, K3, K3's backward, K4 and K4's backward built in "
+          f"parallel in {build_s:.2f} s")
     for source, (lib_path, log) in built.items():
         print(f"[id] {source} -> {lib_path.relative_to(ROOT)}")
         for line in log.strip().splitlines():
@@ -4748,12 +4955,13 @@ def main() -> int:
     launches["audio"] = _phase_audio(torch, np, dev, kernels)
     torch.cuda.empty_cache()
 
-    # ---- phase 6d: LoRA fine-tuning (K2 forward and backward, K3; K1 in
-    # the elastic trainer's AHAP decisions) ----
+    # ---- phase 6d: LoRA fine-tuning (K2 forward and backward, K3 and its
+    # backward; K1 in the elastic trainer's AHAP decisions) ----
     t_train = time.perf_counter()
     k2_y_err, k2_dx_err = _phase_k2_grad(torch, gen, k2, lora_matmul_ref)
     k2_err = max(k2_err, k2_y_err)
-    k3_err = max(k3_err, _phase_k3_grad(torch, gen, k3))
+    k3_y_err, k3_bwd_err = _phase_k3_grad(torch, gen, k3)
+    k3_err = max(k3_err, k3_y_err)
     k4_y_err, k4_bwd_err = _phase_k4_grad(torch, gen, k4)
     k4_err = max(k4_err, k4_y_err)
     torch.cuda.empty_cache()
@@ -4761,7 +4969,7 @@ def main() -> int:
     train = _phase_train(torch, np, dev, kernels)
     launches["train"] = train["launches"]
     torch.cuda.empty_cache()
-    # ---- the SSM and hybrid families (K2, K3, K4 and K4's backward) ----
+    # ---- the SSM and hybrid families (K2, K3, K4 and their backwards) --
     for arch in TRAIN_SSM_ARCHS:
         _phase_train_ref(torch, dev, kernels, "train-ssm-ref", arch,
                          TRAIN_SSM_REF[arch])
@@ -4773,9 +4981,11 @@ def main() -> int:
     elastic_launches = _phase_elastic(torch, dev, kernels, k1)
     print(f"[launches] K1 table entry: elastic {elastic_launches[0]}; "
           f"[train] K2 {launches['train'][0]} forward + "
-          f"{launches['train'][1]} backward, K3 {launches['train'][2]}; "
+          f"{launches['train'][1]} backward, K3 {launches['train'][2]} "
+          f"forward + {launches['train'][5]} backward; "
           + "; ".join(f"[train-ssm] {arch} K2 {r['launches'][0]} forward + "
-                      f"{r['launches'][1]} backward, K3 {r['launches'][2]}, "
+                      f"{r['launches'][1]} backward, K3 {r['launches'][2]} "
+                      f"+ {r['launches'][5]} backward, "
                       f"K4 {r['launches'][3]} forward + {r['launches'][4]} "
                       "backward" for arch, r in train_ssm.items())
           + f"; training phases {time.perf_counter() - t_train:.1f} s")
@@ -4899,6 +5109,29 @@ def main() -> int:
               "library call (no PyTorch call computes the SSD scan's "
               "gradients)")
 
+    k3_back = {}
+    k3_back_runs = {"llama2": launches["train"][5],
+                    "zamba2": train_ssm["zamba2-2.7b"]["launches"][5]}
+    for name, shape in _k3_train_shapes().items():
+        row = _phase_time_k3_backward(torch, gen, k3, *shape)
+        row["launches"] = k3_back_runs[name]
+        k3_back[name] = row
+        print(f"[time] card {card}: K3 backward ({name}'s training shape) "
+              f"at (BH, S, D) = {shape} causal bf16: "
+              f"{row['ms'] * 1e3:.1f} us/launch in a CUDA graph, "
+              f"{row['event_ms'] * 1e3:.1f} us by events "
+              f"({row['launches']} launches on its training path's timed "
+              f"steps); bound {row['bound_ms'] * 1e3:.1f} us by "
+              f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB, "
+              f"{row['ops'] / 1e9:.2f} G operations over {row['pairs']:,} "
+              f"pairs a head) = {row['bound_ms'] / row['ms']:.1%} of bound; "
+              f"plain (flash_attention_bwd_ref) {row['plain_ms'] * 1e3:.1f} "
+              f"us; autograd through flash_attention_ref (the route before "
+              f"the kernel) {row['autograd_plain_ms'] * 1e3:.1f} us; "
+              f"F.scaled_dot_product_attention's backward "
+              f"{row['library_ms'] * 1e3:.1f} us (kernel / SDPA "
+              f"{row['ms'] / row['library_ms']:.2f}x)")
+
     # each K1 entry with its own main-path launches (window_dp.launches
     # counts both): the forecast entry's in the Fig. 9 settings, the chaos
     # runs, the grid pass, the regional runs and the oracle's vectorized
@@ -4944,6 +5177,11 @@ def main() -> int:
         _entry(name, "flash_attention.cu",
                "src/repro/kernels/flash_attention.py:28", row["launches"],
                k3_err, row) for name, row in k3_rows.items()] + [
+        # K3's backward on [train]'s and [train-ssm]'s hybrid path (the TPU
+        # kernel has none: the backward of the function it computes)
+        _entry("flash_attention/backward/" + name, "flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention.py:28", row["launches"],
+               k3_bwd_err[name], row) for name, row in k3_back.items()] + [
         # K4 as its serving paths launch it, in the model's layout
         _entry(name, "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:23",
                rows["grouped"]["launches"], k4_err, rows["grouped"])

@@ -12,6 +12,14 @@
 // max(l, 1e-30). The plain version is
 // repro_torch/kernels/ref.py:flash_attention_ref.
 //
+// Row statistics. Given m_out and l_out (BH, Sq) f32, the launch also
+// writes each row's final running max m and running sum l where it stores
+// the row's output, for K3's backward (csrc/flash_attention_bwd.cu), which
+// recomputes P = exp(s - m) / max(l, 1e-30) from them. They stay two
+// numbers: a row whose keys are all masked ends with m = -2e38 and l = Sk,
+// and their log-sum-exp would round back to -2e38. Null pointers (serving)
+// write nothing.
+//
 // Positions. Without position vectors (null pointers: the index path)
 // query and key positions both count from 0 (also when Sq != Sk), as in the
 // TPU kernel. With q_pos (Sq) and k_pos (Sk) int32, shared by every bh (the
@@ -53,7 +61,7 @@
 //   run longest first (causal: the last tile has the most keys).
 //   Shared memory 5 x 64 x (D + 8) x 2 B: 85 KB at D 128, so two blocks
 //   share an SM (56 KB at D 80: four). 64-row query tiles of 4 warps
-//   rather than 128 of 8: the registers (229 a thread at D 128, 166 at D
+//   rather than 128 of 8: the registers (231 a thread at D 128, 168 at D
 //   80, no spills) hold an SM to 8 warps at D 128 either way, and the
 //   smaller tile skips more of the causal triangle.
 // - float32 (the f32 logit check and tests): f32 on the CUDA cores, as the
@@ -87,74 +95,30 @@
 
 #include <type_traits>
 
+#include "flash_attention.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
+using namespace attn;
 using bf16 = __nv_bfloat16;
-
-constexpr int kBQ = 64;
-constexpr int kBKV = 64;
-constexpr float kMaskFill = -2.0e38f;
-
-// Key tiles [kt_begin, kt_end) that hold a key some row of the query tile
-// at q0 keeps: on the index path tiles wholly past the diagonal or before
-// the window are skipped (see the header); the position path visits all.
-template <bool kPos>
-__device__ __forceinline__ void key_tiles(int q0, int sk, int causal,
-                                          int window, int& kt_begin,
-                                          int& kt_end) {
-  kt_end = (sk + kBKV - 1) / kBKV;
-  kt_begin = 0;
-  if (kPos) return;
-  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBKV + 1);
-  if (window > 0) kt_begin = max(0, q0 - window + 1) / kBKV;
-}
 
 // The score of the key at index kidx (position kp) for a query at position
 // qp after the mask: -2e38 where causal or window masks it, -inf past Sk.
 __device__ __forceinline__ float masked(float s, int qp, int kp, int kidx,
                                         int sk, int causal, int window) {
-  bool ok = true;
-  if (causal) ok = ok && kp <= qp;
-  if (window > 0) ok = ok && kp > qp - window;
-  return kidx >= sk ? -INFINITY : (ok ? s : kMaskFill);
-}
-
-// The position of the key at index kidx on the position path (0 past Sk,
-// where masked() gives -inf whatever the position).
-__device__ __forceinline__ int key_pos(const int* __restrict__ k_pos,
-                                       int kidx, int sk) {
-  return kidx < sk ? __ldg(k_pos + kidx) : 0;
+  return kidx >= sk ? -INFINITY
+                    : (kept(qp, kp, causal, window) ? s : kMaskFill);
 }
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores, cp.async double buffering
 // ---------------------------------------------------------------------------
 
-constexpr int kBf16Threads = 128;  // 4 warps x 16 query rows
-
 template <int D>
 __host__ __device__ constexpr size_t bf16_smem_bytes() {
   // q, two K tiles, two V tiles, 64 rows of D + 8 bf16 each
   return sizeof(bf16) * 5 * (size_t)kBQ * (D + 8);
-}
-
-// Rows [row0, row0 + 64) of a (nrows, D) bf16 matrix into a shared tile of
-// row stride D + 8 by cp.async, zero past nrows.
-template <int D>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
-                                          int row0, int nrows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  static_assert(kBQ * kChunks % kBf16Threads == 0, "copy_tile");
-#pragma unroll
-  for (int i = 0; i < kBQ * kChunks / kBf16Threads; ++i) {
-    const int idx = threadIdx.x + i * kBf16Threads;
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    const bool ok = row0 + r < nrows;
-    tc::cp_async16(dst + r * (D + 8) + c,
-                   src + (size_t)(ok ? row0 + r : 0) * D + c, ok ? 16 : 0);
-  }
 }
 
 template <int D, bool kPos>
@@ -164,7 +128,9 @@ __global__ void __launch_bounds__(kBf16Threads)
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           int sq, int sk, int causal, int window,
                           float sm_scale, const int* __restrict__ q_pos,
-                          const int* __restrict__ k_pos) {
+                          const int* __restrict__ k_pos,
+                          float* __restrict__ m_out,
+                          float* __restrict__ l_out) {
   constexpr int kLd = D + 8;
   constexpr int kKSteps = D / 16;  // k-steps of q k^T
   constexpr int kDTiles = D / 8;   // n-tiles of p v
@@ -361,6 +327,11 @@ __global__ void __launch_bounds__(kBf16Threads)
             __floats2bfloat162_rn(acc[j][2 * h] * inv,
                                   acc[j][2 * h + 1] * inv);
       }
+      // the quad holds one row's statistics; its first thread writes them
+      if (m_out != nullptr && t == 0) {
+        m_out[bh * (size_t)sq + row] = m_run[h];
+        l_out[bh * (size_t)sq + row] = l_run[h];
+      }
     }
   }
 }
@@ -368,31 +339,6 @@ __global__ void __launch_bounds__(kBf16Threads)
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
-
-constexpr int kF32Threads = 256;
-
-// rows x D elements of a (nrows, D) f32 matrix into shared memory (ld_s),
-// times `mul`, zero past nrows.
-template <int D>
-__device__ void load_rows(float* dst, int ld_s, const float* src, int row0,
-                          int nrows, float mul) {
-  constexpr int kVecs = D / 4;
-  for (int idx = threadIdx.x; idx < kBQ * kVecs; idx += kF32Threads) {
-    const int r = idx / kVecs;
-    const int c = (idx % kVecs) * 4;
-    float* d = dst + r * ld_s + c;
-    if (row0 + r < nrows) {
-      const float4 e = *reinterpret_cast<const float4*>(
-          src + (size_t)(row0 + r) * D + c);
-      d[0] = e.x * mul;
-      d[1] = e.y * mul;
-      d[2] = e.z * mul;
-      d[3] = e.w * mul;
-    } else {
-      d[0] = d[1] = d[2] = d[3] = 0.0f;
-    }
-  }
-}
 
 template <int D>
 __host__ __device__ constexpr size_t f32_smem_bytes() {
@@ -408,7 +354,9 @@ __global__ void __launch_bounds__(kF32Threads)
                          const float* __restrict__ v, float* __restrict__ o,
                          int sq, int sk, int causal, int window,
                          float sm_scale, const int* __restrict__ q_pos,
-                         const int* __restrict__ k_pos) {
+                         const int* __restrict__ k_pos,
+                         float* __restrict__ m_out,
+                         float* __restrict__ l_out) {
   extern __shared__ __align__(16) float smem_f[];
   constexpr int kLdQ = D + 1, kLdK = D + 1, kLdV = D, kLdP = kBKV + 1;
   constexpr int kCols = D / 16;  // output columns per thread
@@ -532,6 +480,11 @@ __global__ void __launch_bounds__(kF32Threads)
       float* orow = o + (bh * (size_t)sq + row) * D;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
+      // the 16 threads of a row hold its statistics; the first writes them
+      if (m_out != nullptr && tx == 0) {
+        m_out[bh * (size_t)sq + row] = m_run[i];
+        l_out[bh * (size_t)sq + row] = l_run[i];
+      }
     }
   }
 }
@@ -539,9 +492,10 @@ __global__ void __launch_bounds__(kF32Threads)
 template <typename T, int D, bool kPos>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int sk, int causal, int window, float sm_scale,
-           const int* q_pos, const int* k_pos, cudaStream_t stream) {
+           const int* q_pos, const int* k_pos, float* m_out, float* l_out,
+           cudaStream_t stream) {
   void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int,
-                 float, const int*, const int*);
+                 float, const int*, const int*, float*, float*);
   size_t smem;
   int threads;
   if constexpr (std::is_same_v<T, bf16>) {
@@ -565,7 +519,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   kernel<<<grid, threads, smem, stream>>>((const T*)q, (const T*)k,
                                           (const T*)v, (T*)o, sq, sk, causal,
-                                          window, sm_scale, q_pos, k_pos);
+                                          window, sm_scale, q_pos, k_pos,
+                                          m_out, l_out);
   return (int)cudaGetLastError();
 }
 
@@ -573,13 +528,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 template <typename T, int D>
 int launch_path(const void* q, const void* k, const void* v, void* o, int bh,
                 int sq, int sk, int causal, int window, float sm_scale,
-                const int* q_pos, const int* k_pos, cudaStream_t stream) {
+                const int* q_pos, const int* k_pos, float* m_out,
+                float* l_out, cudaStream_t stream) {
   if (q_pos == nullptr) {
     return launch<T, D, false>(q, k, v, o, bh, sq, sk, causal, window,
-                               sm_scale, nullptr, nullptr, stream);
+                               sm_scale, nullptr, nullptr, m_out, l_out,
+                               stream);
   }
   return launch<T, D, true>(q, k, v, o, bh, sq, sk, causal, window, sm_scale,
-                            q_pos, k_pos, stream);
+                            q_pos, k_pos, m_out, l_out, stream);
 }
 
 }  // namespace
@@ -590,22 +547,25 @@ extern "C" {
 // v for q (bh, sq, d), k and v (bh, sk, d), contiguous, 16-byte aligned.
 // window <= 0 means no window. dtype 0 is float32, 1 is bfloat16. q_pos
 // (sq) and k_pos (sk) int32 are the tokens' positions, both null for
-// positions counted from 0 (see the header). Returns cudaGetLastError()
-// after the launch (0 on success) or cudaErrorInvalidValue for shapes it
-// does not take.
+// positions counted from 0 (see the header). m_out and l_out (bh, sq)
+// f32, both or neither (null), receive each row's running max and running
+// sum. Returns cudaGetLastError() after the launch (0 on success) or
+// cudaErrorInvalidValue for shapes it does not take.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int bh, int sq, int sk, int d, int causal,
                            int window, float sm_scale, int dtype,
-                           const int* q_pos, const int* k_pos, void* stream) {
+                           const int* q_pos, const int* k_pos, float* m_out,
+                           float* l_out, void* stream) {
   if (bh < 0 || bh > 65535 || sq < 0 || sk < 1 ||
-      (q_pos == nullptr) != (k_pos == nullptr)) {
+      (q_pos == nullptr) != (k_pos == nullptr) ||
+      (m_out == nullptr) != (l_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (bh == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define K3_LAUNCH(T, D)                                                      \
   launch_path<T, D>(q, k, v, o, bh, sq, sk, causal, window, sm_scale, q_pos, \
-                    k_pos, s)
+                    k_pos, m_out, l_out, s)
   if (dtype == 0 && d == 64) return K3_LAUNCH(float, 64);
   if (dtype == 0 && d == 80) return K3_LAUNCH(float, 80);
   if (dtype == 0 && d == 128) return K3_LAUNCH(float, 128);

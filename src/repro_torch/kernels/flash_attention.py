@@ -16,14 +16,25 @@ tensors. There is no fallback: on a CUDA tensor a missing compiler, a failed
 build or a failed launch raises. ``flash_attention.launches`` counts kernel
 launches, ``flash_attention.position_launches`` those of them with
 positions. Under grad mode it refuses an input that requires grad (its
-output would carry no gradient).
+output would carry no gradient). With ``stats=True`` it also returns each
+row's running max m and running sum l (BH, Sq) f32, which the backward
+reads.
 
 :class:`FlashAttention` is the way in under autograd (``ops.attention``
-takes it): its forward launches K3, its backward recomputes the plain
-version under autograd inside the profiler range :data:`BACKWARD` and
-returns its input gradients. The reference has no backward kernel (its
-models train through XLA), so this is the faithful port; a backward kernel
-waits for a trace on the card that shows this range as the bottleneck.
+takes it): its forward launches K3 and keeps m and l when an input needs a
+gradient, its backward calls :func:`flash_attention_backward` inside the
+profiler range :data:`BACKWARD`. On CUDA tensors that launches K3's
+backward kernel (``csrc/flash_attention_bwd.cu``, design and bound in its
+header): FlashAttention-2's backward, P recomputed from m and l, three
+kernels (rowsum(P o dP), dK and dV a key tile, dQ a query tile) with no
+float atomics. Its plain version is
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`; on CPU tensors the
+backward is autograd through :func:`repro_torch.kernels.ref.
+flash_attention_ref`. There is no fallback: on a CUDA tensor a failed
+build or launch raises. ``flash_attention_backward.launches`` counts the
+backward's launches (three kernels each). The reference has no backward
+kernel (its models train through XLA's differentiation of the plain
+attention), so this is K3's own backward, not a port of one.
 """
 from __future__ import annotations
 
@@ -34,18 +45,27 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_fwd_stats_ref,
+                                     flash_attention_ref)
 
 SOURCE = "flash_attention.cu"
-BACKWARD = "K3 backward (plain)"
+BACKWARD_SOURCE = "flash_attention_bwd.cu"
+BACKWARD = "K3 backward"
 HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                ctypes.c_float, _I, _P, _P, _P],
-                               ctypes.c_int),
+                                _F, _I, _P, _P, _P, _P, _P], ctypes.c_int),
+}
+_BACKWARD_SIGNATURES = {
+    "flash_attention_bwd_launch": ([_P, _P, _P, _P,      # q, k, v, dO
+                                    _P, _P, _P,          # m, l, dsum
+                                    _P, _P, _P,          # dq, dk, dv
+                                    _I, _I, _I, _I, _I, _I, _F, _I,
+                                    _P, _P, _P], ctypes.c_int),
 }
 
 
@@ -58,6 +78,12 @@ def build() -> tuple:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load K3's shared library, once per process."""
     return _build.load(SOURCE, _SIGNATURES)
+
+
+def load_backward_library() -> ctypes.CDLL:
+    """Build (if needed) and load the library of K3's backward, once per
+    process."""
+    return _build.load(BACKWARD_SOURCE, _BACKWARD_SIGNATURES)
 
 
 def _check_positions(q, k, q_pos, k_pos):
@@ -77,13 +103,13 @@ def _check_positions(q, k, q_pos, k_pos):
                              f"shape ({n},), got {tuple(p.shape)}")
 
 
-def _check(q, k, v, window, positions: bool):
+def _check(q, k, v, window, positions: bool, name="flash_attention"):
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
-        raise ValueError("flash_attention takes q, k, v on one CUDA device, "
+        raise ValueError(f"{name} takes q, k, v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention takes float32 or bfloat16, all of "
+        raise TypeError(f"{name} takes float32 or bfloat16, all of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError("flash_attention takes q (BH, Sq, D) and k, v "
@@ -115,23 +141,29 @@ def _check(q, k, v, window, positions: bool):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_pos: Optional[torch.Tensor] = None,
-                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    k_pos: Optional[torch.Tensor] = None,
+                    stats: bool = False):
     """q (BH, Sq, D), k, v (BH, Sk, D) -> (BH, Sq, D) in q's dtype; q_pos
     (Sq,) and k_pos (Sk,) int32 the positions that mask (both or neither).
-    CUDA tensors launch K3 on the current stream; CPU tensors run the plain
-    version."""
+    With ``stats`` returns (o, m, l), m and l (BH, Sq) f32 each row's
+    running max and running sum. CUDA tensors launch K3 on the current
+    stream; CPU tensors run the plain version."""
     _build.refuse_grad("flash_attention", q, k, v)
     positions = q_pos is not None or k_pos is not None
     if positions:
         _check_positions(q, k, q_pos, k_pos)
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_ref(q[None], k[None], v[None], causal=causal,
-                                   window=window, q_pos=q_pos,
-                                   k_pos=k_pos)[0]
+        kw = dict(causal=causal, window=window, q_pos=q_pos, k_pos=k_pos)
+        if stats:
+            return tuple(t[0] for t in flash_attention_fwd_stats_ref(
+                q[None], k[None], v[None], **kw))
+        return flash_attention_ref(q[None], k[None], v[None], **kw)[0]
     _check(q, k, v, window, positions)
     lib = load_library()
     bh, sq, d = q.shape
     o = torch.empty_like(q)
+    m, l = ((torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+             for _ in range(2)) if stats else (None, None))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_launch(
@@ -139,40 +171,109 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k.shape[1], d, int(causal), 0 if window is None else int(window),
             1.0 / math.sqrt(d), _DTYPES[q.dtype],
             q_pos.data_ptr() if positions else None,
-            k_pos.data_ptr() if positions else None, stream)
+            k_pos.data_ptr() if positions else None,
+            m.data_ptr() if stats else None,
+            l.data_ptr() if stats else None, stream)
     _build.check(lib, SOURCE, rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.position_launches += positions
-    return o
+    return (o, m, l) if stats else o
 
 
 flash_attention.launches = 0
 flash_attention.position_launches = 0
 
 
-class FlashAttention(torch.autograd.Function):
-    """K3 under autograd: :func:`flash_attention` forward; the backward is
-    autograd through :func:`repro_torch.kernels.ref.flash_attention_ref`
-    on the saved inputs (see the module's docstring)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window, q_pos, k_pos):
-        ctx.mask = (causal, window)
-        ctx.save_for_backward(q, k, v, q_pos, k_pos)
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               q_pos=q_pos, k_pos=k_pos)
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, q_pos, k_pos = ctx.saved_tensors
-        causal, window = ctx.mask
-        with torch.profiler.record_function(BACKWARD), torch.enable_grad():
+def flash_attention_backward(q, k, v, m, l, do, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             q_pos: Optional[torch.Tensor] = None,
+                             k_pos: Optional[torch.Tensor] = None,
+                             needs=(True,) * 3):
+    """The gradients (dq, dk, dv) of :func:`flash_attention`'s output at
+    the cotangent do (BH, Sq, D) in q's dtype, from the forward's row
+    statistics m and l (BH, Sq) f32 (``stats=True``); None where ``needs``
+    says an input wants none. CUDA tensors launch K3's backward kernel on
+    the current stream; CPU tensors run autograd through the plain version
+    (m and l unread)."""
+    ins = (q, k, v)
+    if all(t.device.type == "cpu" for t in ins):
+        with torch.enable_grad():
             ins = [t.detach().requires_grad_(need)
-                   for t, need in zip((q, k, v), ctx.needs_input_grad)]
+                   for t, need in zip(ins, needs)]
             o = flash_attention_ref(ins[0][None], ins[1][None], ins[2][None],
                                     causal=causal, window=window,
                                     q_pos=q_pos, k_pos=k_pos)[0]
             wanted = [t for t in ins if t.requires_grad]
             got = iter(torch.autograd.grad(o, wanted, do))
-        grads = [next(got) if t.requires_grad else None for t in ins]
+        return tuple(next(got) if t.requires_grad else None for t in ins)
+    name = "flash_attention_backward"
+    _build.refuse_grad(name, q, k, v, m, l, do)
+    positions = q_pos is not None or k_pos is not None
+    if positions:
+        _check_positions(q, k, q_pos, k_pos)
+    _check(q, k, v, window, positions, name)
+    if m is None or l is None:
+        raise ValueError(f"{name} takes the forward's m and l "
+                         "(flash_attention(..., stats=True)), got None")
+    bh, sq, d = q.shape
+    for what, t in (("m", m), ("l", l)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (bh, sq)
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} takes {what} ({bh}, {sq}) float32 "
+                             f"contiguous on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    if (tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype
+            or do.device != q.device):
+        raise ValueError(f"{name} takes do shaped as q {tuple(q.shape)} in "
+                         f"{q.dtype} on {q.device}, got {tuple(do.shape)} "
+                         f"{do.dtype} {do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError(f"{name} takes do contiguous, 16-byte aligned")
+    lib = load_backward_library()
+    dq, dk, dv = (torch.empty_like(t) for t in ins)
+    dsum = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], d,
+            int(causal), 0 if window is None else int(window),
+            1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            q_pos.data_ptr() if positions else None,
+            k_pos.data_ptr() if positions else None, stream)
+    _build.check(lib, BACKWARD_SOURCE, rc, name)
+    flash_attention_backward.launches += 1
+    return tuple(g if need else None for g, need in zip((dq, dk, dv), needs))
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 under autograd: :func:`flash_attention` forward (with the row
+    statistics when an input needs a gradient),
+    :func:`flash_attention_backward` backward (see the module's
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window, q_pos, k_pos):
+        kw = dict(causal=causal, window=window, q_pos=q_pos, k_pos=k_pos)
+        if not any(ctx.needs_input_grad[:3]):
+            # no backward to come (serving): the kernel writes no statistics
+            return flash_attention(q, k, v, **kw)
+        ctx.mask = (causal, window)
+        o, m, l = flash_attention(q, k, v, stats=True, **kw)
+        ctx.save_for_backward(q, k, v, m, l, q_pos, k_pos)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, m, l, q_pos, k_pos = ctx.saved_tensors
+        causal, window = ctx.mask
+        do = do.contiguous()
+        with torch.profiler.record_function(BACKWARD):
+            grads = flash_attention_backward(
+                q, k, v, m, l, do, causal=causal, window=window,
+                q_pos=q_pos, k_pos=k_pos, needs=ctx.needs_input_grad[:3])
         return (*grads, None, None, None, None)

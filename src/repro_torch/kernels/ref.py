@@ -24,16 +24,9 @@ def lora_matmul_ref(x, w, a, b, scale: float):
     return (base + scale * delta).to(x.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None,
-                        q_pos: Optional[torch.Tensor] = None,
-                        k_pos: Optional[torch.Tensor] = None):
-    """q:(B,H,Sq,D), k,v:(B,H,Sk,D) -> (B,H,Sq,D); f32 softmax, masked
-    scores at MASK_FILL (the reference's ``_mask_bias``: causal keeps
-    k_pos <= q_pos, a window k_pos > q_pos - window). q_pos (Sq,) and
-    k_pos (Sk,) int are the tokens' positions, shared by every (batch,
-    head); omitted, they count from 0. A row whose keys are all masked
-    averages V over all Sk keys, as the reference's softmax does."""
+def _attention_scores(q, k, causal, window, q_pos, k_pos):
+    """(the scaled f32 scores with masked ones at MASK_FILL (B, H, Sq, Sk),
+    the mask (Sq, Sk): True where a key is kept)."""
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     sq, sk = q.shape[2], k.shape[2]
@@ -48,10 +41,68 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
         ok &= kp <= qp
     if window is not None:
         ok &= kp > qp - window
-    s = s.masked_fill(~ok, MASK_FILL)
+    return s.masked_fill(~ok, MASK_FILL), ok
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        q_pos: Optional[torch.Tensor] = None,
+                        k_pos: Optional[torch.Tensor] = None):
+    """q:(B,H,Sq,D), k,v:(B,H,Sk,D) -> (B,H,Sq,D); f32 softmax, masked
+    scores at MASK_FILL (the reference's ``_mask_bias``: causal keeps
+    k_pos <= q_pos, a window k_pos > q_pos - window). q_pos (Sq,) and
+    k_pos (Sk,) int are the tokens' positions, shared by every (batch,
+    head); omitted, they count from 0. A row whose keys are all masked
+    averages V over all Sk keys, as the reference's softmax does."""
+    s, _ = _attention_scores(q, k, causal, window, q_pos, k_pos)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def flash_attention_fwd_stats_ref(q, k, v, *, causal: bool = True,
+                                  window: Optional[int] = None,
+                                  q_pos: Optional[torch.Tensor] = None,
+                                  k_pos: Optional[torch.Tensor] = None):
+    """:func:`flash_attention_ref`'s output (the same ops, the same bits)
+    and the row statistics K3's forward keeps for its backward: m (B, H,
+    Sq) f32, the largest masked score of each row (MASK_FILL where every
+    key is masked), and l (B, H, Sq) f32, the sum of exp(s - m) over the
+    row (Sk where every key is masked). Returns (o, m, l)."""
+    s, _ = _attention_scores(q, k, causal, window, q_pos, k_pos)
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                       v.float())
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    return out.to(q.dtype), m, l
+
+
+def flash_attention_bwd_ref(q, k, v, m, l, do, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            q_pos: Optional[torch.Tensor] = None,
+                            k_pos: Optional[torch.Tensor] = None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_ref` at the
+    cotangent do (B, H, Sq, D), by FlashAttention-2's backward from the
+    forward's row statistics m, l (B, H, Sq) f32, as K3's backward kernel
+    (``csrc/flash_attention_bwd.cu``) computes them, in f32 torch ops:
+    P = exp(s - m) / max(l, 1e-30) on the masked scores s (m and l kept
+    apart: a row whose keys are all masked has P = 1/Sk), dV = P^T dO,
+    dP = dO V^T, rowsum(P o dP) (the row's dO . O, from P and dP), dS =
+    P o (dP - rowsum(P o dP)) / sqrt(head_dim), 0 wherever the mask drops
+    a key (masked_fill cuts the gradient, also on a row whose keys are all
+    masked), dQ = dS K and dK = dS^T Q; each rounded once to its input's
+    dtype."""
+    s, ok = _attention_scores(q, k, causal, window, q_pos, k_pos)
+    p = torch.exp(s - m.float()[..., None]) / l.float().clamp_min(
+        1e-30)[..., None]
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    dsum = (p * dp).sum(dim=-1, keepdim=True)
+    ds = torch.where(ok, p * (dp - dsum), 0.0) / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def window_dp_ref(slot_cost: torch.Tensor, gain: torch.Tensor):

@@ -19,14 +19,14 @@ are not logged. :func:`analyze` reduces a log to:
                           collective, by kind)
 
 With ``kernels=True`` (:func:`count_ops`) the step runs the card's path
-and each launch of K2, K3, K4 or K4's backward is logged as one op,
-``kernel.<name>``:
-its inputs read once, its outputs written once, and the operations the
-kernel does on this step's inputs (:func:`kernel_flops`). The plain body
-that stands in for a kernel off the card is not run, so the S x S scores
-of the plain attention, which K3 never writes, are not counted. What the
-kernels do not cover (K3's backward is autograd through the plain
-version, the decode step's attention is plain) is counted op by op.
+and each launch of K2, K3, K3's backward, K4 or K4's backward is logged as
+one op, ``kernel.<name>``: its inputs read once, its outputs written once,
+and the operations the function does on this step's inputs (``lora_flops``,
+``attention_flops``, ``attention_backward_flops``, ``ssd_flops``,
+``ssd_backward_flops``). The plain body that stands in for a kernel off
+the card is not run, so the S x S scores of the plain attention, which
+neither K3 nor its backward writes, are not counted. What the kernels do
+not cover (the decode step's attention is plain) is counted op by op.
 
 An eager loop runs every iteration, so nothing is multiplied by a trip
 count: ``while_trips`` holds the repeat counts the caller reports (the
@@ -186,7 +186,8 @@ def count_ops(arguments=(), kernels: bool = False):
     """``with count_ops(arguments) as counter:`` runs the body under an
     :class:`OpCounter`, with DTensor's metadata propagation (its one
     private hook, restored on exit) kept out of the log. ``kernels``
-    logs each K2, K3 and K4 launch as one op (:func:`kernels_logged`)."""
+    logs each kernel launch (K2, K3, K4 and the backwards) as one op
+    (:func:`kernels_logged`)."""
     prop = DTensor._op_dispatcher.sharding_propagator
     # the uncached propagation where this PyTorch has it (the cached one
     # calls it), else the one method older versions have
@@ -236,18 +237,32 @@ def _position_pairs(q_pos, k_pos, causal: bool, window) -> int:
                                               or j > i - window))
 
 
-def attention_flops(bh: int, sq: int, sk: int, d: int, causal: bool,
-                    window, q_pos=None, k_pos=None) -> int:
-    """K3's products, 4 D operations for each unmasked (query, key) pair
-    of each of the BH heads. Positions are read where they hold data; on
-    fake tensors (the dry run) they are taken to count from 0."""
+def _pairs(sq, sk, causal, window, q_pos, k_pos) -> int:
+    """Unmasked pairs of one head; positions are read where they hold
+    data, and on fake tensors (the dry run) taken to count from 0."""
     from torch._subclasses.fake_tensor import is_fake
 
     if q_pos is None or is_fake(q_pos) or q_pos.device.type == "meta":
-        pairs = attention_pairs(sq, sk, causal, window)
-    else:
-        pairs = _position_pairs(q_pos, k_pos, causal, window)
-    return 4 * d * bh * pairs
+        return attention_pairs(sq, sk, causal, window)
+    return _position_pairs(q_pos, k_pos, causal, window)
+
+
+def attention_flops(bh: int, sq: int, sk: int, d: int, causal: bool,
+                    window, q_pos=None, k_pos=None) -> int:
+    """K3's products, 4 D operations for each unmasked (query, key) pair
+    of each of the BH heads (q k^T and p v)."""
+    return 4 * d * bh * _pairs(sq, sk, causal, window, q_pos, k_pos)
+
+
+def attention_backward_flops(bh: int, sq: int, sk: int, d: int,
+                             causal: bool, window, q_pos=None,
+                             k_pos=None) -> int:
+    """The products of attention's gradient, 10 D operations for each
+    unmasked pair of each head: q k^T recomputed, dO V^T, P^T dO, dS K and
+    dS^T Q (K3's backward kernel recomputes q k^T and dO V^T in each of
+    its passes and halves P and dS into hi + lo; those repeats are its own
+    work, not the function's)."""
+    return 10 * d * bh * _pairs(sq, sk, causal, window, q_pos, k_pos)
 
 
 def ssd_flops(bh: int, s: int, p: int, n: int) -> int:
@@ -271,7 +286,9 @@ def ssd_backward_flops(bh: int, s: int, p: int, n: int) -> int:
 @contextlib.contextmanager
 def kernels_logged(counter: "OpCounter"):
     """Inside, K2's launch (``lora_matmul._run``, forward and backward
-    dx), K3's (``flash_attention.flash_attention``), K4's
+    dx), K3's (``flash_attention.flash_attention``, with or without the
+    row statistics), K3's backward's
+    (``flash_attention.flash_attention_backward``), K4's
     (``ssd_scan.ssd_scan_grouped``) and K4's backward's
     (``ssd_scan.ssd_scan_grouped_backward``) make their outputs empty and
     log one op each on ``counter``. Their plain bodies do not run: the
@@ -286,14 +303,29 @@ def kernels_logged(counter: "OpCounter"):
         counter.kernel("lora_matmul", (x, w, a, b), y, lora_flops(m, k, n, r))
         return y
 
-    def flash(q, k, v, *, causal=True, window=None, q_pos=None, k_pos=None):
-        o = torch.empty_like(q)
+    def flash(q, k, v, *, causal=True, window=None, q_pos=None, k_pos=None,
+              stats=False):
         bh, sq, d = q.shape
+        outs = (torch.empty_like(q),) + tuple(
+            torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+            for _ in range(2 if stats else 0))
         with unlogged():  # reading the positions is not K3's work
             flops = attention_flops(bh, sq, k.shape[1], d, causal, window,
                                     q_pos, k_pos)
-        counter.kernel("flash_attention", (q, k, v, q_pos, k_pos), o, flops)
-        return o
+        counter.kernel("flash_attention", (q, k, v, q_pos, k_pos), outs,
+                       flops)
+        return outs if stats else outs[0]
+
+    def flash_backward(q, k, v, m, l, do, *, causal=True, window=None,
+                       q_pos=None, k_pos=None, needs=(True,) * 3):
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        bh, sq, d = q.shape
+        with unlogged():
+            flops = attention_backward_flops(bh, sq, k.shape[1], d, causal,
+                                             window, q_pos, k_pos)
+        counter.kernel("flash_attention_backward",
+                       (q, k, v, m, l, do, q_pos, k_pos), grads, flops)
+        return tuple(g if need else None for g, need in zip(grads, needs))
 
     def ssd(x, dt, A, B, C):
         bt, s, h, p = x.shape
@@ -315,15 +347,16 @@ def kernels_logged(counter: "OpCounter"):
                        ssd_backward_flops(bt * h, s, p, B.shape[-1]))
         return tuple(g if need else None for g, need in zip(grads, needs))
 
-    saved = (k2._run, k3.flash_attention, k4.ssd_scan_grouped,
-             k4.ssd_scan_grouped_backward)
-    (k2._run, k3.flash_attention, k4.ssd_scan_grouped,
-     k4.ssd_scan_grouped_backward) = lora, flash, ssd, ssd_backward
+    saved = (k2._run, k3.flash_attention, k3.flash_attention_backward,
+             k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward)
+    (k2._run, k3.flash_attention, k3.flash_attention_backward,
+     k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward) = (
+        lora, flash, flash_backward, ssd, ssd_backward)
     try:
         yield
     finally:
-        (k2._run, k3.flash_attention, k4.ssd_scan_grouped,
-         k4.ssd_scan_grouped_backward) = saved
+        (k2._run, k3.flash_attention, k3.flash_attention_backward,
+         k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward) = saved
 
 
 def analyze(log: List[dict], while_trips=(), top_k: int = 0) -> dict:

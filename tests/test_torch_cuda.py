@@ -610,6 +610,231 @@ def test_k3_refuses_positions_it_does_not_take(cuda):
             160, dtype=torch.int32, device=cuda)[::2])
 
 
+# ---------------------------------------------------------------------------
+# K3's backward kernel
+# ---------------------------------------------------------------------------
+
+# K3's backward against its plain versions (K4_GRAD_TOL, chip_smoke.py's
+# GRAD_TOL): elementwise rtol |want| + atol max|want|. f32 1e-4 / 1e-5:
+# dK and dV sum over up to Sq queries in another order; bf16 one rounding
+# of the f32 result (2^-7) / 2^-9: the plain routes run in f32 and round
+# each gradient once, the kernel takes P and dS as hi + lo bf16 halves.
+K3_BWD_MASKS = [dict(causal=True), dict(causal=True, window=37),
+                dict(causal=False), dict(causal=False, window=50)]
+
+
+def _k3_grad_close(got, want, dtype):
+    """_grad_close, except where the plain route's gradient is f32 rounding
+    noise around a true 0 (a single query that keeps a single key: P = 1,
+    so dS = P (dP - rowsum(P o dP)) = 0; the plain route's sums leave
+    ~1e-7, against which max|want| gives no scale): both then within 1e-5
+    of 0."""
+    if float(want.abs().max()) < 1e-5:
+        assert float(got.abs().max()) < 1e-5
+        return
+    _grad_close(got, want, dtype)
+
+
+def _k3_backward_case(cuda, bh, sq, sk, d, dtype, seed, **mask):
+    """The kernel's (dq, dk, dv) from the forward's m and l, and both plain
+    routes' on the same inputs: flash_attention_bwd_ref and autograd
+    through flash_attention_ref."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    q, k, v = (t.to(cuda) for t in _qkv(bh, sq, sk, d, dtype, seed))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (bh, sq, d), np.float32)).to(dtype).to(cuda)
+    o, m, l = flash_attention(q, k, v, stats=True, **mask)
+    before = k3.flash_attention_backward.launches
+    got = k3.flash_attention_backward(q, k, v, m, l, do, **mask)
+    torch.cuda.synchronize()
+    assert k3.flash_attention_backward.launches == before + 1
+    bwd_ref = flash_attention_bwd_ref(q[None], k[None], v[None], m[None],
+                                      l[None], do[None], **mask)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_o = flash_attention_ref(*(t[None] for t in leaves), **mask)[0]
+    autograd = torch.autograd.grad(ref_o, leaves, do)
+    return got, [g[0] for g in bwd_ref], autograd
+
+
+# (BH, Sq, Sk, mask) on the index path: ragged S, Sq < Sk and Sq > Sk,
+# each mask kind; a window with Sq >= Sk + window (rows with no key) is
+# the position path's case, which the index path refuses
+K3_BWD_CASES = [(bh, sq, sk, mask)
+                for bh, sq, sk in ((3, 200, 200), (2, 128, 300), (2, 150, 90))
+                for mask in K3_BWD_MASKS
+                if sq < sk + mask.get("window", sq)]
+
+
+@pytest.mark.parametrize("bh,sq,sk,mask", K3_BWD_CASES)
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_backward_matches_plain(cuda, dtype, d, bh, sq, sk, mask):
+    """The backward kernel's dq, dk, dv against flash_attention_bwd_ref and
+    against autograd through the plain version, on the index path; every
+    gradient in its input's dtype and shape."""
+    got, bwd_ref, autograd = _k3_backward_case(cuda, bh, sq, sk, d, dtype,
+                                               bh * sq + sk + d, **mask)
+    for g, r, a in zip(got, bwd_ref, autograd):
+        assert g.dtype == dtype and g.shape == a.shape
+        _k3_grad_close(g, r, dtype)
+        _k3_grad_close(g, a, dtype)
+
+
+# The edges of the backward's tiles (64 queries, 64 keys, 16-column
+# chunks), as test_k3_bf16_tile_edges holds the forward's.
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("extra", [0, 50])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 200])
+def test_k3_backward_bf16_tile_edges(cuda, s, extra, d, window):
+    got, bwd_ref, autograd = _k3_backward_case(
+        cuda, 2, s, s + extra, d, torch.bfloat16, s * d + extra,
+        causal=True, window=window)
+    for g, r, a in zip(got, bwd_ref, autograd):
+        _k3_grad_close(g, r, torch.bfloat16)
+        _k3_grad_close(g, a, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 37),
+                                           (False, None)])
+@pytest.mark.parametrize("kind", ["start", "middle", "end", "shuffled",
+                                  "rows-without-keys"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_backward_positions_match_plain(cuda, dtype, d, kind, causal,
+                                           window):
+    """The position path: every tile visited, the element mask on
+    positions; rows whose keys are all masked (``rows-without-keys``) get
+    dq = 0, no dk share and dV's share dO / Sk, as masked_fill's
+    gradient gives."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    s = 200
+    q, k, v = (t.to(cuda) for t in _qkv(3, s, s, d, dtype, d + s))
+    do = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (3, s, d), np.float32)).to(dtype).to(cuda)
+    q_pos, k_pos = (torch.from_numpy(p).to(cuda)
+                    for p in _k3_positions(s, kind, d))
+    mask = dict(causal=causal, window=window, q_pos=q_pos, k_pos=k_pos)
+    _, m, l = flash_attention(q, k, v, stats=True, **mask)
+    got = k3.flash_attention_backward(q, k, v, m, l, do, **mask)
+    want = flash_attention_bwd_ref(q[None], k[None], v[None], m[None],
+                                   l[None], do[None], **mask)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    autograd = torch.autograd.grad(
+        flash_attention_ref(*(t[None] for t in leaves), **mask)[0], leaves,
+        do)
+    for g, r, a in zip(got, want, autograd):
+        _k3_grad_close(g, r[0], dtype)
+        _k3_grad_close(g, a, dtype)
+    if kind == "rows-without-keys" and causal:
+        # queries 0-7 sit before every key: no key is kept
+        assert torch.equal(got[0][:, :8], torch.zeros_like(got[0][:, :8]))
+
+
+def test_k3_forward_statistics_match_plain(cuda):
+    """The forward's m and l (stats=True) against the plain version's, on
+    both paths and both dtypes; the output bit-equal to a launch without
+    statistics."""
+    from repro_torch.kernels.ref import flash_attention_fwd_stats_ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(cuda) for t in _qkv(2, 150, 150, 80, dtype, 3))
+        ar = torch.arange(150, dtype=torch.int32, device=cuda)
+        for mask in (dict(causal=True, window=37),
+                     dict(causal=True, q_pos=ar - 8, k_pos=ar)):
+            o, m, l = flash_attention(q, k, v, stats=True, **mask)
+            assert torch.equal(o, flash_attention(q, k, v, **mask))
+            _, m_ref, l_ref = flash_attention_fwd_stats_ref(
+                q[None], k[None], v[None], **mask)
+            torch.testing.assert_close(m, m_ref[0], rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(l, l_ref[0], rtol=1e-5, atol=1e-5)
+
+
+def test_k3_backward_is_deterministic(cuda):
+    """Two launches give the same bits: no float atomics, every sum in a
+    fixed order."""
+    from repro_torch.kernels import flash_attention as k3
+
+    q, k, v = (t.to(cuda) for t in _qkv(4, 300, 300, 128, torch.bfloat16,
+                                        5))
+    do = torch.randn((4, 300, 128), device=cuda).bfloat16()
+    _, m, l = flash_attention(q, k, v, stats=True)
+    g1 = k3.flash_attention_backward(q, k, v, m, l, do)
+    g2 = k3.flash_attention_backward(q, k, v, m, l, do)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_k3_backward_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as k3
+
+    q, k, v = (t.to(cuda) for t in _qkv(2, 64, 64, 64, torch.float32, 0))
+    do = torch.randn_like(q)
+    _, m, l = flash_attention(q, k, v, stats=True)
+    before = k3.flash_attention_backward.launches
+    bwd = k3.flash_attention_backward
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bwd(q.half(), k.half(), v.half(), m, l, do.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        bwd(*(t[..., :32].contiguous() for t in (q, k, v)), m, l,
+            do[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, m, l, do)
+    with pytest.raises(ValueError, match="do contiguous"):
+        bwd(q, k, v, m, l, do.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="m and l"):
+        bwd(q, k, v, None, None, do)
+    with pytest.raises(ValueError, match="takes l"):
+        bwd(q, k, v, m, l[:, :32].contiguous(), do)
+    with pytest.raises(ValueError, match="takes do"):
+        bwd(q, k, v, m, l, do.bfloat16())
+    with pytest.raises(ValueError, match="window"):
+        bwd(torch.cat([q, q, q], 1), k, v, m.repeat(1, 3), l.repeat(1, 3),
+            torch.cat([do, do, do], 1), window=8)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        bwd(q.clone().requires_grad_(True), k, v, m, l, do)
+    assert k3.flash_attention_backward.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_function_backward_launches_the_kernel(cuda, dtype, monkeypatch):
+    """FlashAttention through ops.attention (GQA, 8 query heads over 2 K / V
+    heads): one forward and one backward launch, no plain attention on the
+    card route, the gradients within GRAD_TOL of autograd through the
+    plain route."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ops
+
+    def refused(*a, **kw):
+        raise AssertionError("the plain attention ran on the card route")
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ins = [torch.randn((2, 200, h, 128), generator=gen, device=cuda).to(dtype)
+           for h in (8, 2, 2)]
+    do = torch.randn((2, 200, 8, 128), generator=gen, device=cuda).to(dtype)
+    grads = []
+    for use_cuda in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        before = (k3.flash_attention.launches,
+                  k3.flash_attention_backward.launches)
+        with monkeypatch.context() as mp:
+            if use_cuda:
+                mp.setattr(k3, "flash_attention_ref", refused)
+            o = ops.attention(*leaves, causal=True,
+                              kcfg=ops.KernelConfig(use_cuda))
+            grads.append(torch.autograd.grad(o, leaves, do))
+        torch.cuda.synchronize()
+        after = (k3.flash_attention.launches,
+                 k3.flash_attention_backward.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            (1, 1) if use_cuda else (0, 0))
+    for g, w in zip(*grads):
+        _grad_close(g, w, dtype)
+
+
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "hubert-xlarge"])
 def test_vlm_audio_smoke_config_cuda_equals_cpu(cuda, arch):
     """The qwen2-vl-7b smoke config (an image span, prefill and 4 decode

@@ -200,6 +200,47 @@ def test_k4_backward_launch_counts_its_own_traffic_and_operations():
                    for _, s_ in r["in"] + r["out"])
 
 
+def test_k3_backward_launch_counts_its_own_traffic_and_operations():
+    """K3's Function through ``ops.attention`` under autograd (GQA: 4 query
+    heads over 2 K / V heads): one ``kernel.flash_attention`` op, which
+    also writes the row statistics m and l, and one
+    ``kernel.flash_attention_backward`` op reading q, k, v (repeated), m,
+    l and dO once and writing dq, dk, dv once, with 10 D operations an
+    unmasked pair (``attention_backward_flops``); no (S, S) tensor of the
+    plain attention's backward. The stand-ins are gone after the block."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ops
+
+    saved = (k3.flash_attention, k3.flash_attention_backward)
+    bf16 = torch.bfloat16
+    with FakeTensorMode():
+        q = torch.zeros(2, 32, 4, 16, dtype=bf16, requires_grad=True)
+        k = torch.zeros(2, 32, 2, 16, dtype=bf16, requires_grad=True)
+        v = torch.zeros(2, 32, 2, 16, dtype=bf16, requires_grad=True)
+        with oa.count_ops(kernels=True) as c:
+            o = ops.attention(q, k, v, causal=True,
+                              kcfg=ops.KernelConfig(use_cuda=True))
+            grads = torch.autograd.grad(o.float().sum(), (q, k, v))
+    assert (k3.flash_attention, k3.flash_attention_backward) == saved
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    kernels = [r for r in c.log if r["op"].startswith("kernel.")]
+    assert [r["op"] for r in kernels] == ["kernel.flash_attention",
+                                          "kernel.flash_attention_backward"]
+    acc = oa.analyze(kernels)
+    head = 8 * 32 * 16 * 2                   # one (BH, S, D) bf16 tensor
+    stats = 2 * 8 * 32 * 4                   # m and l, (BH, S) f32
+    pairs = 32 * 33 // 2
+    assert acc["kernels"]["flash_attention"] == {
+        "count": 1, "bytes": 4 * head + stats, "flops": 4 * 16 * 8 * pairs}
+    assert acc["kernels"]["flash_attention_backward"] == {
+        "count": 1, "bytes": 7 * head + stats,
+        "flops": 10 * 16 * 8 * pairs}
+    assert oa.attention_backward_flops(8, 32, 32, 16, True, None) == \
+        10 * 16 * 8 * pairs
+    assert not any(len(s_) >= 2 and s_[-2:] == [32, 32]
+                   for r in c.log for _, s_ in r["in"] + r["out"])
+
+
 def test_ssd_backward_flops():
     """K4's backward products by hand: per 64-step chunk 3 L^2 N + 2 L^2 P
     + 4 L N P multiply-adds, and the state update L N P again for every
@@ -264,10 +305,11 @@ def test_counted_kernel_path_of_a_llama_step(mode, tmp_path):
     the card's path: K2 twice a layer a forward (q and v adapted), K3 once
     a layer at prefill and in training (its forward again under remat,
     none at decode, whose attention is plain), K2 once more a layer but
-    the first in the backward. At prefill the dot FLOPs are the plain
-    path's less each layer's masked half of the S x S products (K3 counts
-    unmasked pairs), and no (S, S) tensor is in the log; the plain
-    path's is, and it moves more."""
+    the first in the backward, K3's backward once a layer in training. At
+    prefill the dot FLOPs are the plain path's less each layer's masked
+    half of the S x S products (K3 counts unmasked pairs), and at prefill
+    and in training no (S, S) tensor is in the log; the plain path's is,
+    and it moves more."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
@@ -288,6 +330,8 @@ def test_counted_kernel_path_of_a_llama_step(mode, tmp_path):
     ks = accs[True]["kernels"]
     assert (ks["lora_matmul"]["count"],
             ks.get("flash_attention", {}).get("count", 0)) == want
+    assert ks.get("flash_attention_backward", {}).get("count", 0) == (
+        n if mode == "train" else 0)
     assert accs[False]["kernels"] == {}
     assert accs[True]["traffic_bytes"] < accs[False]["traffic_bytes"]
 
@@ -299,4 +343,5 @@ def test_counted_kernel_path_of_a_llama_step(mode, tmp_path):
         bh, d = batch * cfg.num_heads, cfg.head_dim
         masked = 4 * d * bh * (seq * seq - seq * (seq + 1) // 2)
         assert accs[True]["dot_flops"] == accs[False]["dot_flops"] - n * masked
+    if mode != "decode":
         assert square(logs[False]) and not square(logs[True])
