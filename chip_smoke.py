@@ -836,6 +836,44 @@ def _k1_sass(lib_path):
     return counts
 
 
+def _k3_bwd_usage(log: str, lib) -> list:
+    """One line for each bf16 kernel of K3's backward, from nvcc's
+    ``-Xptxas -v`` log: the pass, head dim and path, its registers, spill
+    stores and loads and stack frame, and the dynamic shared memory its
+    launch gives it (``flash_attention_bwd_smem_bytes``); then every
+    ptxas line of the log that names a wgmma or warns."""
+    import re
+
+    usage, name, warnings = {}, None, []
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*bwd_(kv|q)_bf16_kernelILi"
+                      r"(\d+)ELb(\d)E(?:Lb(\d)E)?", line)
+        if "Function properties for" in line:
+            name = m.groups() if m else None
+            continue
+        if "wgmma" in line or "warning" in line.lower():
+            warnings.append(f"ptxas: {line.strip()}")
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if name and m:
+            usage.setdefault(name, {}).update(
+                stack=m.group(1), stores=m.group(2), loads=m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            usage.setdefault(name, {})["registers"] = m.group(1)
+    rows = []
+    for (kind, d, pos, dq), u in usage.items():
+        what = "dkdv" if kind == "kv" else ("dq" if dq == "1" else "rowdot")
+        smem = lib.flash_attention_bwd_smem_bytes(int(d), 1,
+                                                  int(kind == "kv"))
+        rows.append(((what, -int(d), pos), (
+            f"{what} D {d} {'position' if pos == '1' else 'index'} path: "
+            f"{u.get('registers')} registers, spill stores "
+            f"{u.get('stores')} B, spill loads {u.get('loads')} B, stack "
+            f"{u.get('stack')} B; dynamic shared memory {smem:,} B")))
+    return [line for _, line in sorted(rows)] + warnings
+
+
 def _event_ms(torch, fn, reps: int) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timings."""
     times = []
@@ -3315,11 +3353,15 @@ def _phase_time_k3_backward(torch, gen, k3, bh, s, d):
     n_bytes = 2 * 7 * bh * s * d + 4 * 2 * bh * s
     n_ops = attention_backward_flops(bh, s, s, d, True, None)
     bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    pairs = attention_pairs(s, s, True, None)
     return {"BH": bh, "S": s, "D": d, "ms": ms, "event_ms": events,
             "plain_ms": plain, "autograd_plain_ms": old, "library_ms": lib,
             "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
-            "bytes": n_bytes, "ops": n_ops,
-            "pairs": attention_pairs(s, s, True, None)}
+            "bytes": n_bytes, "ops": n_ops, "pairs": pairs,
+            # the tensor-core operations the kernel issues: 24 D a pair
+            # (S and dP in each of its three passes, the hi and lo halves
+            # of P and dS in dV, dK and dQ), 2.4 times the bound's count
+            "issued_ops": 24 * d * pairs * bh}
 
 
 def _k2_shapes(launches=None):
@@ -4657,6 +4699,9 @@ def main() -> int:
         print(f"[id] {source} -> {lib_path.relative_to(ROOT)}")
         for line in log.strip().splitlines():
             print(f"[nvcc] {line}")
+    for line in _k3_bwd_usage(built[k3.BACKWARD_SOURCE][1],
+                              k3.load_backward_library()):
+        print(f"[id] K3 backward (wgmma) {line}")
 
     # ---- phase 2: K1's two entries against their plain versions ----
     sass = _k1_sass(built[k1.SOURCE][0])
@@ -5125,6 +5170,10 @@ def main() -> int:
               f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB, "
               f"{row['ops'] / 1e9:.2f} G operations over {row['pairs']:,} "
               f"pairs a head) = {row['bound_ms'] / row['ms']:.1%} of bound; "
+              f"issued {row['issued_ops'] / 1e9:.1f} G operations (24 D a "
+              f"pair) at {row['issued_ops'] / row['ms'] / 1e9:.1f} TFLOP/s "
+              f"= {row['issued_ops'] * 1e3 / row['ms'] / BF16_OPS_PER_S:.1%} "
+              f"of the bf16 peak; "
               f"plain (flash_attention_bwd_ref) {row['plain_ms'] * 1e3:.1f} "
               f"us; autograd through flash_attention_ref (the route before "
               f"the kernel) {row['autograd_plain_ms'] * 1e3:.1f} us; "

@@ -27,7 +27,10 @@ profiler range :data:`BACKWARD`. On CUDA tensors that launches K3's
 backward kernel (``csrc/flash_attention_bwd.cu``, design and bound in its
 header): FlashAttention-2's backward, P recomputed from m and l, three
 kernels (rowsum(P o dP), dK and dV a key tile, dQ a query tile) with no
-float atomics. Its plain version is
+float atomics. In bf16 each is one warpgroup a block issuing Hopper's
+``wgmma.mma_async`` on tiles that TMA copies into wgmma's swizzled
+shared-memory layout, P and dS fed from registers as hi + lo bf16 halves;
+in f32 they run on the CUDA cores. Its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`; on CPU tensors the
 backward is autograd through :func:`repro_torch.kernels.ref.
 flash_attention_ref`. There is no fallback: on a CUDA tensor a failed
@@ -66,6 +69,7 @@ _BACKWARD_SIGNATURES = {
                                     _P, _P, _P,          # dq, dk, dv
                                     _I, _I, _I, _I, _I, _I, _F, _I,
                                     _P, _P, _P], ctypes.c_int),
+    "flash_attention_bwd_smem_bytes": ([_I, _I, _I], ctypes.c_int),
 }
 
 

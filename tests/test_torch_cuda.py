@@ -682,12 +682,13 @@ def test_k3_backward_matches_plain(cuda, dtype, d, bh, sq, sk, mask):
         _k3_grad_close(g, a, dtype)
 
 
-# The edges of the backward's tiles (64 queries, 64 keys, 16-column
-# chunks), as test_k3_bf16_tile_edges holds the forward's.
+# The edges of the backward's tiles (a warpgroup's 64 rows a block, 64
+# rows of the walked side a step, a ring of two stages that the third and
+# fourth tiles reuse), as test_k3_bf16_tile_edges holds the forward's.
 @pytest.mark.parametrize("window", [None, 37])
 @pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("extra", [0, 50])
-@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 200])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 191, 200, 257])
 def test_k3_backward_bf16_tile_edges(cuda, s, extra, d, window):
     got, bwd_ref, autograd = _k3_backward_case(
         cuda, 2, s, s + extra, d, torch.bfloat16, s * d + extra,
@@ -754,17 +755,22 @@ def test_k3_forward_statistics_match_plain(cuda):
             torch.testing.assert_close(l, l_ref[0], rtol=1e-5, atol=1e-5)
 
 
-def test_k3_backward_is_deterministic(cuda):
-    """Two launches give the same bits: no float atomics, every sum in a
-    fixed order."""
+@pytest.mark.parametrize("positions", [False, True])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_k3_backward_is_deterministic(cuda, d, positions):
+    """Two launches give the same bits at every head dim's shared-memory
+    layout, on the index and the position path: no float atomics, every
+    sum in a fixed order."""
     from repro_torch.kernels import flash_attention as k3
 
-    q, k, v = (t.to(cuda) for t in _qkv(4, 300, 300, 128, torch.bfloat16,
+    q, k, v = (t.to(cuda) for t in _qkv(4, 300, 300, d, torch.bfloat16,
                                         5))
-    do = torch.randn((4, 300, 128), device=cuda).bfloat16()
-    _, m, l = flash_attention(q, k, v, stats=True)
-    g1 = k3.flash_attention_backward(q, k, v, m, l, do)
-    g2 = k3.flash_attention_backward(q, k, v, m, l, do)
+    do = torch.randn((4, 300, d), device=cuda).bfloat16()
+    ar = torch.arange(300, dtype=torch.int32, device=cuda)
+    mask = dict(q_pos=ar - 8, k_pos=ar) if positions else {}
+    _, m, l = flash_attention(q, k, v, stats=True, **mask)
+    g1 = k3.flash_attention_backward(q, k, v, m, l, do, **mask)
+    g2 = k3.flash_attention_backward(q, k, v, m, l, do, **mask)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
