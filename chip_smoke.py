@@ -358,6 +358,11 @@ BEFORE_US = {"prefill": 6895.6, "decode": 245.6, "mamba2-prefill": 1690.2,
            "zamba2-decode": 156.2, "flash_attention": 2915.6,
            "flash_attention/zamba2": 1945.5, "ssd_scan/mamba2": 2477.5,
            "ssd_scan/zamba2": 1324.6}
+# K4's backward before its tensor-core redesign (us a launch, f32 on the
+# CUDA cores; 5 launches in a CUDA graph, NVIDIA H100 80GB HBM3 at 700 W,
+# two runs of this script), printed beside this run's
+K4_BWD_BEFORE_US = {"mamba2-370m": (4810.3, 4816.9),
+                    "zamba2-2.7b": (3796.9, 3807.1)}
 
 # ---- SSM and hybrid serving ----
 # [serve-ssm-ref] / [serve-hybrid-ref]: the mamba2-370m and zamba2-2.7b smoke
@@ -836,19 +841,17 @@ def _k1_sass(lib_path):
     return counts
 
 
-def _k3_bwd_usage(log: str, lib) -> list:
-    """One line for each bf16 kernel of K3's backward, from nvcc's
-    ``-Xptxas -v`` log: the pass, head dim and path, its registers, spill
-    stores and loads and stack frame, and the dynamic shared memory its
-    launch gives it (``flash_attention_bwd_smem_bytes``); then every
-    ptxas line of the log that names a wgmma or warns."""
+def _ptxas_usage(log: str, pattern: str) -> tuple:
+    """From nvcc's ``-Xptxas -v`` log: {the groups of ``pattern`` in a
+    kernel's mangled name: its registers, spill stores and loads and stack
+    frame} for each kernel whose name matches, and every ptxas line of the
+    log that names a wgmma or warns."""
     import re
 
     usage, name, warnings = {}, None, []
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*bwd_(kv|q)_bf16_kernelILi"
-                      r"(\d+)ELb(\d)E(?:Lb(\d)E)?", line)
         if "Function properties for" in line:
+            m = re.search(r"Function properties for \S*" + pattern, line)
             name = m.groups() if m else None
             continue
         if "wgmma" in line or "warning" in line.lower():
@@ -861,6 +864,22 @@ def _k3_bwd_usage(log: str, lib) -> list:
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
             usage.setdefault(name, {})["registers"] = m.group(1)
+    return usage, warnings
+
+
+def _usage_line(u: dict, smem: int) -> str:
+    return (f"{u.get('registers')} registers, spill stores "
+            f"{u.get('stores')} B, spill loads {u.get('loads')} B, stack "
+            f"{u.get('stack')} B; dynamic shared memory {smem:,} B")
+
+
+def _k3_bwd_usage(log: str, lib) -> list:
+    """One line for each bf16 kernel of K3's backward (``_ptxas_usage``):
+    the pass, head dim and path, and the dynamic shared memory its launch
+    gives it (``flash_attention_bwd_smem_bytes``); then the ptxas lines
+    that name a wgmma or warn."""
+    usage, warnings = _ptxas_usage(
+        log, r"bwd_(kv|q)_bf16_kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?")
     rows = []
     for (kind, d, pos, dq), u in usage.items():
         what = "dkdv" if kind == "kv" else ("dq" if dq == "1" else "rowdot")
@@ -868,9 +887,22 @@ def _k3_bwd_usage(log: str, lib) -> list:
                                                   int(kind == "kv"))
         rows.append(((what, -int(d), pos), (
             f"{what} D {d} {'position' if pos == '1' else 'index'} path: "
-            f"{u.get('registers')} registers, spill stores "
-            f"{u.get('stores')} B, spill loads {u.get('loads')} B, stack "
-            f"{u.get('stack')} B; dynamic shared memory {smem:,} B")))
+            + _usage_line(u, smem))))
+    return [line for _, line in sorted(rows)] + warnings
+
+
+def _k4_bwd_usage(log: str, lib) -> list:
+    """One line for each bf16 kernel of K4's backward (the states and the
+    gradient kernel at each padded state size) as ``_k3_bwd_usage``'s,
+    the shared memory from ``ssd_scan_bwd_bf16_smem_bytes``."""
+    usage, warnings = _ptxas_usage(log, r"bwd_(states|grad)_bf16_kernelILi"
+                                        r"(\d+)E")
+    rows = []
+    for (kind, npad), u in usage.items():
+        smem = lib.ssd_scan_bwd_bf16_smem_bytes(int(npad),
+                                                int(kind == "grad"))
+        rows.append(((kind, int(npad)), f"{kind} N {npad}: "
+                     + _usage_line(u, smem)))
     return [line for _, line in sorted(rows)] + warnings
 
 
@@ -3217,15 +3249,15 @@ def _phase_time_k4(torch, gen, k4, ssd_scan_ref, ssd_scan_grouped_ref, bt,
     and output once (x, y, B, C at 2 bytes, dt, A and the state at 4): in
     the model's layout B and C are read per group, in the flattened one per
     head. The operations are
-    those of K4's 64-step chunks (the score tile, its product with x, C
-    against the state and the state update, full 64 x 64 tiles) at the
+    those of K4's 64-step chunks (``op_analysis.ssd_flops``: the score tile
+    once a group, in the flattened layout once a head; its product with x,
+    C against the state and the state update, full 64 x 64 tiles) at the
     bf16 tensor-core rate. Returns {"grouped": row, "flattened": row}."""
+    from repro_torch.launch.op_analysis import ssd_flops
+
     ins = _ssd_grouped_case(torch, gen, bt, s, hh, p, g, n, torch.bfloat16)
     flat = _flattened(torch, *ins)
     bh = bt * hh
-    chunk = 64
-    n_ops = bh * -(-s // chunk) * 2 * (chunk * chunk * n + chunk * chunk * p
-                                       + 2 * chunk * n * p)
     rows = {}
     for layout, fn, plain_fn, args, groups in (
             ("grouped", k4.ssd_scan_grouped, ssd_scan_grouped_ref, ins, g),
@@ -3238,6 +3270,7 @@ def _phase_time_k4(torch, gen, k4, ssd_scan_ref, ssd_scan_grouped_ref, bt,
         n_a = hh if layout == "grouped" else bh
         n_bytes = 2 * (2 * bh * s * p + 2 * bt * groups * s * n) + 4 * (
             bh * s + n_a + bh * n * p)
+        n_ops = ssd_flops(bt, hh, groups, s, p, n)
         bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
         rows[layout] = {"Bt": bt, "S": s, "H": hh, "P": p, "G": g, "N": n,
                         "ms": ms, "event_ms": events, "plain_ms": plain,
@@ -3256,7 +3289,8 @@ def _phase_time_k4_backward(torch, gen, k4, bt, s, hh, p, g, n):
     training run executes; the forward's graph kept), each by events. The
     bound counts each input and output once (x, dy, dx, B, C, dB, dC at 2
     bytes, dt, d(dt), A, dA and the state cotangent at 4) and
-    ``op_analysis.ssd_backward_flops`` at the bf16 tensor-core rate."""
+    ``op_analysis.ssd_backward_flops`` (the score-shaped products once a
+    group) at the bf16 tensor-core rate."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ref import ssd_scan_grouped_bwd_ref
     from repro_torch.launch.op_analysis import ssd_backward_flops
@@ -3288,13 +3322,33 @@ def _phase_time_k4_backward(torch, gen, k4, bt, s, hh, p, g, n):
     bh = bt * hh
     n_bytes = 2 * (3 * bh * s * p + 4 * bt * g * s * n) + 4 * (
         2 * bh * s + 2 * hh + bh * n * p)
-    n_ops = ssd_backward_flops(bh, s, p, n)
+    n_ops = ssd_backward_flops(bt, hh, g, s, p, n)
     bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
     return {"Bt": bt, "S": s, "H": hh, "P": p, "G": g, "N": n, "ms": ms,
             "event_ms": events, "plain_ms": plain, "chunked_ms": chunked,
             "chunk": chunk, "library_ms": None, "bound_ms": bound,
             "bound_by": _bound_by(b_ms, o_ms), "bytes": n_bytes,
-            "ops": n_ops}
+            "ops": n_ops,
+            "issued_ops": _k4_bwd_issued_ops(torch, k4, bt, s, hh, g, n)}
+
+
+def _k4_bwd_issued_ops(torch, k4, bt, s, hh, g, n) -> int:
+    """The operations K4's bf16 backward issues on the tensor cores (2 a
+    multiply-add; P and N padded as its tiles pad them, to 64 and to 64 or
+    128; hi + lo halves counted as two products): the two state scans'
+    updates (every chunk but one, NP x 64 x 64 each), and in each
+    gradient block S^T once (64 x 64 x NP), per head Q^T (64^3), B G, M^T
+    dy, x G^T and dy H^T, per run (sum dS^T) C and (sum dS) B."""
+    from repro_torch.kernels.ref import SSD_CHUNK
+
+    c, npad = SSD_CHUNK, k4.state_rows(n)
+    nc = -(-s // c)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    run, rpg = k4.backward_runs(bt, s, hh, g, sms)
+    scans = 2 * bt * hh * max(nc - 1, 0) * 2 * npad * c * c
+    per_head = c ** 3 + 2 * c * c * npad + 2 * c ** 3 + 4 * c * npad * c
+    per_run = c * c * npad + 4 * c * npad * c
+    return 2 * (scans + bt * nc * (g * rpg * per_run + hh * per_head))
 
 
 def _phase_time_k3_backward(torch, gen, k3, bh, s, d):
@@ -3861,8 +3915,8 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     launch counts (``_train_launches``), no plain attention on the card's
     route (``flash_attention_ref`` counted inside K3's module), peak
     memory, one traced step (the K3 and K4 backward ranges holding their
-    kernels' launches alone: no plain attention ops, no step-by-step
-    loop); the base weights bit-unchanged. Returns the timed
+    kernels' launches alone, 3 a launch each: no plain attention ops, no
+    step-by-step loop); the base weights bit-unchanged. Returns the timed
     steps' launches (``_train_counts``), the median step time, the trace's
     shares and the peak memory."""
     import dataclasses
@@ -3982,16 +4036,16 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
          k2.BACKWARD_RANK_R: "dA / dB products",
          k3.BACKWARD: "K3 backward", k4.BACKWARD: "K4 backward"})
     if per[4] and shares is not None:
-        # the backward's range holds its two kernels a launch (the scan and
-        # the finishing sums; a step-by-step plain route would launch
-        # thousands), and the step has no plain K4 range
+        # the backward's range holds its three bf16 kernels a launch (the
+        # two state scans, the chunks' gradients, the finishing sums) and
+        # nothing else: no step-by-step plain loop, no plain K4 op
         inside = shares["kernels_in"]["K4 backward"]
-        if not per[4] <= inside <= 3 * per[4]:
+        if inside != 3 * per[4]:
             _fail(f"[{tag}] {arch} traced step: {inside} device kernels "
                   f"inside '{k4.BACKWARD}' over {per[4]} launches")
         print(f"[{tag}] {arch} traced step: {inside} device kernels inside "
               f"'{k4.BACKWARD}' over {per[4]} launches of K4's backward "
-              "(no step-by-step loop)")
+              "(3 a launch: states, gradients, finishing sums)")
     if per[5] and shares is not None:
         # K3's backward range holds its three kernels a launch (rowsum(P o
         # dP), dK / dV, dQ) and nothing else: no plain attention op
@@ -4702,6 +4756,9 @@ def main() -> int:
     for line in _k3_bwd_usage(built[k3.BACKWARD_SOURCE][1],
                               k3.load_backward_library()):
         print(f"[id] K3 backward (wgmma) {line}")
+    for line in _k4_bwd_usage(built[k4.BACKWARD_SOURCE][1],
+                              k4.load_backward_library()):
+        print(f"[id] K4 backward (wgmma) {line}")
 
     # ---- phase 2: K1's two entries against their plain versions ----
     sass = _k1_sass(built[k1.SOURCE][0])
@@ -5141,12 +5198,20 @@ def main() -> int:
         k4_back[arch] = row
         print(f"[time] card {card}: K4 backward ({arch}'s training shape) "
               f"at (Bt, S, H, P, G, N) = {shape} bf16, x / B / C views of "
-              f"one buffer: {row['ms'] * 1e3:.1f} us/launch in a CUDA graph, "
-              f"{row['event_ms'] * 1e3:.1f} us by events ({row['launches']} "
-              f"launches on [train-ssm]'s {TRAIN_SSM_STEPS} timed steps); "
+              f"one buffer: {row['ms'] * 1e3:.1f} us/launch in a CUDA graph "
+              f"(before the redesign, f32 CUDA cores: "
+              f"{' / '.join(f'{v:,.1f}' for v in K4_BWD_BEFORE_US[arch])} "
+              f"us), {row['event_ms'] * 1e3:.1f} us by events "
+              f"({row['launches']} launches on [train-ssm]'s "
+              f"{TRAIN_SSM_STEPS} timed steps); "
               f"bound {row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
               f"({row['bytes'] / 1e6:.1f} MB, {row['ops'] / 1e9:.1f} G "
               f"operations) = {row['bound_ms'] / row['ms']:.1%} of bound; "
+              f"issued {row['issued_ops'] / 1e9:.1f} G operations (hi + lo "
+              f"halves counted) at "
+              f"{row['issued_ops'] / row['ms'] / 1e9:.1f} TFLOP/s = "
+              f"{row['issued_ops'] * 1e3 / row['ms'] / BF16_OPS_PER_S:.1%} "
+              f"of the bf16 peak; "
               f"plain (ssd_scan_grouped_bwd_ref) "
               f"{row['plain_ms'] * 1e3:.1f} us; autograd's backward through "
               f"models/ssm.ssd_chunked (the plain training run's, chunk "

@@ -117,18 +117,19 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "flash_attention.cuh"
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
 using namespace attn;
+using namespace hop;
 using bf16 = __nv_bfloat16;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -232,8 +233,7 @@ struct SwTile {
   // byte offsets (16-byte units), swizzle mode
   __device__ static uint64_t desc(uint32_t addr, uint32_t lbo,
                                   uint32_t sbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-           (uint64_t)(sbo >> 4) << 32 | kMode << 62;
+    return hop::desc(addr, lbo, sbo, kMode);
   }
   // the tile as a K-major operand (its rows are M or N): columns [16 kk,
   // 16 kk + 16), 8-row groups kSw x 8 bytes apart (the leading offset is
@@ -277,125 +277,14 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
   }
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   tc::smem_addr(bar))
-               : "memory");
-}
-
-// One arrival that also expects `bytes` of TMA writes on the barrier.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          tc::smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits until the barrier's phase of this parity has completed; traps
-// (a launch error, not a hang) if it has not after 2^24 polls.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n.reg .u32 polls;\nmov.u32 polls, 0;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@done bra DONE;\nadd.u32 polls, polls, 1;\n"
-      "setp.lt.u32 done, polls, 16777216;\n@done bra WAIT;\ntrap;\n"
-      "DONE:\n}\n" ::"r"(tc::smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // The stage barriers, initialised by thread 0 before any TMA is issued.
 __device__ __forceinline__ void init_barriers(uint64_t* bars) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < kStages; ++i) mbar_init(bars + i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
-}
-
-// The dynamic shared memory from its first 1,024-byte boundary (the
-// 128-byte swizzle's period); each kernel asks for 1 KB more than it uses.
-__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
-  return p + ((1024 - (tc::smem_addr(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// After wg_wait_all: the compiler may not read an accumulator, nor reuse a
-// fragment's registers, before this point (it does not see wgmma's
-// asynchronous reads and writes)
-template <int N>
-__device__ __forceinline__ void hold(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-
-__device__ __forceinline__ void hold(uint32_t (&x)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
-  }
-}
-
-// d (64 x 64, f32) += a b: A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += a b: A (64 x 16) in registers, B from shared memory,
-// MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(1));
 }
 
 // d (64 x 80, f32) += a b: A (64 x 16) in registers, B from shared memory,
@@ -486,26 +375,6 @@ __host__ __device__ constexpr size_t bf16_tiles_bytes() {
 
 // dkdv's row statistics: m, 1 / l, D and the query position, a stage each
 constexpr size_t kStatsBytes = kStages * 4 * kCols * sizeof(float);
-
-// The A fragments of the four 16-column k-steps of a 64 x 64 accumulator x
-// (k-step kq: its n8 blocks 2 kq and 2 kq + 1) as hi + lo bf16 halves.
-__device__ __forceinline__ void split_a(const float (&x)[32],
-                                        uint32_t (&hi)[4][4],
-                                        uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kq = 0; kq < 4; ++kq) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // a0: row g, cols 2t, 2t+1; a1: row g + 8; a2, a3: cols + 8
-      const int e = 8 * kq + 4 * (i >> 1) + 2 * (i & 1);
-      hi[kq][i] = tc::pack_bf16(x[e], x[e + 1]);
-      const __nv_bfloat162 h =
-          *reinterpret_cast<const __nv_bfloat162*>(&hi[kq][i]);
-      lo[kq][i] =
-          tc::pack_bf16(x[e] - __low2float(h), x[e + 1] - __high2float(h));
-    }
-  }
-}
 
 // Stores a warpgroup's 64 x D accumulator (this thread: rows row_a and
 // row_a + 8, columns 8 j + 2 t, +1 of n8 block j) to a (.., D) bf16
@@ -1164,18 +1033,6 @@ __global__ void __launch_bounds__(kF32Threads) bwd_kv_f32_kernel(Args a) {
       }
     }
   }
-}
-
-// libcuda's cuTensorMapEncodeTiled, looked up in the already loaded
-// libcuda.so.1 (nothing links against it); null if it is not there.
-decltype(&cuTensorMapEncodeTiled) encode_tiled() {
-  static const auto fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(
-        lib == nullptr ? nullptr : dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
 }
 
 // The tensor map of a (bh, rows, D) bf16 tensor for load_tile.

@@ -28,15 +28,21 @@ forward launches K4 on the model's layout, its backward calls
 :data:`BACKWARD`. On CUDA tensors that launches K4's backward kernel
 (``csrc/ssd_scan_bwd.cu``, design and bound in its header): the gradients
 of the function the forward computes (64-step chunks, exponents clipped
-to [-60, 0]) by a reverse scan over the chunks, dB and dC summed over the
-heads of their group and dA over the batch in a fixed order, with no
-float atomics. Its plain version at full size is
+to [-60, 0]), dB and dC summed over the heads of their group and dA over
+the batch in a fixed order, with no float atomics. In bf16 (training)
+three kernels on the tensor cores: the chunks' entry states and the state
+gradients by two scans over the chunks into a scratch, then every
+chunk's gradients in parallel (one block per run of heads of a group, a
+chunk and a batch row; :func:`backward_runs` picks the runs), then the
+runs' partial dB / dC and the chunks' dA summed; in f32 one block per
+(b, h) on the CUDA cores. Its plain version at full size is
 :func:`repro_torch.kernels.ref.ssd_scan_grouped_bwd_ref` (the same scan in
 torch ops); on CPU tensors the backward is autograd through
 :func:`repro_torch.kernels.ref.ssd_scan_grouped_ref`. There is no
 fallback: on a CUDA tensor a failed build or launch raises.
-``ssd_scan.backward_launches`` counts the backward's launches (each one
-main kernel and one finishing kernel) apart from ``launches``. The
+``ssd_scan.backward_launches`` counts the backward's launches (bf16:
+three kernels each; f32: a main kernel and a finishing one) apart from
+``launches``. The
 reference has no backward kernel (its models train through XLA), so this
 is K4's own backward, not a port of one.
 """
@@ -56,6 +62,10 @@ BACKWARD = "K4 backward"
 HEAD_DIMS = (32, 64)
 MAX_STATE = 128
 ALIGN = 8           # x, B and C strides and offsets, in elements
+# the bf16 backward's gradient kernel: its grid's target, in blocks for each
+# of the card's SMs (one block an SM at a time); 3 timed the same on an H100
+# (tools/k4_bwd_phases.py)
+RUN_WAVES = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +89,20 @@ _BACKWARD_SIGNATURES = {
                              _P,                  # dh
                              _P, _P, _P, _P, _P,  # dx, ddt, dA, dB, dC
                              _P, _P, _P, _P,      # partials, states
-                             _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+                             _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "ssd_scan_bwd_bf16_launch": ([_P, _L, _L, _L,      # x and its strides
+                                  _P, _L, _L, _L,      # dt
+                                  _P, _L,              # A (head)
+                                  _P, _L, _L, _L,      # B
+                                  _P, _L, _L, _L,      # C
+                                  _P, _L, _L, _L,      # dy
+                                  _P,                  # dh
+                                  _P, _P, _P, _P, _P,  # dx, ddt, dA, dB, dC
+                                  _P, _P, _P,          # dA, dB, dC partials
+                                  _P, _P,              # the state scratches
+                                  _I, _I, _I, _I, _I, _I,  # bt s h g p n
+                                  _I, _I, _P], ctypes.c_int),  # run, rpg
+    "ssd_scan_bwd_bf16_smem_bytes": ([_I, _I], ctypes.c_int),
 }
 
 
@@ -235,6 +258,24 @@ ssd_scan.launches = 0
 ssd_scan.backward_launches = 0
 
 
+def backward_runs(bt: int, s: int, hh: int, g: int, sms: int) -> tuple:
+    """(heads a run, runs a group) of the bf16 backward's gradient kernel,
+    one block per (run, chunk, batch row): the fewest runs a group that
+    give at least RUN_WAVES blocks for each of the card's ``sms`` SMs, a
+    group's heads split into runs of equal length but the last, which may
+    be shorter."""
+    hpg = hh // g
+    blocks = bt * max(-(-s // SSD_CHUNK), 1) * g
+    want = min(hpg, max(1, -(-RUN_WAVES * sms // blocks)))
+    run = -(-hpg // want)
+    return run, -(-hpg // run)
+
+
+def state_rows(n: int) -> int:
+    """The bf16 backward's state tiles' rows: N padded to 64 or 128."""
+    return 64 if n <= 64 else 128
+
+
 def _launch_backward(x, dt, A, B, C, dy, dh):
     """K4's backward kernel on the grouped layout (checked by the caller).
     Returns (dx, ddt, dA, dB, dC)."""
@@ -248,27 +289,47 @@ def _launch_backward(x, dt, A, B, C, dy, dh):
     dA = torch.empty((hh,), dtype=f32, device=dev)
     dB = torch.empty((bt, s, g, n), dtype=B.dtype, device=dev)
     dC = torch.empty((bt, s, g, n), dtype=C.dtype, device=dev)
-    # scratch: per-block dA, per-head dB / dC when G < H, the states
-    # entering chunks 1 .. nc - 1
-    dA_part = torch.empty((bt, hh), dtype=f32, device=dev)
-    parts = ([torch.empty((bt, s, hh, n), dtype=f32, device=dev)
-              for _ in range(2)] if g < hh else [None, None])
-    states = torch.empty((bt, hh, max(nc - 1, 0), n, p), dtype=f32,
-                         device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    common = (x.data_ptr(), *_strides3(x), dt.data_ptr(), *_strides3(dt),
+              A.data_ptr(), A.stride(0), B.data_ptr(), *_strides3(B),
+              C.data_ptr(), *_strides3(C), dy.data_ptr(), *_strides3(dy),
+              ptr(dh), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+              dB.data_ptr(), dC.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.ssd_scan_bwd_launch(
-            x.data_ptr(), *_strides3(x), dt.data_ptr(), *_strides3(dt),
-            A.data_ptr(), A.stride(0), B.data_ptr(), *_strides3(B),
-            C.data_ptr(), *_strides3(C), dy.data_ptr(), *_strides3(dy),
-            ptr(dh), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), dA_part.data_ptr(),
-            ptr(parts[0]), ptr(parts[1]), states.data_ptr(), bt, s, hh, g,
-            p, n, _DTYPES[x.dtype], stream)
+    if x.dtype == torch.bfloat16:
+        # scratch: the (b, chunk) dA partials, the runs' dB / dC partials,
+        # the states entering and the state gradients leaving each chunk
+        # as hi + lo bf16 halves (their tiles come by TMA: 16-byte aligned)
+        if any(t.data_ptr() % 16 for t in (x, B, C)):
+            raise ValueError("ssd_scan backward takes x, B and C 16-byte "
+                             "aligned")
+        run, rpg = backward_runs(
+            bt, s, hh, g,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        dA_part = torch.empty((bt * nc, hh), dtype=f32, device=dev)
+        parts = torch.empty((2, bt, s, g * rpg, n), dtype=f32, device=dev)
+        states = torch.empty((2, bt, hh, nc, 2, state_rows(n), 64),
+                             dtype=torch.bfloat16, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.ssd_scan_bwd_bf16_launch(
+                *common, dA_part.data_ptr(), parts[0].data_ptr(),
+                parts[1].data_ptr(), states[0].data_ptr(),
+                states[1].data_ptr(), bt, s, hh, g, p, n, run, rpg, stream)
+    else:
+        # scratch: per-block dA, per-head dB / dC when G < H, the states
+        # entering chunks 1 .. nc - 1
+        dA_part = torch.empty((bt, hh), dtype=f32, device=dev)
+        parts = ([torch.empty((bt, s, hh, n), dtype=f32, device=dev)
+                  for _ in range(2)] if g < hh else [None, None])
+        states = torch.empty((bt, hh, max(nc - 1, 0), n, p), dtype=f32,
+                             device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.ssd_scan_bwd_launch(
+                *common, dA_part.data_ptr(), ptr(parts[0]), ptr(parts[1]),
+                states.data_ptr(), bt, s, hh, g, p, n, stream)
     _build.check(lib, BACKWARD_SOURCE, rc, "ssd_scan backward")
     ssd_scan.backward_launches += 1
     return dx, ddt, dA, dB, dC
@@ -300,6 +361,8 @@ def ssd_scan_grouped_backward(x, dt, A, B, C, dy, dh=None,
     n = B.shape[3]
     dy = (torch.zeros(x.shape, dtype=x.dtype, device=x.device) if dy is None
           else dy.contiguous())
+    if dy.data_ptr() % 16:   # dy's tiles come by TMA: 16-byte aligned
+        dy = dy.clone()
     if (tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype
             or dy.device != x.device):
         raise ValueError(f"ssd_scan_grouped_backward takes dy shaped as x "

@@ -265,22 +265,29 @@ def attention_backward_flops(bh: int, sq: int, sk: int, d: int,
     return 10 * d * bh * _pairs(sq, sk, causal, window, q_pos, k_pos)
 
 
-def ssd_flops(bh: int, s: int, p: int, n: int) -> int:
-    """K4's products over its chunks of SSD_CHUNK steps: the score tile,
+def ssd_flops(bt: int, h: int, g: int, s: int, p: int, n: int) -> int:
+    """K4's products over its chunks of SSD_CHUNK steps: the score tile
+    C B^T once a group (its H / G heads share B and C), and for each head
     its product with x, C against the state and the state update."""
     c = SSD_CHUNK
-    return bh * -(-s // c) * 2 * (c * c * n + c * c * p + 2 * c * n * p)
+    return bt * -(-s // c) * 2 * (g * c * c * n
+                                  + h * (c * c * p + 2 * c * n * p))
 
 
-def ssd_backward_flops(bh: int, s: int, p: int, n: int) -> int:
+def ssd_backward_flops(bt: int, h: int, g: int, s: int, p: int,
+                       n: int) -> int:
     """K4's backward products over its chunks of SSD_CHUNK steps: per
-    chunk the score and dy x^T tiles, three products against score-shaped
-    tiles (M^T dy, dS^T C, dS B) and four state-sized ones (B G, x G^T,
-    dy H^T, G's update); the forward's state update again for every chunk
-    but the last."""
+    chunk and group the three score-shaped products over N (S = C B^T,
+    (sum dS)^T C and (sum dS) B: B and C are the group's, so dB's and dC's
+    score terms are linear in the heads' dS); per chunk and head dy x^T,
+    M^T dy and four state-sized products (B G, x G^T, dy H^T, G's update);
+    per head the forward's state update again for every chunk but the
+    last."""
     c, nc = SSD_CHUNK, -(-s // SSD_CHUNK)
-    per_chunk = 3 * c * c * n + 2 * c * c * p + 4 * c * n * p
-    return bh * 2 * (nc * per_chunk + max(nc - 1, 0) * c * n * p)
+    per_group = 3 * c * c * n
+    per_head = 2 * c * c * p + 4 * c * n * p
+    return bt * 2 * (nc * (g * per_group + h * per_head)
+                     + h * max(nc - 1, 0) * c * n * p)
 
 
 @contextlib.contextmanager
@@ -329,23 +336,24 @@ def kernels_logged(counter: "OpCounter"):
 
     def ssd(x, dt, A, B, C):
         bt, s, h, p = x.shape
-        n = B.shape[-1]
+        g, n = B.shape[2:]
         y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         hfin = torch.empty((bt, h, n, p), dtype=torch.float32,
                            device=x.device)
         counter.kernel("ssd_scan", (x, dt, A, B, C), (y, hfin),
-                       ssd_flops(bt * h, s, p, n))
+                       ssd_flops(bt, h, g, s, p, n))
         return y, hfin
 
     def ssd_backward(x, dt, A, B, C, dy, dh=None, needs=(True,) * 5):
         bt, s, h, p = x.shape
+        g, n = B.shape[2:]
         grads = tuple(torch.empty(t.shape, dtype=dtype, device=x.device)
                       for t, dtype in ((x, x.dtype), (dt, torch.float32),
                                        (A, torch.float32), (B, B.dtype),
                                        (C, C.dtype)))
         counter.kernel("ssd_scan_backward", (x, dt, A, B, C, dy, dh), grads,
-                       ssd_backward_flops(bt * h, s, p, B.shape[-1]))
-        return tuple(g if need else None for g, need in zip(grads, needs))
+                       ssd_backward_flops(bt, h, g, s, p, n))
+        return tuple(gr if need else None for gr, need in zip(grads, needs))
 
     saved = (k2._run, k3.flash_attention, k3.flash_attention_backward,
              k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward)

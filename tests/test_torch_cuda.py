@@ -1052,12 +1052,16 @@ def _grad_close(got, want, dtype):
 @pytest.mark.parametrize("bt,s,hh,p,g,n", [
     (2, 100, 4, 64, 2, 64), (2, 9, 4, 32, 2, 16), (1, 130, 6, 32, 3, 16),
     (3, 300, 16, 32, 1, 16), (2, 2049, 4, 64, 1, 128), (2, 65, 4, 64, 4, 128),
-    (1, 1, 2, 64, 1, 96), (2, 63, 4, 32, 1, 24)])
+    (1, 1, 2, 64, 1, 96), (2, 63, 4, 32, 1, 24), (1, 1024, 80, 64, 1, 64),
+    (2, 64, 8, 64, 1, 128), (2, 1600, 10, 64, 2, 64), (1, 300, 6, 32, 6, 32)])
 def test_k4_backward_matches_plain(cuda, bt, s, hh, p, g, n, dtype):
     """The backward kernel on the model's layout (x, B, C views of one
     buffer) against ``ssd_scan_grouped_bwd_ref``: ragged S, one chunk and
     many, G < H (2, 3, 16 heads a group) and G = H, N off 16; every
-    gradient in its input's dtype; one launch."""
+    gradient in its input's dtype; one launch. The bf16 gradient kernel's
+    runs of heads (``ssd_scan.backward_runs``, on 132 SMs): zamba2-2.7b's
+    80 heads at S 1024 in runs of 5, S 64 (one chunk) at mamba2-370m's N,
+    5 heads a group in runs of 2, 2, 1, and G = H (runs of one head)."""
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.kernels.ref import ssd_scan_grouped_bwd_ref
 
@@ -1117,6 +1121,23 @@ def test_k4_backward_is_deterministic(cuda):
     g1 = k4.ssd_scan_grouped_backward(*ins, dy, None)
     g2 = k4.ssd_scan_grouped_backward(*ins, dy, None)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_takes_a_misaligned_dy(cuda, dtype):
+    """dy as a contiguous view one element past a 16-byte boundary (its
+    tiles come by TMA) gives the bits of the same dy aligned."""
+    from repro_torch.kernels import ssd_scan as k4
+
+    ins = _xbc_inputs(cuda, 2, 130, 4, 64, 1, 64, dtype, 3)
+    dy = torch.randn((2, 130, 4, 64), device=cuda).to(dtype)
+    buf = torch.empty(dy.numel() + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(dy.shape)
+    shifted.copy_(dy)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    want = k4.ssd_scan_grouped_backward(*ins, dy, None)
+    got = k4.ssd_scan_grouped_backward(*ins, shifted, None)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_k4_backward_rejects_what_it_does_not_take(cuda):

@@ -15,9 +15,16 @@ lands with a single bf16 p: the reason for the split, recorded in PERF.md
 its three f32 operands (the masked scores M, the state h for C h, and the
 weighted x of the state update) as hi + lo halves in the same way; its
 second test shows that one bf16 for any of them leaves K4's tolerance.
-Inputs come from numpy seeds."""
+K4's backward's bf16 path (``csrc/ssd_scan_bwd.cu``) feeds six f32
+operands (M, dS, the states H and G, k o x and e o dy) as hi + lo halves,
+takes S once per group and sums dB and dC over runs of heads, then over
+the runs; its emulation is held against the plain chunked backward and
+``jax.vjp`` of the JAX package's ``ssd_chunked``, and its second test
+prints how far one bf16 for each operand lands. Inputs come from numpy
+seeds."""
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +33,8 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ref import ssd_scan_ref as jssd_ref
 from repro.kernels.ssd_scan import ssd_scan as jssd
+from repro.models.ssm import ssd_chunked as jssd_chunked
+from repro_torch.kernels.ref import ssd_scan_grouped_bwd_ref
 
 torch.set_num_threads(1)
 
@@ -299,3 +308,241 @@ def test_k4_single_bf16_operand_is_the_reason_for_the_split():
     assert rows[()][:2] == (0, 0)
     assert rows[("wx",)][1] > 0
     assert rows[("M",)][0] > 0 and rows[("h",)][0] > 0
+
+
+# ---------------------------------------------------------------------------
+# K4's backward (csrc/ssd_scan_bwd.cu), bf16 path
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's GRAD_TOL for bf16: |got - want| <= rtol |want| + atol
+# max|want|, one bf16 rounding of the f32 result and 2^-9 of the scale
+GRAD_RTOL, GRAD_ATOL = 2.0 ** -7, 2.0 ** -9
+K4_BWD_OPERANDS = ("M", "dS", "G", "H", "kx", "ey")
+K4_BWD_OUTPUTS = ("dx", "d(dt)", "dA", "dB", "dC")
+
+
+def k4_bwd_emulated(x, dt, A, B, C, dy, dh, *, run, single=()):
+    """x (Bt, S, H, P), B and C (Bt, S, G, N), dy bf16; dt (Bt, S, H), A
+    (H,), dh (Bt, H, N, P) f32 -> (dx, d(dt), dA, dB, dC), with the bf16
+    backward kernel's arithmetic: 64-step chunks, steps past S as dt = 0
+    steps; the states entering (H) and the state gradients leaving (G)
+    each chunk by two scans whose updates take k o x and e o dy as hi + lo
+    halves, stored as hi + lo halves; per chunk S^T = B C^T once per group,
+    Q^T = x dy^T, M^T and dS^T in f32; dx = k o (B G) + M^T dy, dB and dC
+    summed over runs of ``run`` consecutive heads of a group (k o (x G^T)
+    and e o (dy H^T) a head, then (sum dS^T) C and (sum dS) B once a run),
+    then over the runs in order; every f32 operand (M, the run's sum of dS,
+    G, H, k o x, e o dy) as hi + lo halves, or as one bf16 if named in
+    ``single``; sums of exact bf16 products in f32; each gradient rounded
+    once."""
+    bt, s, hh, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hpg = hh // g
+    nc = -(-s // CHUNK)
+    pad = nc * CHUNK - s
+
+    def chunks(t):  # (Bt, S, K, W) -> (Bt, nc, K, L, W) f32
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(bt, nc, CHUNK, *t.shape[2:]).transpose(2, 3)
+
+    def split(v, name):
+        hi = v.bfloat16().float()
+        lo = (torch.zeros_like(v) if name in single
+              else (v - hi).bfloat16().float())
+        return hi, lo
+
+    def prod(a, pair):  # a @ (hi + lo) as two products summed in f32
+        return a @ pair[0] + a @ pair[1]
+
+    xc, dyc, Bc, Cc = (chunks(t) for t in (x, dy, B, C))
+    dtc = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad)).reshape(
+        bt, nc, CHUNK, hh).transpose(2, 3)                 # (Bt, nc, H, L)
+    a = A.float()[None, None, :, None]
+    cum = torch.cumsum(dtc * a, -1)
+    e, d = _clip_exp(cum), _clip_exp(cum[..., -1:] - cum)
+    k, E = d * dtc, e[..., -1]
+    grp = torch.arange(hh) // hpg
+    Bh, Ch = Bc[:, :, grp], Cc[:, :, grp]                  # to heads
+    # the states kernel: each state stored before its chunk's update
+    h = torch.zeros((bt, hh, n, p))
+    G = dh.float().clone()
+    Hs, Gs = [None] * nc, [None] * nc
+    for c in range(nc):
+        Hs[c] = split(h, "H")
+        if c < nc - 1:
+            h = h * E[:, c, :, None, None] + prod(
+                Bh[:, c].transpose(-1, -2),
+                split(k[:, c, ..., None] * xc[:, c], "kx"))
+    for c in reversed(range(nc)):
+        Gs[c] = split(G, "G")
+        if c > 0:
+            G = G * E[:, c, :, None, None] + prod(
+                Ch[:, c].transpose(-1, -2),
+                split(e[:, c, ..., None] * dyc[:, c], "ey"))
+    # the gradient kernel, in the transposed layout (rows j, columns i)
+    idx = torch.arange(CHUNK)
+    low = idx[None, :] >= idx[:, None]
+    strict = idx[None, :] > idx[:, None]
+    dx = torch.empty((bt, nc, hh, CHUNK, p))
+    ddt = torch.empty((bt, nc, hh, CHUNK))
+    dA_part = torch.empty((bt, nc, hh))
+    dB = torch.zeros((bt, nc, g, CHUNK, n))
+    dC = torch.zeros((bt, nc, g, CHUNK, n))
+    for c in range(nc):
+        (hhi, hlo), (ghi, glo) = Hs[c], Gs[c]
+        cm = cum[:, c]
+        v = cm[..., None, :] - cm[..., :, None]            # cum_i - cum_j
+        w = _clip_exp(v)
+        dtj = dtc[:, c][..., :, None]
+        sT = (Bc[:, c] @ Cc[:, c].transpose(-1, -2))[:, grp]
+        qT = xc[:, c] @ dyc[:, c].transpose(-1, -2)
+        sw = torch.where(low, sT * w, 0.0)
+        qw = torch.where(low, qT * w, 0.0)
+        mT, dsT = sw * dtj, qw * dtj
+        vT = qT * sw
+        rT = torch.where(strict & (v >= -60.0) & (v <= 0.0), vT * dtj, 0.0)
+        bg = prod(Bh[:, c], (ghi, glo))
+        dk = (xc[:, c] * bg).sum(-1)
+        m_hi, m_lo = split(mT, "M")
+        dx[:, c] = k[:, c][..., None] * bg + m_hi @ dyc[:, c] + m_lo @ dyc[:, c]
+        tB = k[:, c][..., None] * prod(xc[:, c], (ghi.transpose(-1, -2),
+                                                  glo.transpose(-1, -2)))
+        dyH = prod(dyc[:, c], (hhi.transpose(-1, -2), hlo.transpose(-1, -2)))
+        de = (Ch[:, c] * dyH).sum(-1)
+        tC = e[:, c][..., None] * dyH
+        for gi in range(g):
+            for h0 in range(gi * hpg, (gi + 1) * hpg, run):
+                heads = range(h0, min(h0 + run, (gi + 1) * hpg))
+                acc_b, acc_c = torch.zeros_like(tB[:, 0]), torch.zeros_like(
+                    tC[:, 0])
+                dsum = torch.zeros_like(dsT[:, 0])
+                for hd in heads:
+                    acc_b = acc_b + tB[:, hd]
+                    acc_c = acc_c + tC[:, hd]
+                    dsum = dsum + dsT[:, hd]
+                ds_hi, ds_lo = split(dsum, "dS")
+                acc_b = acc_b + ds_hi @ Cc[:, c, gi] + ds_lo @ Cc[:, c, gi]
+                acc_c = acc_c + ds_hi.transpose(-1, -2) @ Bc[:, c, gi]
+                acc_c = acc_c + ds_lo.transpose(-1, -2) @ Bc[:, c, gi]
+                dB[:, c, gi] += acc_b
+                dC[:, c, gi] += acc_c
+        gh = ((ghi + glo) * (hhi + hlo)).sum((-1, -2))
+        ok_d = (cm[..., -1:] - cm >= -60.0) & (cm[..., -1:] - cm <= 0.0)
+        ok_d[..., -1] = False
+        ok_e = (cm >= -60.0) & (cm <= 0.0)
+        tt = dtc[:, c] * dk * d[:, c] * ok_d
+        dcum = (rT.sum(-2) - rT.sum(-1) + de * e[:, c] * ok_e - tt)
+        dcum[..., -1] += tt.sum(-1) + gh * E[:, c] * ok_e[..., -1]
+        dda = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+        ddt[:, c] = vT.sum(-1) + d[:, c] * dk + A.float()[None, :, None] * dda
+        dA_part[:, c] = (dtc[:, c] * dda).sum(-1)
+
+    def unchunk(t):  # (Bt, nc, K, L, W) -> (Bt, S, K, W)
+        return t.transpose(2, 3).reshape(bt, nc * CHUNK, t.shape[2],
+                                         t.shape[-1])[:, :s]
+
+    return (unchunk(dx).bfloat16(),
+            ddt.transpose(2, 3).reshape(bt, nc * CHUNK, hh)[:, :s],
+            dA_part.reshape(bt * nc, hh).sum(0), unchunk(dB).bfloat16(),
+            unchunk(dC).bfloat16())
+
+
+def _k4_bwd_inputs(bt, s, hh, p, g, n, seed):
+    """As chip_smoke.py's K4 backward cases: x ~ N(0, 1), B, C ~ 0.3 N(0, 1)
+    and dy ~ N(0, 1) in bf16 (x, B, C views of one buffer), dt =
+    softplus(N(0, 1)) / 2, A = -exp(N(0, 1)) / 2, dh ~ N(0, 1) in f32."""
+    rng = np.random.default_rng(seed)
+    di = hh * p
+    buf = rng.standard_normal((bt, s, di + 2 * g * n)).astype(np.float32)
+    buf[..., di:] *= 0.3
+    buf = torch.from_numpy(buf).bfloat16()
+    dt = torch.from_numpy((np.log1p(np.exp(rng.standard_normal(
+        (bt, s, hh)))) * 0.5).astype(np.float32))
+    A = torch.from_numpy((-np.exp(rng.standard_normal(hh)) * 0.5).astype(
+        np.float32))
+    dy = torch.from_numpy(rng.standard_normal((bt, s, hh, p)).astype(
+        np.float32)).bfloat16()
+    dh = torch.from_numpy(rng.standard_normal((bt, hh, n, p)).astype(
+        np.float32))
+    return (buf[..., :di].reshape(bt, s, hh, p), dt, A,
+            buf[..., di:di + g * n].reshape(bt, s, g, n),
+            buf[..., di + g * n:].reshape(bt, s, g, n), dy, dh)
+
+
+def _k4_bwd_shares(got, want):
+    """Each gradient's worst |got - want| over its bf16 GRAD_TOL allowance
+    (rtol |want| + atol max|want|)."""
+    out = []
+    for gr, w in zip(got, want):
+        w = w.double()
+        allow = GRAD_RTOL * w.abs() + GRAD_ATOL * float(w.abs().max())
+        out.append(float(((gr.double() - w).abs() / allow).max()))
+    return out
+
+
+K4_BWD_CASES = [  # (Bt, S, H, P, G, N, run)
+    (1, 200, 4, 64, 1, 128, 2),    # ragged S, mamba2's N
+    (2, 64, 4, 64, 2, 64, 2),      # one chunk, G < H
+    (1, 130, 6, 32, 2, 16, 2),     # a group of 3 heads in runs of 2 and 1
+    (1, 256, 8, 64, 1, 64, 3),     # zamba2's N, runs of 3, 3, 2
+]
+
+
+@pytest.mark.parametrize("bt,s,hh,p,g,n,run", K4_BWD_CASES)
+def test_k4_backward_split_emulation_matches_plain_and_jax(bt, s, hh, p, g,
+                                                           n, run):
+    """The bf16 backward's arithmetic (six operands as hi + lo halves, S
+    once per group, dB / dC over runs then runs) lands within the bf16
+    GRAD_TOL of ``ssd_scan_grouped_bwd_ref`` in f32 on the same values and
+    of ``jax.vjp`` of the JAX package's ``ssd_chunked`` at chunk 64."""
+    x, dt, A, B, C, dy, dh = _k4_bwd_inputs(bt, s, hh, p, g, n,
+                                            s * n + hh + run)
+    got = k4_bwd_emulated(x, dt, A, B, C, dy, dh, run=run)
+    want = ssd_scan_grouped_bwd_ref(x.float(), dt, A, B.float(), C.float(),
+                                    dy.float(), dh)
+
+    def f(x, dt, A, B, C):
+        return jssd_chunked(x, dt, A, B, C, CHUNK)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(t.float().contiguous().numpy())
+                          for t in (x, dt, A, B, C)))
+    jwant = vjp((jnp.asarray(dy.float().numpy()),
+                 jnp.asarray(dh.transpose(-1, -2).contiguous().numpy())))
+    jwant = [torch.from_numpy(np.array(w, np.float32)) for w in jwant]
+    for ref in (want, jwant):
+        shares = _k4_bwd_shares(got, ref)
+        assert max(shares) <= 1.0, dict(zip(K4_BWD_OUTPUTS, shares))
+
+
+def test_k4_backward_single_bf16_operand_is_the_reason_for_the_split():
+    """Each of the six f32 operands fed as one bf16 moves its gradients'
+    worst error toward the bf16 GRAD_TOL; all six as one bf16 most. The
+    printed table (``-s``: the worst share of the allowance a gradient,
+    the worse of two draws) is recorded in PERF.md."""
+    cases = [(1, 1024, 4, 64, 1, 128, 2, 1), (1, 1024, 8, 64, 1, 64, 3, 2)]
+    rows = {}
+    for single in ((),) + tuple((op,) for op in K4_BWD_OPERANDS) + (
+            K4_BWD_OPERANDS,):
+        worst = [0.0] * 5
+        for bt, s, hh, p, g, n, run, seed in cases:
+            ins = _k4_bwd_inputs(bt, s, hh, p, g, n, seed)
+            x, dt, A, B, C, dy, dh = ins
+            want = ssd_scan_grouped_bwd_ref(x.float(), dt, A, B.float(),
+                                            C.float(), dy.float(), dh)
+            got = k4_bwd_emulated(*ins, run=run, single=single)
+            worst = [max(u, v) for u, v in zip(
+                worst, _k4_bwd_shares(got, want))]
+        rows[single] = worst
+    names = {(): "none (all split)", K4_BWD_OPERANDS: "all six"}
+    print("\nK4 backward emulation, bf16, the worst |err| a gradient as a "
+          "share of GRAD_TOL against ssd_scan_grouped_bwd_ref in f32 (worse "
+          "of (1, 1024, 4, 64, 1, 128) and (1, 1024, 8, 64, 1, 64)); "
+          "operand(s) fed as one bf16:")
+    for single, worst in rows.items():
+        print(f"  {names.get(single, single[0] if single else ''):>16}: "
+              + ", ".join(f"{o} {v:.3f}" for o, v in
+                          zip(K4_BWD_OUTPUTS, worst)))
+    split = max(rows[()])
+    assert split < 0.6
+    assert max(rows[K4_BWD_OPERANDS]) > split
+    assert all(max(rows[(op,)]) >= split for op in K4_BWD_OPERANDS)

@@ -192,10 +192,10 @@ def test_k4_backward_launch_counts_its_own_traffic_and_operations():
     bwd_bytes = (xb + dtb + ab + 2 * bcb + xb) + (xb + dtb + ab + 2 * bcb)
     assert acc["kernels"]["ssd_scan"] == {
         "count": 1, "bytes": fwd_bytes,
-        "flops": oa.ssd_flops(bt * h, s, p, n)}
+        "flops": oa.ssd_flops(bt, h, g, s, p, n)}
     assert acc["kernels"]["ssd_scan_backward"] == {
         "count": 1, "bytes": bwd_bytes,
-        "flops": oa.ssd_backward_flops(bt * h, s, p, n)}
+        "flops": oa.ssd_backward_flops(bt, h, g, s, p, n)}
     assert not any(s_ == [bt * h, n, p] for r in c.log
                    for _, s_ in r["in"] + r["out"])
 
@@ -242,18 +242,29 @@ def test_k3_backward_launch_counts_its_own_traffic_and_operations():
 
 
 def test_ssd_backward_flops():
-    """K4's backward products by hand: per 64-step chunk 3 L^2 N + 2 L^2 P
-    + 4 L N P multiply-adds, and the state update L N P again for every
-    chunk but the last."""
+    """K4's backward products by hand: per 64-step chunk 3 L^2 N
+    multiply-adds a group (S, (sum dS)^T C, (sum dS) B) and 2 L^2 P + 4 L N P
+    a head, and the state update L N P a head again for every chunk but
+    the last."""
     L = 64
-    per = 3 * L * L * 128 + 2 * L * L * 64 + 4 * L * 128 * 64
-    assert oa.ssd_backward_flops(256, 2048, 64, 128) == \
-        256 * 2 * (32 * per + 31 * L * 128 * 64)
-    assert oa.ssd_backward_flops(3, 65, 32, 16) == 3 * 2 * (
-        2 * (3 * L * L * 16 + 2 * L * L * 32 + 4 * L * 16 * 32)
-        + L * 16 * 32)
-    assert oa.ssd_backward_flops(1, 64, 32, 16) == 2 * (
+    per_group, per_head = 3 * L * L * 128, 2 * L * L * 64 + 4 * L * 128 * 64
+    assert oa.ssd_backward_flops(8, 32, 1, 2048, 64, 128) == 8 * 2 * (
+        32 * (per_group + 32 * per_head) + 32 * 31 * L * 128 * 64)
+    assert oa.ssd_backward_flops(3, 4, 2, 65, 32, 16) == 3 * 2 * (
+        2 * (2 * 3 * L * L * 16 + 4 * (2 * L * L * 32 + 4 * L * 16 * 32))
+        + 4 * L * 16 * 32)
+    assert oa.ssd_backward_flops(1, 1, 1, 64, 32, 16) == 2 * (
         3 * L * L * 16 + 2 * L * L * 32 + 4 * L * 16 * 32)
+
+
+def test_ssd_flops():
+    """K4's forward products by hand: per 64-step chunk the score tile L^2 N
+    a group, and L^2 P + 2 L N P a head."""
+    L = 64
+    assert oa.ssd_flops(8, 32, 1, 2048, 64, 128) == 8 * 32 * 2 * (
+        L * L * 128 + 32 * (L * L * 64 + 2 * L * 128 * 64))
+    assert oa.ssd_flops(2, 6, 3, 65, 32, 16) == 2 * 2 * 2 * (
+        3 * L * L * 16 + 6 * (L * L * 32 + 2 * L * 16 * 32))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
@@ -278,7 +289,7 @@ def test_counted_kernel_path_of_an_ssm_train_step(arch, tmp_path):
     sc = cfg.ssm
     heads = sc.heads(cfg.d_model)
     assert ks["ssd_scan_backward"]["flops"] == n * oa.ssd_backward_flops(
-        batch * heads, seq, sc.head_dim, sc.state_size)
+        batch, heads, sc.n_groups, seq, sc.head_dim, sc.state_size)
     assert ks["lora_matmul"]["count"] >= 4 * n
     log = oa.load_log(str(tmp_path / "ops.z"))[0]
     state = [batch * heads, sc.state_size, sc.head_dim]
