@@ -515,12 +515,16 @@ FAMILY_F32_LAYERS = 4
 
 # [k2-grad]: K2's autograd Function (forward K2, dx by K2 on W^T, B^T, A^T,
 # dA and dB rank-r f32 products) against torch.autograd through the plain
-# version, at llama2-7b's q shape, Mixtral's v shape (N 1024), tiny-100m's
-# q / v shape on [elastic]'s path (8 x 128 tokens, d 768) and two odd
-# shapes (M off the tile, r 8 and 64); (M, K, N, r). y within K2_TOL; dx
-# (one K2 launch) and dA / dB (f32 products on both sides, summed in another
-# order, rounded once to the operands' dtype) within GRAD_TOL.
+# version, at llama2-7b's q shape, Mixtral's v shape (N 1024), qwen2-vl-7b's
+# q and v shapes (d 3584; v N 512), hubert-xlarge's q / v shape (d 1280),
+# tiny-100m's q / v shape on [elastic]'s path (8 x 128 tokens, d 768) and
+# two odd shapes (M off the tile, r 8 and 64); (M, K, N, r). Every training
+# path's forward shape must be here (``_k2_train_rows``). y within K2_TOL;
+# dx (one K2 launch) and dA / dB (f32 products on both sides, summed in
+# another order, rounded once to the operands' dtype) within GRAD_TOL.
 K2_GRAD_SHAPES = ((8192, 4096, 4096, 16), (8192, 4096, 1024, 16),
+                  (8192, 3584, 3584, 16), (8192, 3584, 512, 16),
+                  (8192, 1280, 1280, 16),
                   (1024, 768, 768, 16), (1000, 512, 768, 8),
                   (333, 1024, 256, 64))
 # [train-ref]: the llama2-7b smoke config (f32, 2 layers, d 256) with
@@ -596,6 +600,68 @@ TRAIN_SSM_REF = {
         },
     },
 }
+# [train-fam-ref]: the same runs on the mixtral-8x7b, qwen2-vl-7b and
+# hubert-xlarge smoke configs (f32, 2 layers, d 256; Mixtral's 4 experts
+# top-2 with window 64; Qwen2-VL's M-RoPE sections (8, 12, 12)), each step's
+# batch from ``train_ref_batch``: ShardedLMLoader tokens for Mixtral; for the
+# two embedding families numpy embeddings and targets, Qwen2-VL's positions
+# with the image span TRAIN_FAM_SPAN (K3 and its backward on the position
+# path), HuBERT's loss mask (each frame masked with probability
+# TRAIN_FAM_MASK_P; K3 non-causal). TRAIN_FAM_REF from tools/jax_train_refs.py,
+# held within TRAIN_REF_RTOL.
+TRAIN_FAM_ARCHS = ("mixtral-8x7b", "qwen2-vl-7b", "hubert-xlarge")
+TRAIN_FAM_SPAN = (8, 4, 8)
+TRAIN_FAM_MASK_P = 0.3
+TRAIN_FAM_REF = {
+    'mixtral-8x7b': {
+        1: {
+            'loss': (6.3382649421691895, 6.343993186950684, 6.324476718902588, 6.31068229675293),
+            'grad_norm': (0.3427622318267822, 0.33971521258354187, 0.33949020504951477, 0.33435946702957153),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.49119797080122,
+            'move_sq': 0.42141762428469,
+        },
+        2: {
+            'loss': (6.338266372680664, 6.343993186950684, 6.324477195739746, 6.310683250427246),
+            'grad_norm': (0.3427622318267822, 0.33971521258354187, 0.33949014544487, 0.33435946702957153),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.49120282730942,
+            'move_sq': 0.4214176460001184,
+        },
+    },
+    'qwen2-vl-7b': {
+        1: {
+            'loss': (6.305937767028809, 6.287102699279785, 6.267620086669922, 6.28139591217041),
+            'grad_norm': (0.3018268048763275, 0.3307804763317108, 0.3351297974586487, 0.33143654465675354),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.29441720672332,
+            'move_sq': 0.42087268117912024,
+        },
+        2: {
+            'loss': (6.30593729019165, 6.287101745605469, 6.2676191329956055, 6.28139591217041),
+            'grad_norm': (0.3018268048763275, 0.3307804465293884, 0.3351297676563263, 0.33143654465675354),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.29441692995499,
+            'move_sq': 0.420872679510546,
+        },
+    },
+    'hubert-xlarge': {
+        1: {
+            'loss': (6.314915180206299, 6.298286437988281, 6.307444095611572, 6.289300441741943),
+            'grad_norm': (0.3985383212566376, 0.3664684295654297, 0.3753402531147003, 0.4402965009212494),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 107.14809202546463,
+            'move_sq': 0.4742143222746276,
+        },
+        2: {
+            'loss': (6.305915355682373, 6.298675537109375, 6.305190563201904, 6.290493488311768),
+            'grad_norm': (0.3986073434352875, 0.3700908422470093, 0.37292423844337463, 0.44098174571990967),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 106.96057078053161,
+            'move_sq': 0.47365963264338307,
+        },
+    },
+}
 # f32 on both sides, sums in another order (the CPU test's loss tolerance
 # is 1e-5 and holds ~1e-7; the card's K2 / K3 add their own order): loss
 # and lr 1e-5, grad norm 1e-4, the leaves' movement 1e-4
@@ -618,6 +684,22 @@ TRAIN_STEPS = 5
 # seq, batch)
 TRAIN_SSM_RUNS = (("mamba2-370m", 2048, 8), ("zamba2-2.7b", 1024, 8))
 TRAIN_SSM_STEPS = 3
+# [train-vlm], [train-audio], [train-moe]: the MoE, VLM and audio families
+# trained the same way (bf16, remat full, LoRA rank 16 on q and v, weights
+# drawn on the card, TRAIN_WARMUP warm-up steps, then TRAIN_FAM_STEPS
+# timed): qwen2-vl-7b at full width and depth on 8 x 1024 embeddings with
+# VLM_RUN's 24 x 32 image span, M-RoPE positions and random targets (K3 and
+# its backward on the position path); hubert-xlarge at full width and depth
+# on ``frontends.make_masked_prediction_batch``'s 8 x 1024 frames (mask p
+# 0.08; K3 non-causal at D 80); mixtral-8x7b at MOE_LAYERS of its 32 layers
+# (full width, as [serve-moe]) on ShardedLMLoader tokens (K3 with its
+# window; the MoE layer's backward in torch ops). Step 0's gradients are
+# held as [train]'s at full depth, Mixtral's at MOE_F32_LAYERS layers (see
+# ``_moe_grad_gate``). tag -> (arch, seq, batch, layers)
+TRAIN_FAM_RUNS = {"train-vlm": ("qwen2-vl-7b", 1024, 8, None),
+                  "train-audio": ("hubert-xlarge", 1024, 8, None),
+                  "train-moe": ("mixtral-8x7b", 1024, 8, MOE_LAYERS)}
+TRAIN_FAM_STEPS = 3
 # [elastic]: examples/elastic_finetune_torch.py's full setting (tiny-100m,
 # ~134M parameters, seq 128, batch 8, AHAP(3, 1, 0.7) on
 # vast_like_trace(seed=4, days=2) with ARIMA forecasts) on the card. The
@@ -652,6 +734,43 @@ def frontend_ref_inputs(np, d: int, vocab: int, seed: int, batch: int,
     embeds = (rng.standard_normal((batch, seq, d), np.float32) * 0.02)
     table = (rng.standard_normal((vocab, d), np.float32) * 0.02)
     return embeds.astype(np.float32), table.astype(np.float32)
+
+
+def train_ref_batch(np, cfg, global_batch: int, seq_len: int, step: int,
+                    seed: int = TRAIN_REF_SEED, span=TRAIN_FAM_SPAN,
+                    data=None) -> dict:
+    """[train-ref]'s, [train-ssm-ref]'s and [train-fam-ref]'s batch of a
+    step, numpy arrays from a seed: a token model's ShardedLMLoader tokens;
+    an embedding model's embeddings (B, S, d) f32, N(0, 0.02^2) as
+    ``frontend_ref_inputs``', and targets (B, S) int32, with M-RoPE
+    positions (B, S, 3) of one image span ``span`` (None: text positions)
+    where the config has M-RoPE, and a boolean loss mask (each frame with
+    probability TRAIN_FAM_MASK_P) for an encoder. ``data`` = (the
+    ShardedLMLoader class, make_mrope_positions) of the package that builds
+    the batch: the port's by default; tools/jax_train_refs.py gives the JAX
+    package's, so that the recorded constants hold the port's too."""
+    if data is None:
+        from repro_torch.data import ShardedLMLoader
+        from repro_torch.models.frontends import make_mrope_positions
+    else:
+        ShardedLMLoader, make_mrope_positions = data
+
+    if not cfg.embed_inputs:
+        return ShardedLMLoader(cfg.vocab_size, global_batch, seq_len,
+                               seed=seed).batch_at(step)
+    rng = np.random.default_rng((seed, step))
+    shape = (global_batch, seq_len)
+    batch = {"embeds": (rng.standard_normal(shape + (cfg.d_model,),
+                                            np.float32) * 0.02
+                        ).astype(np.float32),
+             "targets": rng.integers(0, cfg.vocab_size, shape,
+                                     dtype=np.int32)}
+    if cfg.m_rope:
+        batch["positions"] = make_mrope_positions(global_batch, seq_len,
+                                                  span)
+    if cfg.encoder_only:
+        batch["loss_mask"] = rng.random(shape) < TRAIN_FAM_MASK_P
+    return batch
 
 
 def serve_ref_prompts(np, vocab: int, seed: int = SERVE_REF_SEED,
@@ -1961,8 +2080,9 @@ def _lora_case(torch, gen, m, k, n, r, dtype):
 def _phase_k2(torch, gen, k2, lora_matmul_ref) -> float:
     """K2 against its plain version on the card: the JAX package's kernel
     test shapes at f32 and bf16, a ragged shape, the edges of the bf16
-    tiles, and the six serving shapes (prefill and decode of llama2-7b's
-    q / v, mamba2-370m's and zamba2-2.7b's wx)."""
+    tiles, the serving shapes (prefill and decode of llama2-7b's q / v,
+    mamba2-370m's and zamba2-2.7b's wx, mixtral-8x7b's q and v) and the
+    training paths' (qwen2-vl-7b's q and v, hubert-xlarge's, mixtral's)."""
     cases = [((m, k, n, r), dt)
              for m, k, n, r in ((128, 128, 128, 16), (256, 384, 128, 8),
                                 (128, 256, 256, 64))
@@ -1973,9 +2093,9 @@ def _phase_k2(torch, gen, k2, lora_matmul_ref) -> float:
     # BK 64), K and N off the tile, N 4100 with a ragged row pitch
     cases += [((m, 4104, 4100, r), "bfloat16") for m in (1, 8, 17, 64, 65, 200)
               for r in (8, 16, 64)]
-    # the six serving shapes (M, K, N) of the three paths
-    cases += [((m, k, n, 16), "bfloat16")
-              for m, k, n, _ in _k2_shapes(None).values()]
+    # the serving and training paths' shapes (M, K, N)
+    cases += [((m, k, n, 16), "bfloat16") for m, k, n in dict.fromkeys(
+        row[:3] for row in _k2_shapes(None).values())]
     max_err = 0.0
     for (m, k, n, r), dt in cases:
         x, w, a, b = _lora_case(torch, gen, m, k, n, r, getattr(torch, dt))
@@ -2378,20 +2498,29 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
 
 class _Routes:
     """Records a run's MoE routing: every ``moe.route`` call's top-k expert
-    set (sorted) and router logits, in call order (layer by layer, prefill
-    then each decode step). Records nothing for a model without MoE."""
+    set (sorted) and router logits (``calls``) and its experts in the
+    route's order (``idx``), in call order (layer by layer, prefill then
+    each decode step; a remat training step's recompute after its
+    forward). Records nothing for a model without MoE. With ``replay``
+    (another run's ``idx``) the i-th call routes by the replayed experts
+    instead (``_replayed``), and still records its own routing."""
 
-    def __init__(self, torch, moe_lib):
-        self.torch, self.mod, self.calls = torch, moe_lib, []
+    def __init__(self, torch, moe_lib, replay=None):
+        self.torch, self.mod, self.replay = torch, moe_lib, replay
+        self.calls, self.idx = [], []
 
     def __enter__(self):
         self.route = self.mod.route
 
         def record(cfg, router_w, x):
             out = self.route(cfg, router_w, x)
-            logits = x.float() @ router_w.float()
+            logits = (x.float() @ router_w.float()).detach()
             self.calls.append((self.torch.sort(out[0], dim=-1).values,
                                logits))
+            self.idx.append(out[0])
+            if self.replay is not None:
+                out = _replayed(self.torch, cfg, router_w, x,
+                                self.replay[len(self.idx) - 1])
             return out
 
         self.mod.route = record
@@ -2399,6 +2528,22 @@ class _Routes:
 
     def __exit__(self, *exc):
         self.mod.route = self.route
+
+
+def _replayed(torch, cfg, router_w, x, idx):
+    """``moe.route``'s result with the experts ``idx`` given: the router
+    weights and the load-balance loss from this call's own gates, as
+    ``moe.route`` takes them from its top k."""
+    import torch.nn.functional as F
+
+    m = cfg.moe
+    gates = torch.softmax(x.float() @ router_w.float(), dim=-1)
+    w = torch.gather(gates, -1, idx)
+    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    ce = F.one_hot(idx[..., 0], m.num_experts).float().mean(dim=-2)
+    aux = (m.num_experts * torch.sum(gates.mean(dim=-2) * ce, dim=-1)
+           * m.aux_loss_coef)
+    return idx, w.to(x.dtype), aux
 
 
 def _route_swaps(torch, cfg, a_calls, b_calls, prompt):
@@ -3351,32 +3496,35 @@ def _k4_bwd_issued_ops(torch, k4, bt, s, hh, g, n) -> int:
     return 2 * (scans + bt * nc * (g * rpg * per_run + hh * per_head))
 
 
-def _phase_time_k3_backward(torch, gen, k3, bh, s, d):
-    """K3's backward at a training shape (bf16 q, k, v, dO; causal; m and
-    l from the forward): the kernel by ``_graph_ms`` and by events, its
+def _phase_time_k3_backward(torch, gen, k3, bh, s, d, mask):
+    """K3's backward at a training shape under its mask (bf16 q, k, v, dO;
+    ``_k3_train_shapes``' mask: causal or not, a window, an image span's
+    positions; m and l from the forward): the kernel by ``_graph_ms`` and
+    by events, its
     plain version ``flash_attention_bwd_ref``, the route the Function took
     before the kernel (autograd through ``flash_attention_ref``: its
     forward again and that forward's backward) and
     ``F.scaled_dot_product_attention``'s backward (the library yardstick:
-    ``torch.autograd.grad`` of its output, the graph kept), each by
-    events. The bound counts the unmasked (q, k) pairs, 10 D operations
-    each (``op_analysis.attention_backward_flops``), and q, k, v, dO, dq,
-    dk, dv at 2 bytes and m, l at 4 once."""
+    ``torch.autograd.grad`` of its output, the graph kept; with positions
+    given the equivalent boolean ``attn_mask``, as ``_phase_time_k3``),
+    each by events. The bound counts this run's unmasked (q, k) pairs, 10
+    D operations each (``op_analysis.attention_backward_flops``), and q, k,
+    v, dO, dq, dk, dv at 2 bytes and m, l (and the positions) at 4 once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_ref)
-    from repro_torch.launch.op_analysis import (attention_backward_flops,
-                                                attention_pairs)
+    from repro_torch.launch.op_analysis import attention_backward_flops
 
+    kw = _k3_mask_kwargs(torch, mask, s, gen.device)
     q, k, v, do = (_randn(torch, gen, (bh, s, d), 1.0, torch.bfloat16)
                    for _ in range(4))
     before = (k3.flash_attention.launches,
               k3.flash_attention_backward.launches)
-    _, m, l = k3.flash_attention(q, k, v, stats=True)
+    _, m, l = k3.flash_attention(q, k, v, stats=True, **kw)
 
     def kernel():
-        return k3.flash_attention_backward(q, k, v, m, l, do)
+        return k3.flash_attention_backward(q, k, v, m, l, do, **kw)
 
     for _ in range(2):
         kernel()
@@ -3386,17 +3534,26 @@ def _phase_time_k3_backward(torch, gen, k3, bh, s, d):
     k3.flash_attention.launches, k3.flash_attention_backward.launches = \
         before
     plain = _event_ms(torch, lambda: flash_attention_bwd_ref(
-        q[None], k[None], v[None], m[None], l[None], do[None]), 3)
+        q[None], k[None], v[None], m[None], l[None], do[None], **kw), 3)
 
     def autograd_plain():
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        o = flash_attention_ref(*(t[None] for t in leaves))[0]
+        o = flash_attention_ref(*(t[None] for t in leaves), **kw)[0]
         return torch.autograd.grad(o, leaves, do)
 
     old = _event_ms(torch, autograd_plain, 3)
     leaves = [t.reshape(1, bh, s, d).clone().requires_grad_(True)
               for t in (q, k, v)]
-    o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    if mask["window"] is not None and mask["window"] < s:
+        _fail(f"[time] K3 backward: SDPA has no window ({mask['window']} < "
+              f"S {s})")
+    if "q_pos" in kw:
+        pos = kw["q_pos"]
+        o = F.scaled_dot_product_attention(
+            *leaves, attn_mask=pos[None, :] <= pos[:, None])
+    else:
+        o = F.scaled_dot_product_attention(*leaves,
+                                           is_causal=mask["causal"])
     do4 = do.reshape(1, bh, s, d)
     for _ in range(2):
         torch.autograd.grad(o, leaves, do4, retain_graph=True)
@@ -3404,18 +3561,21 @@ def _phase_time_k3_backward(torch, gen, k3, bh, s, d):
         o, leaves, do4, retain_graph=True), TIME_REPS)
     del o, leaves
     torch.cuda.empty_cache()
-    n_bytes = 2 * 7 * bh * s * d + 4 * 2 * bh * s
-    n_ops = attention_backward_flops(bh, s, s, d, True, None)
+    pos_bytes = 2 * 4 * s if "q_pos" in kw else 0
+    n_bytes = 2 * 7 * bh * s * d + 4 * 2 * bh * s + pos_bytes
+    n_ops = attention_backward_flops(bh, s, s, d, **kw)
     bound, b_ms, o_ms = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
-    pairs = attention_pairs(s, s, True, None)
+    pairs = n_ops // (10 * d * bh)
     return {"BH": bh, "S": s, "D": d, "ms": ms, "event_ms": events,
             "plain_ms": plain, "autograd_plain_ms": old, "library_ms": lib,
             "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
             "bytes": n_bytes, "ops": n_ops, "pairs": pairs,
             # the tensor-core operations the kernel issues: 24 D a pair
             # (S and dP in each of its three passes, the hi and lo halves
-            # of P and dS in dV, dK and dQ), 2.4 times the bound's count
-            "issued_ops": 24 * d * pairs * bh}
+            # of P and dS in dV, dK and dQ), 2.4 times the bound's count;
+            # the position path visits every 64 x 64 tile pair
+            "issued_ops": 24 * d * bh * (pairs if "q_pos" not in kw
+                                         else (-(-s // 64) * 64) ** 2)}
 
 
 def _k2_shapes(launches=None):
@@ -3423,8 +3583,10 @@ def _k2_shapes(launches=None):
     q / v projection (K = N = 4096) at prefill (M = 8 x 1024) and decode
     (M = 8); mamba2-370m's and zamba2-2.7b's wx projection (K = d, N =
     d_inner; out_proj moves the same bytes and operations transposed) at
-    prefill and decode, with every K2 launch of the path's phase (None
-    before the serving runs)."""
+    prefill and decode; mixtral-8x7b's q and v at prefill and decode; the
+    training paths' forward shapes (``_k2_train_rows``), with every K2
+    launch of the path's phase (None before the serving runs; a training
+    path's forward launches over its timed steps)."""
     from repro_torch.configs import get_config
 
     def count(tag, i):
@@ -3450,7 +3612,43 @@ def _k2_shapes(launches=None):
             c = count("serve-moe", i)
             rows[f"mixtral-{proj}-{phase}"] = (
                 m, cfg.d_model, n, None if c is None else c // 2)
+    # the training paths' forwards (and remat recomputes)
+    for name, (m, k, n, tag, share) in _k2_train_rows().items():
+        c = count(tag, 0)
+        rows[f"{name}-train"] = (m, k, n,
+                                 None if c is None else int(c * share))
     return rows
+
+
+def _k2_train_rows():
+    """K2's forward shapes on [train-vlm]'s, [train-audio]'s and
+    [train-moe]'s paths, one row per adapted projection width (q: heads x
+    head_dim, v: KV heads x head_dim; hubert-xlarge's are one width):
+    name -> (M, K = d, N, tag, share), ``share`` the fraction of the path's
+    K2 launches (forward and dx alike) at that shape. Fails if a shape is
+    not in K2_GRAD_SHAPES."""
+    from fractions import Fraction
+
+    from repro_torch.configs import get_config
+
+    out = {}
+    for tag, (arch, seq, batch, _) in TRAIN_FAM_RUNS.items():
+        cfg = get_config(arch)
+        width = {"q": cfg.num_heads * cfg.head_dim,
+                 "v": cfg.num_kv_heads * cfg.head_dim}
+        targets = cfg.lora.targets
+        if set(targets) != set(width):
+            _fail(f"{arch} adapts {targets}, not q and v")
+        name = arch.rsplit("-", 1)[0]
+        for proj in targets:
+            share = Fraction(list(width.values()).count(width[proj]),
+                             len(targets))
+            shape = (batch * seq, cfg.d_model, width[proj], cfg.lora.rank)
+            if shape not in K2_GRAD_SHAPES:
+                _fail(f"[{tag}] K2 runs at {shape}, not in K2_GRAD_SHAPES")
+            row = name if share == 1 else f"{name}-{proj}"
+            out[row] = shape[:3] + (tag, share)
+    return out
 
 
 def _before(name) -> str:
@@ -3553,17 +3751,49 @@ def _k3_grad_cases(torch, dev):
 
 
 def _k3_train_shapes():
-    """K3's backward at [train]'s and [train-ssm]'s hybrid shapes: name ->
-    (BH, S, D), causal."""
+    """K3's backward at each training path's shape and mask: [train]'s,
+    [train-ssm]'s hybrid and [train-vlm]'s, [train-audio]'s and
+    [train-moe]'s: name -> (BH, S, D, mask), the mask as
+    ``_k3_mask_kwargs`` takes it: causal, the config's window, and for
+    qwen2-vl the image span whose temporal stream is q_pos = k_pos."""
     from repro_torch.configs import get_config
 
+    runs = (("llama2", TRAIN_RUN),
+            ("zamba2", next(r for r in TRAIN_SSM_RUNS
+                            if r[0] == "zamba2-2.7b")),
+            ("qwen2-vl", TRAIN_FAM_RUNS["train-vlm"][:3]),
+            ("hubert", TRAIN_FAM_RUNS["train-audio"][:3]),
+            ("mixtral", TRAIN_FAM_RUNS["train-moe"][:3]))
     out = {}
-    for name, (arch, seq, batch) in (
-            ("llama2", TRAIN_RUN),
-            ("zamba2", next(r for r in TRAIN_SSM_RUNS if r[0] == "zamba2-2.7b"))):
+    for name, (arch, seq, batch) in runs:
         cfg = get_config(arch)
-        out[name] = (batch * cfg.num_heads, seq, cfg.head_dim)
+        mask = {"causal": cfg.causal, "window": cfg.sliding_window}
+        if cfg.m_rope:
+            mask["span"] = VLM_RUN[3]
+        out[name] = (batch * cfg.num_heads, seq, cfg.head_dim, mask)
     return out
+
+
+def _k3_mask_kwargs(torch, mask, s, dev) -> dict:
+    """K3's mask keywords for ``_k3_train_shapes``' mask at length ``s``:
+    causal and window, and with an image span q_pos = k_pos = the temporal
+    stream of ``make_mrope_positions`` (int32 on ``dev``), as
+    ``blocks.mask_positions`` gives the model's attention."""
+    from repro_torch.models.frontends import make_mrope_positions
+
+    kw = {"causal": mask["causal"], "window": mask["window"]}
+    if "span" in mask:
+        pos = make_mrope_positions(1, s, mask["span"])[0, :, 0]
+        pos = torch.from_numpy(pos.copy()).to(dev)
+        kw.update(q_pos=pos, k_pos=pos)
+    return kw
+
+
+def _mask_label(mask) -> str:
+    if "span" in mask:
+        return f"causal by the {mask['span']} image span's positions"
+    label = "causal" if mask["causal"] else "non-causal"
+    return label + (f", window {mask['window']}" if mask["window"] else "")
 
 
 def _phase_k3_grad(torch, gen, k3) -> tuple:
@@ -3573,8 +3803,9 @@ def _phase_k3_grad(torch, gen, k3) -> tuple:
     statistics) and one launch of K3's backward kernel, the plain attention
     never called on the card's route; the forward within K3_TOL and dq, dk,
     dv within GRAD_TOL of autograd through the plain route. Then the
-    backward kernel alone at the training shapes (``_k3_train_shapes``,
-    causal, bf16 and f32) against its plain version
+    backward kernel alone at the training shapes under their masks
+    (``_k3_train_shapes``: causal, non-causal, a window, an image span's
+    positions; bf16 and f32) against its plain version
     ``flash_attention_bwd_ref`` and against autograd through
     ``flash_attention_ref``, every gradient in its input's dtype.
     Comparison launches do not count. Returns (the largest |err| of the
@@ -3626,15 +3857,16 @@ def _phase_k3_grad(torch, gen, k3) -> tuple:
                   "plain route; 1 forward + 1 backward launch, no plain "
                   "attention")
     bwd_errs = {}
-    for name, (bh, s, d) in _k3_train_shapes().items():
+    for name, (bh, s, d, mask) in _k3_train_shapes().items():
+        kw = _k3_mask_kwargs(torch, mask, s, gen.device)
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
             q, k, v, do = (_randn(torch, gen, (bh, s, d), 1.0, dtype)
                            for _ in range(4))
             before = (k3.flash_attention.launches,
                       k3.flash_attention_backward.launches)
-            _, m, l = k3.flash_attention(q, k, v, stats=True)
-            got = k3.flash_attention_backward(q, k, v, m, l, do)
+            _, m, l = k3.flash_attention(q, k, v, stats=True, **kw)
+            got = k3.flash_attention_backward(q, k, v, m, l, do, **kw)
             torch.cuda.synchronize()
             launched = k3.flash_attention_backward.launches - before[1]
             (k3.flash_attention.launches,
@@ -3644,13 +3876,13 @@ def _phase_k3_grad(torch, gen, k3) -> tuple:
                 _fail(f"[k3-grad] {name} {dt}: {launched} launches, "
                       f"gradients {[(g.dtype, tuple(g.shape)) for g in got]}")
             want = flash_attention_bwd_ref(q[None], k[None], v[None],
-                                           m[None], l[None], do[None])
+                                           m[None], l[None], do[None], **kw)
             errs = [_grad_close(torch, f"[k3-grad] {name} d{n} {dt}", g,
                                 w[0], dt)
                     for n, g, w in zip("qkv", got, want)]
             del want
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            ref_o = flash_attention_ref(*(t[None] for t in leaves))[0]
+            ref_o = flash_attention_ref(*(t[None] for t in leaves), **kw)[0]
             auto = torch.autograd.grad(ref_o, leaves, do)
             del ref_o, leaves
             errs_auto = [_grad_close(torch, f"[k3-grad] {name} d{n} {dt} "
@@ -3659,7 +3891,8 @@ def _phase_k3_grad(torch, gen, k3) -> tuple:
             if dt == "bfloat16":
                 bwd_errs[name] = max(errs)
             print(f"[k3-grad] K3 backward at {name}'s training shape (BH, "
-                  f"S, D) = {(bh, s, d)} causal {dt}: max |err| dq, dk, dv "
+                  f"S, D) = {(bh, s, d)} {_mask_label(mask)} {dt}: max "
+                  f"|err| dq, dk, dv "
                   f"{', '.join(f'{e:.3e}' for e in errs)} against "
                   f"flash_attention_bwd_ref, "
                   f"{', '.join(f'{e:.3e}' for e in errs_auto)} against "
@@ -3777,13 +4010,15 @@ def _lora_movement(torch, before, after):
 
 def train_ref_run(torch, dev, microbatches: int,
                   arch: str = TRAIN_REF_ARCH) -> dict:
-    """[train-ref]'s and [train-ssm-ref]'s port run: TRAIN_REF_STEPS steps
-    of make_train_step on ``arch``'s smoke config with
-    ``KernelConfig(use_cuda=True)`` on ``dev`` (the CPU runs the plain
-    versions). Returns TRAIN_REF's keys and ``base_unchanged``."""
+    """[train-ref]'s, [train-ssm-ref]'s and [train-fam-ref]'s port run:
+    TRAIN_REF_STEPS steps of make_train_step on ``arch``'s smoke config
+    with ``KernelConfig(use_cuda=True)`` on ``dev`` (the CPU runs the plain
+    versions), each on ``train_ref_batch``'s batch. Returns TRAIN_REF's
+    keys and ``base_unchanged``."""
+    import numpy as np
+
     from repro_torch import convert
     from repro_torch.configs import TrainConfig, get_smoke_config
-    from repro_torch.data import ShardedLMLoader
     from repro_torch.kernels.ops import KernelConfig
     from repro_torch.train.step import init_opt_state, make_train_step
     from repro_torch.utils.partition import is_lora_path, partition_by_path
@@ -3800,11 +4035,10 @@ def train_ref_run(torch, dev, microbatches: int,
     lora0, base0 = ([x.clone() for x in xs] for xs in split(params))
     opt = init_opt_state(params)
     step = make_train_step(cfg, tcfg, KernelConfig(use_cuda=True))
-    loader = ShardedLMLoader(cfg.vocab_size, tcfg.global_batch, tcfg.seq_len,
-                             seed=TRAIN_REF_SEED)
     rows = {"loss": [], "grad_norm": [], "lr": []}
     for i in range(TRAIN_REF_STEPS):
-        params, opt, m = step(params, opt, loader.batch_at(i))
+        params, opt, m = step(params, opt, train_ref_batch(
+            np, cfg, tcfg.global_batch, tcfg.seq_len, i))
         for k in rows:
             rows[k].append(float(getattr(m, k)))
     lora, base = split(params)
@@ -3817,12 +4051,13 @@ def train_ref_run(torch, dev, microbatches: int,
 
 def _phase_train_ref(torch, dev, kernels, tag="train-ref",
                      arch=TRAIN_REF_ARCH, refs=None):
-    """[train-ref] / [train-ssm-ref]: train_ref_run on the card for every
-    TRAIN_REF_RUNS entry on ``arch``'s smoke config against the JAX
-    constants ``refs`` (TRAIN_REF unless given). Every kernel of the
-    config's training path must launch: K2 forward and backward, K3 where
-    it has attention (and K3's backward), K4 and K4's backward where it
-    has Mamba2 layers."""
+    """[train-ref] / [train-ssm-ref] / [train-fam-ref]: train_ref_run on
+    the card for every TRAIN_REF_RUNS entry on ``arch``'s smoke config
+    against the JAX constants ``refs`` (TRAIN_REF unless given). Every
+    kernel of the config's training path must launch: K2 forward and
+    backward, K3 where it has attention (and K3's backward), K4 and K4's
+    backward where it has Mamba2 layers; under M-RoPE every K3 launch
+    takes the batch's positions."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
@@ -3844,6 +4079,10 @@ def _phase_train_ref(torch, dev, kernels, tag="train-ref",
                   + ", ".join(f"{k} {c}" for k, c in zip(names, counts))
                   + f"; each of {[k for k, n in zip(names, needed) if n]} "
                   "must run, and no other")
+        with_pos = k3.flash_attention.position_launches
+        if with_pos != (counts[2] if cfg.m_rope else 0):
+            _fail(f"[{tag}] {arch} microbatches {mb}: {with_pos} of "
+                  f"{counts[2]} K3 launches with positions")
         if not got["base_unchanged"]:
             _fail(f"[{tag}] {arch} microbatches {mb}: a base leaf changed "
                   "or holds a .grad")
@@ -3864,7 +4103,8 @@ def _phase_train_ref(torch, dev, kernels, tag="train-ref",
                   f"{k} {v:.2e} (bound {TRAIN_REF_RTOL[k]})"
                   for k, v in worst.items())
               + "; base leaves bit-unchanged; launches " + ", ".join(
-                  f"{k} {c}" for k, c in zip(names, counts) if c))
+                  f"{k} {c}" for k, c in zip(names, counts) if c)
+              + (f" ({with_pos} K3 with positions)" if with_pos else ""))
 
 
 def _grad_distance(torch, a, b) -> tuple:
@@ -3904,77 +4144,195 @@ def _count_plain_attention(k3):
     return calls
 
 
+def _train_batches(torch, cfg, gen, dev, batch: int, seq: int, n: int):
+    """``n`` training batches of ``batch`` x ``seq`` on the card: a token
+    model's ShardedLMLoader tokens (seed SEED); an encoder's
+    ``frontends.make_masked_prediction_batch`` (frame embeddings, codebook
+    targets, the loss mask), drawn from ``gen``; the VLM's embeddings
+    (``make_frontend_embeddings``) and random targets drawn from ``gen``,
+    with the M-RoPE positions of VLM_RUN's image span."""
+    from repro_torch.data import ShardedLMLoader
+    from repro_torch.models.frontends import (make_frontend_embeddings,
+                                              make_masked_prediction_batch,
+                                              make_mrope_positions)
+    from repro_torch.train.step import batch_to
+
+    if not cfg.embed_inputs:
+        loader = ShardedLMLoader(cfg.vocab_size, batch, seq, seed=SEED)
+        return [batch_to(loader.batch_at(i), dev) for i in range(n)]
+    if cfg.encoder_only:
+        return [make_masked_prediction_batch(gen, cfg, batch, seq)
+                for _ in range(n)]
+    pos = torch.from_numpy(make_mrope_positions(batch, seq, VLM_RUN[3]))
+    return [{"embeds": make_frontend_embeddings(gen, cfg, batch, seq),
+             "targets": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32),
+             "positions": pos.to(dev)} for _ in range(n)]
+
+
+def _moe_grad_gate(torch, tag, cfg, grad, params, batch0) -> None:
+    """[train-moe]'s gate on step 0's LoRA gradients at MOE_F32_LAYERS
+    layers of full width (the deeper layers freed; f32 at 16 layers would
+    be 94 GB). A gradient sums over every token of the batch, and a routing
+    swap (a token's experts differ between two runs: ROUTE_SWAP_MARGIN's
+    ties) gives it another function, not a rounding of the same one; so
+    the three runs take one routing: the f32 plain run routes freely, and
+    the bf16 kernel and plain runs replay its experts call by call, their
+    router weights and aux loss from their own gates (``_Routes(replay=)``).
+    Every forward then agrees in all runs; the swaps each run's own router
+    would have made are counted and printed. The bf16 kernel run must lie
+    within twice the bf16 plain run's distance from the f32 plain run."""
+    import dataclasses
+
+    from repro_torch.models import moe as moe_lib
+
+    del params["layers"][MOE_F32_LAYERS:]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cut = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS)
+    p32 = _widen(params)
+    with _Routes(torch, moe_lib) as r32:
+        _, g_32 = grad(dataclasses.replace(cut, dtype="float32"), p32, False)
+    del p32
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, use_cuda in (("bf16 kernel", True), ("bf16 plain", False)):
+        with _Routes(torch, moe_lib, replay=r32.idx) as routes:
+            runs[name] = (grad(cut, params, use_cuda)[1], routes)
+    seq = batch0["tokens"].shape[1]
+    n = MOE_F32_LAYERS
+    for what, a, b in (("bf16 kernel / f32 plain", runs["bf16 kernel"][1],
+                        r32),
+                       ("bf16 plain / f32 plain", runs["bf16 plain"][1], r32),
+                       ("bf16 kernel / bf16 plain", runs["bf16 kernel"][1],
+                        runs["bf16 plain"][1])):
+        sw = _route_swaps(torch, cut, a.calls[:n], b.calls[:n], seq)
+        _print_swaps(tag, f"{n} layers, free routing of the {what} runs "
+                     "(replayed: not taken)", sw)
+    g_k, g_p = runs["bf16 kernel"][0], runs["bf16 plain"][0]
+    d_kp, mx_kp = _grad_distance(torch, g_k, g_p)
+    d_p32, mx_p32 = _grad_distance(torch, g_p, g_32)
+    d_k32, _ = _grad_distance(torch, g_k, g_32)
+    print(f"[{tag}] {cfg.name} {n} layers, one routing (the f32 plain "
+          f"run's) in all three runs: |kernel - plain| {d_kp:.4e} (L2 over "
+          f"the {len(g_k)} LoRA leaves; max {mx_kp:.3e}) against twice the "
+          f"bf16 plain run's distance from the f32 plain run "
+          f"{2 * d_p32:.4e} (max {mx_p32:.3e}); the kernel run's own "
+          f"distance from f32 {d_k32:.4e}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not d_kp <= 2 * d_p32:
+        _fail(f"[{tag}] {cfg.name} {n} layers LoRA gradients: kernel run "
+              f"{d_kp} from the plain run, bound {2 * d_p32}")
+
+
 def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
-                 steps=TRAIN_STEPS) -> dict:
-    """[train] / [train-ssm]: ``run`` = (arch, seq, batch) at full width
-    and depth, bf16, LoRA fine-tuning through make_train_step with
-    remat="full". Step 0's LoRA gradients: finite and non-zero (the detach
-    the autograd Functions close), and within twice the bf16 plain run's
-    distance from an f32 plain run (``KernelConfig(False)``: the plain
-    attention, ``ssd_chunked``); then TRAIN_WARMUP + ``steps`` steps timed,
-    launch counts (``_train_launches``), no plain attention on the card's
-    route (``flash_attention_ref`` counted inside K3's module), peak
-    memory, one traced step (the K3 and K4 backward ranges holding their
-    kernels' launches alone, 3 a launch each: no plain attention ops, no
-    step-by-step loop); the base weights bit-unchanged. Returns the timed
-    steps' launches (``_train_counts``), the median step time, the trace's
-    shares and the peak memory."""
+                 steps=TRAIN_STEPS, layers=None) -> dict:
+    """[train] / [train-ssm] / [train-vlm] / [train-audio] / [train-moe]:
+    ``run`` = (arch, seq, batch) at full width (and depth, unless
+    ``layers`` cuts it), bf16, LoRA fine-tuning through make_train_step
+    with remat="full" on ``_train_batches``' batches. Step 0's LoRA
+    gradients: finite and non-zero (the detach the autograd Functions
+    close), and within twice the bf16 plain run's distance from an f32
+    plain run (``KernelConfig(False)``: the plain attention,
+    ``ssd_chunked``); for MoE at 16 layers the distance and the routing
+    swaps are printed, and the gate is ``_moe_grad_gate``'s, after the
+    timed steps, on step 0's LoRA leaves (kept aside) and batch. Then
+    TRAIN_WARMUP + ``steps`` steps timed, launch counts
+    (``_train_launches``; under M-RoPE every K3 launch with positions), no
+    plain attention on the card's route (``flash_attention_ref`` counted
+    inside K3's module), peak memory, one traced step (the K3 and K4
+    backward ranges holding their kernels' launches alone, 3 a launch each:
+    no plain attention ops, no step-by-step loop; for MoE the layer's four
+    ranges as parts of the busy split); the base weights bit-unchanged.
+    Returns the timed steps' launches (``_train_counts``), the median step
+    time, the trace's shares and the peak memory."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.data import ShardedLMLoader
     from repro_torch.kernels.ops import KernelConfig
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
-    from repro_torch.train.step import (batch_to, init_opt_state,
-                                        make_grad_step, make_train_step)
+    from repro_torch.train.step import (init_opt_state, make_grad_step,
+                                        make_train_step)
     from repro_torch.utils.partition import (is_lora_path, partition_by_path,
                                              select_paths)
 
     k2, k3, k4 = kernels
     arch, seq, batch = run
     cfg = get_config(arch)
-    params, _, init_s = _draw_model(torch, tf, cfg, dev)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    moe = cfg.moe is not None
+    params, gen, init_s = _draw_model(torch, tf, cfg, dev)
     tcfg = TrainConfig(seq_len=seq, global_batch=batch, remat="full")
-    loader = ShardedLMLoader(cfg.vocab_size, batch, seq, seed=SEED)
     t0 = time.perf_counter()
-    batches = [batch_to(loader.batch_at(i), dev)
-               for i in range(TRAIN_WARMUP + steps + 1)]
+    batches = _train_batches(torch, cfg, gen, dev, batch, seq,
+                             TRAIN_WARMUP + steps + 1)
+    torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
     t0 = time.perf_counter()
     base_host = [x.cpu() for x in base]       # off the card's peak
     copy_s = time.perf_counter() - t0
 
+    def grad(c, p, use_cuda):
+        return make_grad_step(c, tcfg, KernelConfig(use_cuda))(p, batches[0])
+
     # step 0's gradients: kernel run, plain run, f32 plain run
-    kern = make_grad_step(cfg, tcfg, KernelConfig(True))(params, batches[0])
-    torch.cuda.synchronize()
-    loss0, g_k = kern
     paths = [p for p, _ in select_paths(params, is_lora_path)]
+    with _Routes(torch, moe_lib) as r_k:
+        loss0, g_k = grad(cfg, params, True)
+    torch.cuda.synchronize()
     for path, g in zip(paths, g_k):
         if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
             _fail(f"[{tag}] {arch} step 0: the gradient of {path} is not "
                   "finite or is zero")
-    _, g_p = make_grad_step(cfg, tcfg, KernelConfig(False))(params,
-                                                            batches[0])
-    p32 = _widen(params)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    _, g_32 = make_grad_step(cfg32, tcfg, KernelConfig(False))(p32,
-                                                               batches[0])
-    del p32
-    torch.cuda.empty_cache()
+    with _Routes(torch, moe_lib) as r_p:
+        _, g_p = grad(cfg, params, False)
     d_kp, mx_kp = _grad_distance(torch, g_k, g_p)
-    d_p32, mx_p32 = _grad_distance(torch, g_p, g_32)
-    d_k32, _ = _grad_distance(torch, g_k, g_32)
-    print(f"[{tag}] {arch} step 0: loss {float(loss0):.4f}; all {len(g_k)} "
-          f"LoRA gradients finite and non-zero; |kernel - plain| "
-          f"{d_kp:.4e} (L2 over the leaves; max {mx_kp:.3e}) against twice "
-          f"the bf16 plain run's distance from the f32 plain run "
-          f"{2 * d_p32:.4e} (max {mx_p32:.3e}); the kernel run's own "
-          f"distance from f32 {d_k32:.4e}")
-    if not d_kp <= 2 * d_p32:
-        _fail(f"[{tag}] {arch} step 0 LoRA gradients: kernel run {d_kp} "
-              f"from the plain run, bound {2 * d_p32}")
-    del g_k, g_p, g_32
+    if moe:
+        # the routing of the two runs' first forwards (the remat
+        # recompute repeats it)
+        n = cfg.num_layers
+        sw = _route_swaps(torch, cfg, r_k.calls[:n], r_p.calls[:n], seq)
+        _print_swaps(tag, f"step 0, bf16, {n} layers", sw)
+        if sw["first_gap"][0] > ROUTE_SWAP_MARGIN:
+            _fail(f"[{tag}] a first-layer routing swap where the plain "
+                  f"run's 2nd and 3rd router logits were "
+                  f"{sw['first_gap'][0]} apart (> {ROUTE_SWAP_MARGIN})")
+        print(f"[{tag}] {arch} step 0, {n} layers: loss "
+              f"{float(loss0):.4f}; all {len(g_k)} LoRA gradients finite "
+              f"and non-zero; |kernel - plain| {d_kp:.4e} (L2 over the "
+              f"leaves; max {mx_kp:.3e}), {sum(sw['swaps'])} routing swaps "
+              f"over {n} layers x {batch * seq} tokens (reported: the "
+              f"random init amplifies a swap layer by layer; held at "
+              f"{MOE_F32_LAYERS} layers on step 0's leaves after the timed "
+              "steps)")
+    else:
+        p32 = _widen(params)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        torch.cuda.empty_cache()
+        _, g_32 = grad(cfg32, p32, False)
+        del p32
+        torch.cuda.empty_cache()
+        d_p32, mx_p32 = _grad_distance(torch, g_p, g_32)
+        d_k32, _ = _grad_distance(torch, g_k, g_32)
+        print(f"[{tag}] {arch} step 0: loss {float(loss0):.4f}; all "
+              f"{len(g_k)} LoRA gradients finite and non-zero; |kernel - "
+              f"plain| {d_kp:.4e} (L2 over the leaves; max {mx_kp:.3e}) "
+              f"against twice the bf16 plain run's distance from the f32 "
+              f"plain run {2 * d_p32:.4e} (max {mx_p32:.3e}); the kernel "
+              f"run's own distance from f32 {d_k32:.4e}")
+        if not d_kp <= 2 * d_p32:
+            _fail(f"[{tag}] {arch} step 0 LoRA gradients: kernel run "
+                  f"{d_kp} from the plain run, bound {2 * d_p32}")
+        del g_32
+    del g_k, g_p, r_k, r_p
+    torch.cuda.empty_cache()
+    # Mixtral's gate runs after the timed steps, on step 0's LoRA leaves
+    lora0 = ([x.clone() for x in partition_by_path(params, is_lora_path)[0]]
+             if moe else None)
 
     opt = init_opt_state(params)
     step = make_train_step(cfg, tcfg, KernelConfig(True))
@@ -3999,6 +4357,7 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
         _fail(f"[{tag}] {arch}: the plain attention ran {plain_calls.n} "
               "times on the card's route")
     launches = _train_counts(k2, k3, k4)
+    with_pos = k3.flash_attention.position_launches
     peak = torch.cuda.max_memory_allocated()
     n = cfg.num_layers
     per = _train_launches(cfg)
@@ -4006,6 +4365,9 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
         _fail(f"[{tag}] {arch} launches K2 forward / backward, K3, K4, K4 "
               f"backward, K3 backward {launches}, expected "
               f"{tuple(steps * x for x in per)}")
+    if with_pos != (launches[2] if cfg.m_rope else 0):
+        _fail(f"[{tag}] {arch}: {with_pos} of {launches[2]} K3 launches "
+              "with positions")
     if not all(np.isfinite(losses)):
         _fail(f"[{tag}] {arch} non-finite loss: {losses}")
     tokens = batch * seq
@@ -4014,27 +4376,35 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
                                  f"{', '.join(cfg.lora.targets)}"
                                  if cfg.arch_type == "hybrid" else "")
                if cfg.ssm is not None else ", ".join(cfg.lora.targets))
-    print(f"[{tag}] {cfg.name} ({n} layers, d {cfg.d_model}, "
+    depth = f"{n} layers" + ("" if layers is None
+                             else f" of {get_config(arch).num_layers}")
+    print(f"[{tag}] {cfg.name} ({depth}, d {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.2f} G parameters, bf16, LoRA r "
           f"{cfg.lora.rank} on {targets}: "
           f"{cfg.lora_param_count() / 1e6:.2f} M trained) drawn on the card "
-          f"in {init_s:.2f} s; {batch} x {seq} tokens a step, remat full, "
-          f"batches made in {data_s:.2f} s (before timing); "
+          f"in {init_s:.2f} s; {batch} x {seq} "
+          f"{'embeddings' if cfg.embed_inputs else 'tokens'} a step, remat "
+          f"full, batches made in {data_s:.2f} s (before timing); "
           f"{steps} timed steps after {TRAIN_WARMUP} warm-up: "
           f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s, "
           f"{tokens / med:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; "
           f"launches a step K2 forward {launches[0] // steps}, K2 "
           f"backward {launches[1] // steps} (layer 0's input carries "
-          f"no gradient), K3 {launches[2] // steps}, K3 backward "
-          f"{launches[5] // steps}, K4 {launches[3] // steps}, K4 backward "
-          f"{launches[4] // steps}; no plain attention; "
-          f"losses {', '.join(f'{x:.4f}' for x in losses)}")
-    shares = _trace_call(
-        torch, f"{cfg.name} train step",
-        lambda: step(params, opt, batches[-1]),
-        {k2.BACKWARD_DX: "K2 backward (dx)", k2.W_TRANSPOSE: "W^T copy",
-         k2.BACKWARD_RANK_R: "dA / dB products",
-         k3.BACKWARD: "K3 backward", k4.BACKWARD: "K4 backward"})
+          f"no gradient), K3 {launches[2] // steps}"
+          + (f" (all with positions)" if with_pos else "")
+          + f", K3 backward {launches[5] // steps}, K4 "
+          f"{launches[3] // steps}, K4 backward {launches[4] // steps}; no "
+          f"plain attention; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    ranges = {k2.BACKWARD_DX: "K2 backward (dx)", k2.W_TRANSPOSE: "W^T copy",
+              k2.BACKWARD_RANK_R: "dA / dB products",
+              k3.BACKWARD: "K3 backward", k4.BACKWARD: "K4 backward"}
+    if moe:
+        # the MoE layer's forward and recompute; its backward's kernels
+        # count by name (cuBLAS, elementwise, other)
+        ranges.update({r: r for r in (moe_lib.ROUTE, moe_lib.DISPATCH,
+                                      moe_lib.EXPERTS, moe_lib.COMBINE)})
+    shares = _trace_call(torch, f"{cfg.name} train step",
+                         lambda: step(params, opt, batches[-1]), ranges)
     if per[4] and shares is not None:
         # the backward's range holds its three bf16 kernels a launch (the
         # two state scans, the chunks' gradients, the finishing sums) and
@@ -4065,8 +4435,12 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     print(f"[{tag}] {arch} the base weights are bit-unchanged (torch.equal "
           f"against a host copy taken before step 0 in {copy_s:.1f} s) and "
           "hold no .grad")
+    del base, base_host, opt, step
+    if moe:
+        params = partition_by_path(params, is_lora_path)[1](lora0)
+        _moe_grad_gate(torch, tag, cfg, grad, params, batches[0])
     return {"launches": launches, "step_s": med, "shares": shares,
-            "peak": peak, "steps": steps}
+            "peak": peak, "steps": steps, "cfg": cfg}
 
 
 def _load_example(name):
@@ -4162,20 +4536,16 @@ def _phase_elastic(torch, dev, kernels, k1) -> tuple:
     return launches
 
 
-def _phase_time_k2_backward(torch, gen, k2, lora_matmul_ref, launches):
-    """K2's backward dx at the train path's shape (dy (8192, 4096), W^T
-    (4096, 4096), B^T (4096, 16), A^T (16, 4096), bf16): K2 on those, the
-    plain version, ``torch.addmm(dy @ W^T, dy @ B^T, A^T)`` (W^T read in
-    place by cuBLAS) and the W^T copy, each by ``_graph_ms``. The bound is
-    the forward's reckoning at the same (M, K, N, r)."""
-    from repro_torch.configs import get_config
-
-    arch, seq, batch = TRAIN_RUN
-    cfg = get_config(arch)
-    m, k, n, r = (batch * seq, cfg.num_heads * cfg.head_dim, cfg.d_model,
-                  cfg.lora.rank)
-    dy, w, a, b = _lora_case(torch, gen, m, k, n, r, torch.bfloat16)
-    wt, bt, at = w.t().contiguous(), b.t().contiguous(), a.t().contiguous()
+def _phase_time_k2_backward(torch, gen, k2, lora_matmul_ref, shape,
+                            launches):
+    """K2's backward dx at a training path's shape (M, K, N, r): dy (M, K)
+    of a projection whose forward weight W is (N, K), bf16. K2 on (dy, W^T,
+    B^T, A^T), the plain version, ``torch.addmm(dy @ W^T, dy @ B^T, A^T)``
+    (W^T read in place by cuBLAS) and the W^T copy, each by ``_graph_ms``.
+    The bound is the forward's reckoning at the same (M, K, N, r)."""
+    m, k, n, r = shape
+    dy, wt, bt, at = _lora_case(torch, gen, m, k, n, r, torch.bfloat16)
+    w, b, a = (t.t().contiguous() for t in (wt, bt, at))  # the forward's
     ms = _graph_ms(torch, lambda: k2._run(dy, wt, bt, at, 2.0))
     plain = _graph_ms(torch, lambda: lora_matmul_ref(dy, wt, bt, at, 2.0))
     lib = _graph_ms(torch, lambda: torch.addmm(dy @ w.t(), dy @ b.t(),
@@ -4594,8 +4964,8 @@ def _phase_dryrun() -> None:
           f"{r['run_s']} s, {wall:.1f} s with the process")
 
 
-def _phase_roofline(torch, card: str, train: dict,
-                    train_ssm: dict) -> None:
+def _phase_roofline(torch, card: str, train: dict, train_ssm: dict,
+                    train_fam: dict) -> None:
     """[roofline]: llama2-7b at full width and depth counted on one device
     as the card runs it (``launch.dryrun.count(kernels=True)``, mesh None,
     on meta tensors: each K2 / K3 / K3-backward launch one op, its inputs
@@ -4614,7 +4984,12 @@ def _phase_roofline(torch, card: str, train: dict,
     the HBM rate, which the L2 can beat where they fit: it is reported,
     not held. Then mamba2-370m's training step of [train-ssm] the same
     way (K2, K4 and K4's backward by their own traffic and operations),
-    beside [train-ssm]'s median step."""
+    beside [train-ssm]'s median step, and the training steps of
+    [train-vlm], [train-audio] and [train-moe] (Mixtral at its MOE_LAYERS)
+    beside theirs. The count takes its batch as the dry run does, on meta
+    tensors: Qwen2-VL's positions there count from 0, so K3's and its
+    backward's pairs are the causal ones, and the image span's extra pairs
+    (its patches see each other) are printed apart, not in the bound."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, roofline
@@ -4656,7 +5031,12 @@ def _phase_roofline(torch, card: str, train: dict,
                                        "train"),
          ssm["step_s"], f"the median of [train-ssm]'s {ssm['steps']} timed "
          "steps", ssm["peak"], kernels(ssm_launches)),
-    )
+    ) + tuple(
+        (r["cfg"], "train", ShapeConfig("train", TRAIN_FAM_RUNS[tag][1],
+                                        TRAIN_FAM_RUNS[tag][2], "train"),
+         r["step_s"], f"the median of [{tag}]'s {r['steps']} timed steps",
+         r["peak"], kernels(tuple(x // r["steps"] for x in r["launches"])))
+        for tag, r in train_fam.items())
     print(f"[roofline] card {card}; bounds from PEAK_FLOPS_BF16 "
           f"{PEAK_FLOPS_BF16:.3e} FLOP/s and HBM_BW {roofline.HBM_BW:.3e} "
           "B/s (NVIDIA H100 SXM datasheet)")
@@ -4687,6 +5067,21 @@ def _phase_roofline(torch, card: str, train: dict,
               f"{acc['memory']['peak_size_in_bytes'] / 2**30:.2f} GiB "
               f"against the phase's max_memory_allocated "
               f"{peak / 2**30:.2f} GiB; counted in {acc['run_s']:.1f} s")
+        if cfg.m_rope:
+            from repro_torch.launch.op_analysis import attention_pairs
+            from repro_torch.models.frontends import make_mrope_positions
+            s = shape.seq_len
+            pos = make_mrope_positions(1, s, VLM_RUN[3])[0, :, 0]
+            extra = int((pos[None, :] <= pos[:, None]).sum()) - \
+                attention_pairs(s, s, True, None)
+            # K3 twice (remat) at 4 D a pair, its backward at 10 D
+            flops = ((2 * 4 + 10) * cfg.head_dim * shape.global_batch
+                     * cfg.num_heads * cfg.num_layers * extra)
+            print(f"[roofline] {cfg.name} {name}: the image span "
+                  f"{VLM_RUN[3]} adds {extra:,} unmasked pairs a head to the "
+                  f"causal ones counted, {flops:.4e} FLOPs of K3 and its "
+                  f"backward ({flops / acc['dot_flops']:.2%} of the count) "
+                  "not in the bound")
         if measured < t["compute_s"]:
             _fail(f"[roofline] {cfg.name} {name}: measured {measured} s "
                   f"below its compute term {t['compute_s']} s")
@@ -5080,6 +5475,17 @@ def main() -> int:
         train_ssm[run[0]] = _phase_train(torch, np, dev, kernels,
                                          "train-ssm", run, TRAIN_SSM_STEPS)
         torch.cuda.empty_cache()
+    # ---- the MoE, VLM and audio families (K2, K3 with a window, on the
+    # position path, non-causal at D 80, and K3's backward) ----
+    for arch in TRAIN_FAM_ARCHS:
+        _phase_train_ref(torch, dev, kernels, "train-fam-ref", arch,
+                         TRAIN_FAM_REF[arch])
+    train_fam = {}
+    for tag, (arch, seq, batch, layers) in TRAIN_FAM_RUNS.items():
+        train_fam[tag] = _phase_train(torch, np, dev, kernels, tag,
+                                      (arch, seq, batch), TRAIN_FAM_STEPS,
+                                      layers)
+        torch.cuda.empty_cache()
     elastic_launches = _phase_elastic(torch, dev, kernels, k1)
     print(f"[launches] K1 table entry: elastic {elastic_launches[0]}; "
           f"[train] K2 {launches['train'][0]} forward + "
@@ -5090,9 +5496,14 @@ def main() -> int:
                       f"+ {r['launches'][5]} backward, "
                       f"K4 {r['launches'][3]} forward + {r['launches'][4]} "
                       "backward" for arch, r in train_ssm.items())
+          + "".join(f"; [{tag}] K2 {r['launches'][0]} forward + "
+                    f"{r['launches'][1]} backward, K3 {r['launches'][2]} + "
+                    f"{r['launches'][5]} backward"
+                    for tag, r in train_fam.items())
           + f"; training phases {time.perf_counter() - t_train:.1f} s")
 
     # ---- phase 7: K2's, K3's and K4's time beside their bounds ----
+    launches.update((tag, r["launches"]) for tag, r in train_fam.items())
     k2_shapes = _k2_shapes(launches)
     k2_rows = dict(zip(k2_shapes, _phase_time_k2(
         torch, gen, k2, lora_matmul_ref, k2_shapes.values())))
@@ -5221,13 +5632,17 @@ def main() -> int:
 
     k3_back = {}
     k3_back_runs = {"llama2": launches["train"][5],
-                    "zamba2": train_ssm["zamba2-2.7b"]["launches"][5]}
-    for name, shape in _k3_train_shapes().items():
+                    "zamba2": train_ssm["zamba2-2.7b"]["launches"][5],
+                    "qwen2-vl": train_fam["train-vlm"]["launches"][5],
+                    "hubert": train_fam["train-audio"]["launches"][5],
+                    "mixtral": train_fam["train-moe"]["launches"][5]}
+    k3_shapes = _k3_train_shapes()
+    for name, shape in k3_shapes.items():
         row = _phase_time_k3_backward(torch, gen, k3, *shape)
         row["launches"] = k3_back_runs[name]
         k3_back[name] = row
         print(f"[time] card {card}: K3 backward ({name}'s training shape) "
-              f"at (BH, S, D) = {shape} causal bf16: "
+              f"at (BH, S, D) = {shape[:3]} {_mask_label(shape[3])} bf16: "
               f"{row['ms'] * 1e3:.1f} us/launch in a CUDA graph, "
               f"{row['event_ms'] * 1e3:.1f} us by events "
               f"({row['launches']} launches on its training path's timed "
@@ -5236,14 +5651,16 @@ def main() -> int:
               f"{row['ops'] / 1e9:.2f} G operations over {row['pairs']:,} "
               f"pairs a head) = {row['bound_ms'] / row['ms']:.1%} of bound; "
               f"issued {row['issued_ops'] / 1e9:.1f} G operations (24 D a "
-              f"pair) at {row['issued_ops'] / row['ms'] / 1e9:.1f} TFLOP/s "
+              f"pair{', every tile pair' if 'span' in shape[3] else ''}) "
+              f"at {row['issued_ops'] / row['ms'] / 1e9:.1f} TFLOP/s "
               f"= {row['issued_ops'] * 1e3 / row['ms'] / BF16_OPS_PER_S:.1%} "
               f"of the bf16 peak; "
               f"plain (flash_attention_bwd_ref) {row['plain_ms'] * 1e3:.1f} "
               f"us; autograd through flash_attention_ref (the route before "
               f"the kernel) {row['autograd_plain_ms'] * 1e3:.1f} us; "
-              f"F.scaled_dot_product_attention's backward "
-              f"{row['library_ms'] * 1e3:.1f} us (kernel / SDPA "
+              f"F.scaled_dot_product_attention's backward"
+              f"{' with its boolean attn_mask' if 'span' in shape[3] else ''}"
+              f" {row['library_ms'] * 1e3:.1f} us (kernel / SDPA "
               f"{row['ms'] / row['library_ms']:.2f}x)")
 
     # each K1 entry with its own main-path launches (window_dp.launches
@@ -5260,38 +5677,49 @@ def main() -> int:
              + shard_launches),
             ("table", main_launches - rows_launches + oracle_table
              + fleet_table))]
-    k2_back = _phase_time_k2_backward(torch, gen, k2, lora_matmul_ref,
-                                      launches["train"][1])
-    print(f"[time] card {card}: K2 backward dx at (M, K, N, r) = "
-          f"({k2_back['M']}, {k2_back['K']}, {k2_back['N']}, {k2_back['r']}) "
-          f"bf16 (K2 on dy, W^T, B^T, A^T): {k2_back['ms'] * 1e3:.1f} "
-          f"us/launch ({k2_back['launches']} launches on the train path); "
-          f"bound {k2_back['bound_ms'] * 1e3:.1f} us by "
-          f"{k2_back['bound_by']} = {k2_back['bound_ms'] / k2_back['ms']:.1%} "
-          f"of bound; plain {k2_back['plain_ms'] * 1e3:.1f} us; "
-          f"torch.addmm(dy @ W^T, dy @ B^T, A^T) "
-          f"{k2_back['library_ms'] * 1e3:.1f} us (kernel / addmm "
-          f"{k2_back['ms'] / k2_back['library_ms']:.2f}x); the W^T copy "
-          f"before it {k2_back['copy_ms'] * 1e3:.1f} us (bound "
-          f"{k2_back['copy_bound_ms'] * 1e3:.1f} us by bytes)")
+    # K2's backward dx on each training path: [train]'s (llama2-7b's q / v,
+    # square), then each projection of [train-vlm], [train-audio] and
+    # [train-moe], dy (M, N) against the forward's W (K, N)
+    arch, seq, batch = TRAIN_RUN
+    cfg = get_config(arch)
+    k2_back = {"backward": _phase_time_k2_backward(
+        torch, gen, k2, lora_matmul_ref,
+        (batch * seq, cfg.num_heads * cfg.head_dim, cfg.d_model,
+         cfg.lora.rank), launches["train"][1])}
+    for name, (m, k, n, tag, share) in _k2_train_rows().items():
+        k2_back[f"backward/{name}"] = _phase_time_k2_backward(
+            torch, gen, k2, lora_matmul_ref, (m, n, k, 16),
+            int(launches[tag][1] * share))
+    for name, row in k2_back.items():
+        print(f"[time] card {card}: K2 {name} dx at (M, K, N, r) = "
+              f"({row['M']}, {row['K']}, {row['N']}, {row['r']}) bf16 (K2 on "
+              f"dy, W^T, B^T, A^T): {row['ms'] * 1e3:.1f} us/launch "
+              f"({row['launches']} launches on its train path); bound "
+              f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} = "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound; plain "
+              f"{row['plain_ms'] * 1e3:.1f} us; torch.addmm(dy @ W^T, dy @ "
+              f"B^T, A^T) {row['library_ms'] * 1e3:.1f} us (kernel / addmm "
+              f"{row['ms'] / row['library_ms']:.2f}x); the W^T copy before "
+              f"it {row['copy_ms'] * 1e3:.1f} us (bound "
+              f"{row['copy_bound_ms'] * 1e3:.1f} us by bytes)")
     # ---- phase 8: the dry run and the step roofline (CPU counts; after
     # every timing, so its processes share no time with a measurement) ----
     _phase_dryrun()
-    _phase_roofline(torch, card, train, train_ssm)
+    _phase_roofline(torch, card, train, train_ssm, train_fam)
     print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'
         _entry(f"lora_matmul/{phase}", "lora_matmul.cu",
                "src/repro/kernels/lora_matmul.py:26", row["launches"],
                k2_err, row) for phase, row in k2_rows.items()] + [
-        # K2's backward on the train path: dx by K2 on (dy, W^T, B^T, A^T)
-        _entry("lora_matmul/backward", "lora_matmul.cu",
-               "src/repro/kernels/lora_matmul.py:26", k2_back["launches"],
-               k2_dx_err, k2_back)] + [
+        # K2's backward on the train paths: dx by K2 on (dy, W^T, B^T, A^T)
+        _entry(f"lora_matmul/{name}", "lora_matmul.cu",
+               "src/repro/kernels/lora_matmul.py:26", row["launches"],
+               k2_dx_err, row) for name, row in k2_back.items()] + [
         _entry(name, "flash_attention.cu",
                "src/repro/kernels/flash_attention.py:28", row["launches"],
                k3_err, row) for name, row in k3_rows.items()] + [
-        # K3's backward on [train]'s and [train-ssm]'s hybrid path (the TPU
+        # K3's backward on each training path, under its own mask (the TPU
         # kernel has none: the backward of the function it computes)
         _entry("flash_attention/backward/" + name, "flash_attention_bwd.cu",
                "src/repro/kernels/flash_attention.py:28", row["launches"],

@@ -6,12 +6,18 @@
 - ``TRAIN_REF``: the reference's jitted ``make_train_step`` on the CPU, on
   the llama2-7b smoke config with the port's numpy weights
   (``repro_torch.convert.random_model_params``, numpy only) and
-  ``ShardedLMLoader`` batches, for each of ``chip_smoke.TRAIN_REF_RUNS``:
+  ``chip_smoke.train_ref_batch``'s batches, built with the reference's
+  ``ShardedLMLoader`` and ``make_mrope_positions``, for each of
+  ``chip_smoke.TRAIN_REF_RUNS``:
   every step's loss, grad norm and lr, and the LoRA leaves' movement over
   the steps (sum of |after - before| and of its squares, in f64).
 - ``TRAIN_SSM_REF``: the same for each of ``chip_smoke.TRAIN_SSM_ARCHS``
   (the mamba2-370m and zamba2-2.7b smoke configs), held by
   ``[train-ssm-ref]``.
+- ``TRAIN_FAM_REF``: the same for each of ``chip_smoke.TRAIN_FAM_ARCHS``
+  (the mixtral-8x7b, qwen2-vl-7b and hubert-xlarge smoke configs; the
+  embedding families' batches with embeddings, targets, M-RoPE positions
+  of an image span and a loss mask), held by ``[train-fam-ref]``.
 - ``ELASTIC_REF``: the reference's ``ElasticTrainer`` on the full setting of
   examples/elastic_finetune.py (tiny-100m, AHAP(3, 1, 0.7), ARIMA on
   ``vast_like_trace(seed=4, days=2)``, the calibrated switching cost) with
@@ -19,7 +25,7 @@
   (t, n_od, n_spot, mu, steps), then total_steps, utility, cost and
   completion time.
 
-Prints both as chip_smoke.py holds them, and the seconds each part took on
+Prints them as chip_smoke.py holds them, and the seconds each part took on
 stderr.
 """
 import os
@@ -41,6 +47,7 @@ from repro.core.market import vast_like_trace  # noqa: E402
 from repro.core.policies import AHAP, AHAPParams  # noqa: E402
 from repro.core.predictor import ARIMAPredictor  # noqa: E402
 from repro.data import ShardedLMLoader  # noqa: E402
+from repro.models.frontends import make_mrope_positions  # noqa: E402
 from repro.train.elastic import ElasticTrainer  # noqa: E402
 from repro.train.step import (TrainMetrics, init_opt_state,  # noqa: E402
                               make_train_step)
@@ -67,13 +74,13 @@ def train_ref(arch=chip_smoke.TRAIN_REF_ARCH):
         params = jax.tree.map(jnp.asarray, random_model_params(
             cfg, chip_smoke.TRAIN_REF_SEED))
         opt = init_opt_state(params)
-        loader = ShardedLMLoader(cfg.vocab_size, tcfg.global_batch,
-                                 tcfg.seq_len, seed=chip_smoke.TRAIN_REF_SEED)
         step = jax.jit(make_train_step(cfg, tcfg))
         lora0 = partition_by_path(params, is_lora_path)[0]
         rows = {"loss": [], "grad_norm": [], "lr": []}
         for i in range(chip_smoke.TRAIN_REF_STEPS):
-            params, opt, m = step(params, opt, loader.batch_at(i))
+            params, opt, m = step(params, opt, chip_smoke.train_ref_batch(
+                np, cfg, tcfg.global_batch, tcfg.seq_len, i,
+                data=(ShardedLMLoader, make_mrope_positions)))
             for k in rows:
                 rows[k].append(float(getattr(m, k)))
         move_abs, move_sq = _movement(
@@ -85,6 +92,23 @@ def train_ref(arch=chip_smoke.TRAIN_REF_ARCH):
 
 def train_ssm_ref():
     return {arch: train_ref(arch) for arch in chip_smoke.TRAIN_SSM_ARCHS}
+
+
+def train_fam_ref():
+    return {arch: train_ref(arch) for arch in chip_smoke.TRAIN_FAM_ARCHS}
+
+
+def _print_by_arch(name, refs):
+    print(f"{name} = {{")
+    for arch, runs in refs.items():
+        print(f"    {arch!r}: {{")
+        for mb, row in runs.items():
+            print(f"        {mb}: {{")
+            for k, v in row.items():
+                print(f"            {k!r}: {v!r},")
+            print("        },")
+        print("    },")
+    print("}")
 
 
 def elastic_ref():
@@ -117,6 +141,10 @@ def main():
     ssm = train_ssm_ref()
     print(f"train ssm: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
+    fam = train_fam_ref()
+    print(f"train families: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    t0 = time.perf_counter()
     el = elastic_ref()
     print(f"elastic: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print("TRAIN_REF = {")
@@ -126,16 +154,8 @@ def main():
             print(f"        {k!r}: {v!r},")
         print("    },")
     print("}")
-    print("TRAIN_SSM_REF = {")
-    for arch, runs in ssm.items():
-        print(f"    {arch!r}: {{")
-        for mb, row in runs.items():
-            print(f"        {mb}: {{")
-            for k, v in row.items():
-                print(f"            {k!r}: {v!r},")
-            print("        },")
-        print("    },")
-    print("}")
+    _print_by_arch("TRAIN_SSM_REF", ssm)
+    _print_by_arch("TRAIN_FAM_REF", fam)
     print("ELASTIC_REF = {")
     print('    "slots": (')
     for slot in el["slots"]:
