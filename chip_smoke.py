@@ -29,7 +29,7 @@ card:
   flattened layout and in the model's own (x, B and C strided views of one
   buffer, B and C per group), the mamba2-370m smoke
   config checked token for token against the JAX engine, then mamba2-370m
-  at full width and depth (bf16) serving 8 prompts of 2048 tokens for 32
+  at full width and depth (bf16) serving 8 prompts of 2048 tokens for 16
   new tokens, checked as the dense run;
 - hybrid serving: the same for zamba2-2.7b (8 prompts of 1024 tokens), whose
   forward runs K2, K3 (head_dim 80) and K4 together;
@@ -77,7 +77,7 @@ card:
   index path), the qwen2-vl-7b and hubert-xlarge smoke configs against the
   JAX package's tokens and codebook ids (``[vlm-ref]``, ``[audio-ref]``),
   then qwen2-vl-7b at full width and depth (``[vlm]``: 8 prompts of 1024
-  embeddings with a 24 x 32 image span, 32 greedy steps; K2 on q and v, K3
+  embeddings with a 24 x 32 image span, 16 greedy steps; K2 on q and v, K3
   masked by the M-RoPE temporal positions) and hubert-xlarge (``[audio]``:
   one forward of 8 x 1024 frames; K3 non-causal at head dim 80), each with
   its launch counts checked, its logits held against the plain run and a
@@ -102,16 +102,32 @@ card:
   examples/elastic_finetune_torch.py at its full setting (``[elastic]``:
   the scheduler's plan equal to the JAX package's, AHAP's windows on K1,
   real checkpoint round trips).
+- The last five architectures, served and LoRA fine-tuned at their
+  published widths: the olmo-1b, granite-20b, qwen1.5-110b,
+  command-r-plus-104b and mixtral-8x22b smoke configs served token for
+  token against the JAX engine (``[serve-dense-ref]``) and trained 4 steps
+  against the JAX package's train step (``[train-dense-ref]``); then each
+  at full width, bf16 (``DENSE_RUNS``: olmo-1b and granite-20b whole,
+  qwen1.5-110b at 16 of 80 layers, command-r-plus-104b at 8 of 64,
+  mixtral-8x22b at 8 of 56), served 8 x 1024 for 32 greedy tokens
+  (``[serve-<name>]``: granite's one KV head repeated 48 times before K3
+  and its v projection at N 128, qwen1.5's q / k / v biases after K2,
+  LayerNorm with and without parameters, the tied heads, Mixtral-8x22B's
+  MoE layer) and trained on 8 x 1024 tokens (``[train-<name>]``), each
+  held as the earlier runs are: logits and gradients against the plain
+  runs in bf16 and f32 (at the depth where the f32 copy fits), launch
+  counts, no plain attention, the base weights bit-unchanged, a traced
+  prefill and step, peak memory beside its prediction.
 - The dry run and the step roofline, after every timing: ``[dryrun]``
   runs ``python -m repro_torch.launch.dryrun`` on olmo-1b train_4k at
   full size on (16, 16), over a fake process group of 256 (CPU counts on
   fake tensors, not a run; the smoke combinations are the CPU tests'),
   and fails on a FAILED record; ``[roofline]`` counts llama2-7b's
-  prefill, decode step and training step, and mamba2-370m's training
-  step, on one device as the card runs them (K2, K3, K4 and the K3 and K4
-  backwards by their own traffic and operations) and sets each beside
-  its H100 bound, [serve]'s, [train]'s and [train-ssm]'s measured time
-  (failing when a
+  prefill, decode step and training step, and the training steps of
+  mamba2-370m and of every other training run, on one device as the card
+  runs them (K2, K3, K4 and the K3 and K4 backwards by their own traffic
+  and operations) and sets each beside its H100 bound and its phase's
+  measured time (failing when a
   time is below the compute term, a strict lower bound), the step MFU and
   the counted against the measured peak memory.
 
@@ -389,7 +405,10 @@ FAMILY_REFS = {
 # [serve-ssm] / [serve-hybrid]: full width and depth, bf16, weights drawn on
 # the card (LoRA B ~ N(0, SERVE_LORA_B_STD)): (arch, batch, prompt length,
 # new tokens, max_len). mamba2-370m reads prompts of its 2048-token training
-# context; zamba2-2.7b 1024-token prompts into a 2048-slot KV cache.
+# context; zamba2-2.7b 1024-token prompts into a 2048-slot KV cache. These
+# paths, [serve-moe]'s and [vlm]'s decode 16 tokens ([serve] and DENSE_RUNS'
+# 32), to keep the script's time within its limit: their decode steps are
+# host-bound at 90-190 ms each on an NVIDIA H100 80GB HBM3, 700.00 W.
 #
 # Their logits are held to the plain run twice. (1) The same weights
 # widened to f32, kernel run against plain run: f32 throughout, only the
@@ -402,8 +421,8 @@ FAMILY_REFS = {
 # these depths.
 F32_LOGIT_ATOL = 1e-3
 FAMILY_RUNS = {
-    "serve-ssm": ("mamba2-370m", 8, 2048, 32, 2080),
-    "serve-hybrid": ("zamba2-2.7b", 8, 1024, 32, 2048),
+    "serve-ssm": ("mamba2-370m", 8, 2048, 16, 2080),
+    "serve-hybrid": ("zamba2-2.7b", 8, 1024, 16, 2048),
 }
 
 # ---- MoE serving ----
@@ -426,7 +445,7 @@ MOE_REF_MAX_LEN = 96
 # weights drawn on the card tensor by tensor; depth cut to MOE_LAYERS of its
 # 32 layers (32 layers of 1,451.3 M parameters are 92.9 GB in bf16, more
 # than the card holds). (arch, batch, prompt, new tokens, max_len).
-MOE_RUN = ("mixtral-8x7b", 8, 1024, 32, 2048)
+MOE_RUN = ("mixtral-8x7b", 8, 1024, 16, 2048)
 MOE_LAYERS = 16
 # The kernel run and the plain run differ in the router's input by K2's and
 # K3's roundings, so a token whose 2nd and 3rd largest router logits nearly
@@ -500,9 +519,9 @@ AUDIO_REF_ATOL = 1e-4
 # rank 16 on q and v, weights and a text table (the stubbed frontend's
 # token embeddings, vocab x d) drawn on the card: 8 prompts of 1024
 # embeddings, each with one 24 x 32 image span at position 64 (768 patches,
-# a 672 x 896 image at Qwen2-VL's 28-pixel merged patch), then 32 greedy
+# a 672 x 896 image at Qwen2-VL's 28-pixel merged patch), then 16 greedy
 # steps as in [vlm-ref]. (arch, batch, prompt, span, new, max_len)
-VLM_RUN = ("qwen2-vl-7b", 8, 1024, (64, 24, 32), 32, 1056)
+VLM_RUN = ("qwen2-vl-7b", 8, 1024, (64, 24, 32), 16, 1056)
 # [audio]: hubert-xlarge (arXiv:2106.07447) at full width and depth (48
 # layers), bf16: one forward of 8 x 1024 frames (~20 s of 16 kHz audio at
 # 20 ms frames). (arch, batch, frames)
@@ -517,14 +536,22 @@ FAMILY_F32_LAYERS = 4
 # dA and dB rank-r f32 products) against torch.autograd through the plain
 # version, at llama2-7b's q shape, Mixtral's v shape (N 1024), qwen2-vl-7b's
 # q and v shapes (d 3584; v N 512), hubert-xlarge's q / v shape (d 1280),
-# tiny-100m's q / v shape on [elastic]'s path (8 x 128 tokens, d 768) and
-# two odd shapes (M off the tile, r 8 and 64); (M, K, N, r). Every training
-# path's forward shape must be here (``_k2_train_rows``). y within K2_TOL;
-# dx (one K2 launch) and dA / dB (f32 products on both sides, summed in
-# another order, rounded once to the operands' dtype) within GRAD_TOL.
+# DENSE_RUNS' q and v shapes (olmo-1b's d 2048; granite-20b's d 6144, its v
+# N 128 (one KV head), so that its dx runs at K 128; qwen1.5-110b's d 8192,
+# command-r-plus-104b's d 12288, each v N 1024; mixtral-8x22b's q as
+# granite's, its v N 1024), tiny-100m's q / v shape on [elastic]'s path (8 x
+# 128 tokens, d 768) and two odd shapes (M off the tile, r 8 and 64); (M, K,
+# N, r). Every training path's forward shape must be here
+# (``_k2_train_rows``). y within K2_TOL; dx (one K2 launch) and dA / dB (f32
+# products on both sides, summed in another order, rounded once to the
+# operands' dtype) within GRAD_TOL.
 K2_GRAD_SHAPES = ((8192, 4096, 4096, 16), (8192, 4096, 1024, 16),
                   (8192, 3584, 3584, 16), (8192, 3584, 512, 16),
                   (8192, 1280, 1280, 16),
+                  (8192, 2048, 2048, 16), (8192, 6144, 6144, 16),
+                  (8192, 6144, 128, 16), (8192, 8192, 8192, 16),
+                  (8192, 8192, 1024, 16), (8192, 12288, 12288, 16),
+                  (8192, 12288, 1024, 16), (8192, 6144, 1024, 16),
                   (1024, 768, 768, 16), (1000, 512, 768, 8),
                   (333, 1024, 256, 64))
 # [train-ref]: the llama2-7b smoke config (f32, 2 layers, d 256) with
@@ -695,11 +722,171 @@ TRAIN_SSM_STEPS = 3
 # (full width, as [serve-moe]) on ShardedLMLoader tokens (K3 with its
 # window; the MoE layer's backward in torch ops). Step 0's gradients are
 # held as [train]'s at full depth, Mixtral's at MOE_F32_LAYERS layers (see
-# ``_moe_grad_gate``). tag -> (arch, seq, batch, layers)
+# ``_cut_grad_gate``). tag -> (arch, seq, batch, layers)
 TRAIN_FAM_RUNS = {"train-vlm": ("qwen2-vl-7b", 1024, 8, None),
                   "train-audio": ("hubert-xlarge", 1024, 8, None),
                   "train-moe": ("mixtral-8x7b", 1024, 8, MOE_LAYERS)}
 TRAIN_FAM_STEPS = 3
+
+# ---- the last five architectures: MQA, biases, LayerNorm, tied heads ----
+# [serve-dense-ref]: the smoke configs of olmo-1b (LayerNorm without
+# parameters, a tied head), granite-20b (one KV head), qwen1.5-110b (q / k /
+# v biases), command-r-plus-104b (LayerNorm, a tied head, rope theta 7.5e7)
+# and mixtral-8x22b (4 experts top-2, window 64), 2 layers, d 256, f32, with
+# ``convert.random_model_params(cfg, seed)`` (LoRA B, biases and norm
+# parameters non-zero), served as [serve-ref]: ``serve_ref_prompts(np,
+# vocab, seed, prompt)``, 8 greedy new tokens, max_len; Mixtral's prompts
+# past its window. The tokens are the JAX ServingEngine's on the same numpy
+# weights, on the CPU (tools/jax_train_refs.py; tests/test_torch_serve.py
+# recomputes them). arch -> (seed, prompt, max_len, tokens)
+DENSE_REFS = {
+    'olmo-1b': (30, 16, 64, (
+        (420, 296, 428, 428, 455, 96, 442, 46),
+        (219, 249, 480, 33, 301, 301, 342, 342),
+        (456, 262, 456, 388, 461, 134, 173, 173),
+        (235, 149, 462, 451, 162, 173, 62, 462),
+    )),
+    'granite-20b': (31, 16, 64, (
+        (120, 97, 367, 212, 212, 187, 367, 163),
+        (0, 34, 257, 27, 176, 114, 176, 421),
+        (103, 417, 162, 505, 447, 446, 447, 131),
+        (34, 157, 468, 113, 9, 157, 251, 389),
+    )),
+    'qwen1.5-110b': (32, 16, 64, (
+        (94, 181, 108, 286, 214, 181, 181, 181),
+        (404, 128, 144, 115, 314, 358, 487, 109),
+        (389, 371, 170, 401, 342, 470, 311, 314),
+        (111, 101, 111, 111, 111, 111, 111, 111),
+    )),
+    'command-r-plus-104b': (33, 16, 64, (
+        (401, 284, 401, 284, 401, 284, 401, 284),
+        (282, 171, 282, 171, 435, 93, 282, 362),
+        (195, 22, 22, 22, 22, 244, 57, 60),
+        (194, 194, 126, 232, 400, 308, 62, 62),
+    )),
+    'mixtral-8x22b': (34, 72, 96, (
+        (170, 262, 370, 436, 502, 205, 66, 91),
+        (3, 3, 3, 127, 153, 72, 190, 291),
+        (486, 9, 9, 40, 252, 333, 486, 486),
+        (6, 32, 388, 211, 123, 199, 0, 0),
+    )),
+}
+# [train-dense-ref]: [train-ref]'s runs on the same five smoke configs;
+# TRAIN_DENSE_REF from tools/jax_train_refs.py, held within TRAIN_REF_RTOL.
+TRAIN_DENSE_REF = {
+    'olmo-1b': {
+        1: {
+            'loss': (6.2715959548950195, 6.284593105316162, 6.282033443450928, 6.3141326904296875),
+            'grad_norm': (0.3578283190727234, 0.35049957036972046, 0.3683837056159973, 0.357468843460083),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 108.4724590081459,
+            'move_sq': 0.48455579797026865,
+        },
+        2: {
+            'loss': (6.2715959548950195, 6.284594535827637, 6.282032012939453, 6.314131736755371),
+            'grad_norm': (0.3578283190727234, 0.35049957036972046, 0.3683837056159973, 0.357468843460083),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 108.47245919719745,
+            'move_sq': 0.4845557962737147,
+        },
+    },
+    'granite-20b': {
+        1: {
+            'loss': (6.317312240600586, 6.276528835296631, 6.270867824554443, 6.3333611488342285),
+            'grad_norm': (0.3515256345272064, 0.38029226660728455, 0.3488198518753052, 0.38765719532966614),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 87.78657778325453,
+            'move_sq': 0.39304145348256275,
+        },
+        2: {
+            'loss': (6.317312240600586, 6.276528835296631, 6.270867824554443, 6.333361625671387),
+            'grad_norm': (0.3515256643295288, 0.38029229640960693, 0.3488198518753052, 0.3876572251319885),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 87.78657642451537,
+            'move_sq': 0.3930414520095062,
+        },
+    },
+    'qwen1.5-110b': {
+        1: {
+            'loss': (6.27446985244751, 6.306533336639404, 6.281858444213867, 6.289655685424805),
+            'grad_norm': (0.3171249032020569, 0.34886759519577026, 0.34107691049575806, 0.3393726944923401),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.75652286623944,
+            'move_sq': 0.4240762956598495,
+        },
+        2: {
+            'loss': (6.27446985244751, 6.306532859802246, 6.281858444213867, 6.289654731750488),
+            'grad_norm': (0.3171249032020569, 0.34886762499809265, 0.3410768210887909, 0.3393726944923401),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.75651975339832,
+            'move_sq': 0.4240762932267522,
+        },
+    },
+    'command-r-plus-104b': {
+        1: {
+            'loss': (6.272869110107422, 6.288472652435303, 6.271836280822754, 6.29131555557251),
+            'grad_norm': (0.3505774736404419, 0.3663640022277832, 0.4240541458129883, 0.365500807762146),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 93.98607870353032,
+            'move_sq': 0.4183495786083838,
+        },
+        2: {
+            'loss': (6.272868633270264, 6.288473129272461, 6.271836280822754, 6.291316032409668),
+            'grad_norm': (0.3505774438381195, 0.3663639426231384, 0.4240540564060211, 0.365500807762146),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 93.98608279728762,
+            'move_sq': 0.41834961510989627,
+        },
+    },
+    'mixtral-8x22b': {
+        1: {
+            'loss': (6.3382649421691895, 6.343993186950684, 6.324476718902588, 6.31068229675293),
+            'grad_norm': (0.3427622318267822, 0.33971521258354187, 0.33949020504951477, 0.33435946702957153),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.49119797080122,
+            'move_sq': 0.42141762428469,
+        },
+        2: {
+            'loss': (6.338266372680664, 6.343993186950684, 6.324477195739746, 6.310683250427246),
+            'grad_norm': (0.3427622318267822, 0.33971521258354187, 0.33949014544487, 0.33435946702957153),
+            'lr': (0.0010000000474974513, 0.0020000000949949026, 0.0020000000949949026, 0.001986327115446329),
+            'move_abs': 94.49120282730942,
+            'move_sq': 0.4214176460001184,
+        },
+    },
+}
+# [serve-<name>] / [train-<name>]: the five at their published widths, bf16,
+# LoRA rank 16 on q and v, weights drawn on the card (``_draw_model``; the
+# biases and norm parameters too, as the smoke configs have them, since
+# these are the features the runs exist for). Served as [serve] (SERVE_BATCH
+# x SERVE_PROMPT, SERVE_NEW greedy tokens, SERVE_MAX_LEN) and trained as
+# [train] (TRAIN_RUN's 8 x 1024, remat full, TRAIN_WARMUP + TRAIN_FAM_STEPS
+# steps), each arch at one depth in both: olmo-1b (arXiv:2402.00838) and
+# granite-20b (arXiv:2405.04324) whole (2.4 and 56.3 GB of bf16 weights);
+# qwen1.5-110b at 16 of 80 layers (80 are 222 GB; 16 are 48.5 GB);
+# command-r-plus-104b at 8 of 64 (207.6 GB; 31.5 GB, and its training peak
+# is the loss over a 256k vocabulary: f32 logits of 8192 x 256,000 are 8.4
+# GB, their gradient as much); mixtral-8x22b (arXiv:2401.04088) at 8 of 56
+# (281 GB; 40.9 GB). The f32 copy that the logit and gradient gates hold
+# the runs to does not fit beside the bf16 weights past olmo-1b, so those
+# gates run at the second depth (the deeper layers freed, as
+# MOE_F32_LAYERS): the deepest at which the f32 training step fits, where
+# command-r-plus-104b's 256k-vocabulary loss leaves room for 2 layers;
+# at the full depth the kernel run's distance from the plain run is
+# printed. The last pair is the predicted peak memory of the serving run
+# and of the training step, GB, printed beside the measured ones: the
+# weights, the KV cache and a prefill's transients; the weights, the layer
+# inputs that remat keeps, the loss (f32 logits, their logsumexp and
+# gradient) and one recomputed layer.
+# name -> (arch, layers run (None: all), layers of the f32 gates (None: the
+# run's), (serving, training) predicted peak GB)
+DENSE_RUNS = {
+    "olmo": ("olmo-1b", None, None, (5.0, 9.0)),
+    "granite": ("granite-20b", None, 4, (60.0, 70.0)),
+    "qwen1.5": ("qwen1.5-110b", 16, 4, (53.0, 70.0)),
+    "cmdr": ("command-r-plus-104b", 8, 2, (37.0, 62.0)),
+    "moe-8x22b": ("mixtral-8x22b", 8, MOE_F32_LAYERS, (45.0, 50.0)),
+}
 # [elastic]: examples/elastic_finetune_torch.py's full setting (tiny-100m,
 # ~134M parameters, seq 128, batch 8, AHAP(3, 1, 0.7) on
 # vast_like_trace(seed=4, days=2) with ARIMA forecasts) on the card. The
@@ -2055,15 +2242,16 @@ def _randn(torch, gen, shape, std, dtype):
         dtype)
 
 
-def _close(torch, what, got, want, rtol, atol) -> float:
+def _close(torch, what, got, want, rtol, atol, scale=None) -> float:
     """got against want in f32, elementwise |got - want| <= atol + rtol
-    |want|; returns the largest |got - want|."""
+    |want| (rtol ``scale`` where given: for a sum of rounded terms, the sum
+    of the terms' magnitudes); returns the largest |got - want|."""
     g, w = got.detach().float(), want.detach().float()
     if g.shape != w.shape or not bool(torch.isfinite(g).all()):
         _fail(f"{what}: shape {tuple(g.shape)} vs {tuple(w.shape)} or "
               "non-finite output")
     err = (g - w).abs()
-    bad = err > atol + rtol * w.abs()
+    bad = err > atol + rtol * (w.abs() if scale is None else scale)
     if bool(bad.any()):
         _fail(f"{what}: {int(bad.sum())} of {err.numel()} elements outside "
               f"rtol {rtol} atol {atol} (max |err| {float(err.max()):.3e})")
@@ -2114,8 +2302,11 @@ def _phase_k2(torch, gen, k2, lora_matmul_ref) -> float:
 
 def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
     """K3 against its plain version on the card: the JAX package's kernel
-    test shapes and masks, bf16, a ragged S, llama2-7b's prefill, head dim
-    80 up to zamba2-2.7b's prefill, and the edges of the bf16 tiles."""
+    test shapes and masks, bf16, a ragged S, llama2-7b's, mixtral-8x7b's
+    and DENSE_RUNS' prefills, head dim 80 up to zamba2-2.7b's prefill, and
+    the edges of the bf16 tiles."""
+    from repro_torch.configs import get_config
+
     cases = [((bh, sq, sk, d), "float32", causal, window)
              for bh, sq, sk, d in ((4, 256, 256, 64), (2, 128, 512, 128))
              for causal, window in ((True, None), (False, None), (True, 100))]
@@ -2127,6 +2318,10 @@ def _phase_k3(torch, gen, k3, flash_attention_ref) -> float:
               # mixtral-8x7b's prefill: its window (4096) is past S
               ((MOE_RUN[1] * 32, MOE_RUN[2], MOE_RUN[2], 128), "bfloat16",
                True, 4096)]
+    # DENSE_RUNS' prefills (D 128; mixtral-8x22b's window 4096 past S)
+    cases += [((SERVE_BATCH * c.num_heads, SERVE_PROMPT, SERVE_PROMPT,
+                c.head_dim), "bfloat16", True, c.sliding_window)
+              for c in (get_config(run[0]) for run in DENSE_RUNS.values())]
     # head_dim 80 (zamba2-2.7b's shared block), up to its prefill shape
     cases += [((4, 256, 256, 80), "float32", True, None),
               ((2, 128, 300, 80), "float32", False, None),
@@ -2370,11 +2565,14 @@ def _lora_pairs(tree):
 
 def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
                  batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=SERVE_NEW,
-                 max_len=SERVE_MAX_LEN, layers=None):
+                 max_len=SERVE_MAX_LEN, layers=None, f32_layers=None):
     """A config at full width (and full depth, unless ``layers`` cuts it),
     bf16, on the card: ``batch`` prompts of ``prompt`` tokens, ``new``
-    greedy new tokens each, through ServingEngine. Returns the launches of
-    K2 at prefill, of K2 at decode, of K3 and of K4."""
+    greedy new tokens each, through ServingEngine. The logits are held to
+    the plain run at the served depth, or at ``f32_layers`` layers where
+    the f32 copy does not fit beside the bf16 weights (MoE always: see
+    ROUTE_SWAP_MARGIN). Returns the launches of K2 at prefill, of K2 at
+    decode, of K3 and of K4."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2456,14 +2654,30 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
     print(f"[{tag}] teacher-forced on the engine's tokens: kernel run "
           f"prefill {pre_s:.3f} s, decode {dec_s * 1e3:.2f} ms/step; plain "
           f"run prefill {pre_p:.3f} s, decode {dec_p * 1e3:.2f} ms/step")
-    if tag in ("serve", "serve-ssm", "serve-moe"):
+    if tag != "serve-hybrid":
         _phase_trace(torch, tf, cfg, params, prompts_t, tokens_t, max_len,
                      cfg.name)
+    del eng
     if cfg.arch_type == "moe":
-        del eng
         _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len,
                     tag, (kern, kern_routes.calls),
-                    (plain, plain_routes.calls))
+                    (plain, plain_routes.calls), f32_layers)
+        return launches
+    if f32_layers is not None:
+        diff = (kern - plain).abs()
+        print(f"[{tag}] bf16, {cfg.num_layers} layers: last-position "
+              f"logits of {kern.shape[0]} forwards, max |kernel - plain| "
+              f"{float(diff.max()):.4f}, mean {float(diff.mean()):.2e}, max "
+              f"|logit| {float(kern.abs().max()):.3f}; greedy tokens agree "
+              f"on {float((kern.argmax(-1) == plain.argmax(-1)).float().mean()):.1%}"
+              f" (reported: the f32 copy does not fit beside the bf16 "
+              f"weights; the rule is held at {f32_layers} layers)")
+
+        def run(c, p, use_cuda):
+            return _teacher_forced(torch, tf, c, p, prompts_t, tokens_t,
+                                   max_len, KernelConfig(use_cuda))[0]
+
+        _cut_checks(torch, tag, cfg, params, run, f32_layers)
         return launches
     if tag == "serve":
         bound = SERVE_LOGIT_ATOL
@@ -2612,11 +2826,11 @@ def _print_swaps(tag, what, sw):
 
 
 def _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len, tag,
-                kern_run, plain_run):
+                kern_run, plain_run, layers):
     """[serve-moe]'s routing and logit checks (see ROUTE_SWAP_MARGIN): the
-    bf16 runs at the served depth; then the first MOE_F32_LAYERS layers
-    (the others freed), bf16 and widened to f32, each run with the kernels
-    and plain."""
+    bf16 runs at the served depth; then the first ``layers`` layers (the
+    others freed), bf16 and widened to f32, each run with the kernels and
+    plain."""
     import dataclasses
 
     from repro_torch.kernels.ops import KernelConfig
@@ -2638,10 +2852,10 @@ def _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len, tag,
           f" over the {int(agree.sum())} whose last token's routing agrees "
           "(reported: the random init amplifies differences with depth)")
 
-    del params["layers"][MOE_F32_LAYERS:]
+    del params["layers"][layers:]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cut = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS)
+    cut = dataclasses.replace(cfg, num_layers=layers)
     cfg32 = dataclasses.replace(cut, dtype="float32")
     p32 = _widen(params)
     runs = {}
@@ -2661,7 +2875,7 @@ def _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len, tag,
                                 ("bf16 plain / f32", "bf16 plain",
                                  "f32 plain"))}
     for what, pair in pairs.items():
-        _print_swaps(tag, f"{MOE_F32_LAYERS} layers, {what} runs", pair)
+        _print_swaps(tag, f"{layers} layers, {what} runs", pair)
     agree = _agree(pairs.values(), prompt)
     if not bool(agree.any()):
         _fail(f"[{tag}] no forward whose routing agrees in all four runs")
@@ -2672,7 +2886,7 @@ def _moe_checks(torch, tf, cfg, params, prompts_t, tokens_t, max_len, tag,
     d32 = dist("f32 kernel", "f32 plain")
     floor = dist("bf16 plain", "f32 plain")
     d16 = dist("bf16 kernel", "bf16 plain")
-    print(f"[{tag}] {MOE_F32_LAYERS} layers, the {int(agree.sum())} of "
+    print(f"[{tag}] {layers} layers, the {int(agree.sum())} of "
           f"{agree.numel()} (forward, row) pairs whose last token's routing "
           f"agrees in all four runs: f32 max |kernel - plain| {d32:.3e} "
           f"(bound {F32_LOGIT_ATOL}); bf16 max |kernel - plain| {d16:.4f} "
@@ -2913,7 +3127,11 @@ def _phase_audio_ref(torch, np, dev, kernels):
 
 def _draw_model(torch, tf, cfg, dev):
     """(a config's weights drawn on the card from SEED, LoRA B ~ N(0,
-    SERVE_LORA_B_STD); the generator, to draw on; the seconds it took)."""
+    SERVE_LORA_B_STD), and for DENSE_RUNS' archs every bias ~ N(0, 0.1) and
+    norm scale ~ 1 + N(0, 0.1) and norm bias ~ N(0, 0.1), as
+    ``convert.random_model_params`` draws them (the init's zeros and ones
+    would leave those features idle); the generator, to draw on; the
+    seconds it took)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     torch.cuda.synchronize()
@@ -2921,8 +3139,29 @@ def _draw_model(torch, tf, cfg, dev):
     params = tf.init_params(gen, cfg)
     for pair in _lora_pairs(params):
         pair["b"].normal_(0.0, SERVE_LORA_B_STD, generator=gen)
+    if cfg.name in {run[0] for run in DENSE_RUNS.values()}:
+        for x, mean in _affine_leaves(params):
+            x.normal_(mean, 0.1, generator=gen)
     torch.cuda.synchronize()
     return params, gen, time.perf_counter() - t0
+
+
+def _affine_leaves(tree):
+    """(tensor, its init's value) of every bias and norm parameter of a
+    port parameter tree: attention's q / k / v / o biases (0) and each
+    norm's scale (1) and bias (0)."""
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _affine_leaves(v)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in ("bq", "bk", "bv", "bo"):
+                yield v, 0.0
+            elif k.endswith("norm"):
+                for name, x in v.items():
+                    yield x, 1.0 if name == "scale" else 0.0
+            elif k != "lora":
+                yield from _affine_leaves(v)
 
 
 def _trace_call(torch, what, fn, exclusive=None):
@@ -2973,22 +3212,38 @@ def _family_checks(torch, tag, cfg, params, run, kern):
     if not d16 <= 2 * floor:
         _fail(f"[{tag}] bf16 logits of the kernel and plain runs differ by "
               f"{d16} > {2 * floor}")
-    del params["layers"][FAMILY_F32_LAYERS:]
+    _cut_checks(torch, tag, cfg, params, run, FAMILY_F32_LAYERS)
+
+
+def _cut_checks(torch, tag, cfg, params, run, layers):
+    """FAMILY_RUNS' logit rule at ``layers`` layers (the others freed):
+    ``run(cfg, params, use_cuda)`` gives a run's logits. The weights widened
+    to f32 hold the kernel run within F32_LOGIT_ATOL of the plain run; in
+    bf16 the kernel run lies within twice the bf16 plain run's distance
+    from the f32 plain run."""
+    import dataclasses
+
+    def dist(a, b):
+        return float((a - b).abs().max())
+
+    del params["layers"][layers:]
     torch.cuda.empty_cache()
-    cut = dataclasses.replace(cfg, num_layers=FAMILY_F32_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    cut = dataclasses.replace(cfg, num_layers=layers)
     cut32 = dataclasses.replace(cut, dtype="float32")
     k16, p16 = run(cut, params, True), run(cut, params, False)
     p32 = _widen(params)
     k32, pl32 = run(cut32, p32, True), run(cut32, p32, False)
     d32, d16, floor = dist(k32, pl32), dist(k16, p16), dist(p16, pl32)
-    print(f"[{tag}] {FAMILY_F32_LAYERS} layers: f32 max |kernel - plain| "
+    print(f"[{tag}] {layers} layers: f32 max |kernel - plain| "
           f"{d32:.3e} (bound {F32_LOGIT_ATOL}); bf16 max |kernel - plain| "
-          f"{d16:.4f} (bound {2 * floor:.4f})")
+          f"{d16:.4f} (bound {2 * floor:.4f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not d32 <= F32_LOGIT_ATOL:
         _fail(f"[{tag}] f32 logits of the kernel and plain runs differ by "
               f"{d32} > {F32_LOGIT_ATOL}")
     if not d16 <= 2 * floor:
-        _fail(f"[{tag}] bf16 logits at {FAMILY_F32_LAYERS} layers differ by "
+        _fail(f"[{tag}] bf16 logits at {layers} layers differ by "
               f"{d16} > {2 * floor}")
 
 
@@ -3304,9 +3559,13 @@ def _phase_time_k2(torch, gen, k2, lora_matmul_ref, shapes):
     the serving path each launch finds its W cold (the step's other 63
     projections come between). So decode rows rotate through copies of
     (x, W, A, B) of more than COLD_BYTES together, kernel, plain version
-    and addmm alike: every launch reads inputs last touched a round ago."""
-    rows = []
+    and addmm alike: every launch reads inputs last touched a round ago.
+    Paths that share a shape share its times (each row its own launches)."""
+    rows, timed = [], {}
     for m, k, n, n_launch in shapes:
+        if (m, k, n) in timed:
+            rows.append(dict(timed[(m, k, n)], launches=n_launch))
+            continue
         r = 16
         n_bytes = 2 * (m * k + k * n + k * r + r * n + m * n)
         copies = 1 if m > 64 else COLD_BYTES // n_bytes + 1
@@ -3332,6 +3591,7 @@ def _phase_time_k2(torch, gen, k2, lora_matmul_ref, shapes):
                      "ms": ms, "plain_ms": plain, "library_ms": lib,
                      "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
                      "footprint": copies * n_bytes})
+        timed[(m, k, n)] = rows[-1]
         del cases
     return rows
 
@@ -3583,14 +3843,15 @@ def _k2_shapes(launches=None):
     q / v projection (K = N = 4096) at prefill (M = 8 x 1024) and decode
     (M = 8); mamba2-370m's and zamba2-2.7b's wx projection (K = d, N =
     d_inner; out_proj moves the same bytes and operations transposed) at
-    prefill and decode; mixtral-8x7b's q and v at prefill and decode; the
-    training paths' forward shapes (``_k2_train_rows``), with every K2
-    launch of the path's phase (None before the serving runs; a training
-    path's forward launches over its timed steps)."""
+    prefill and decode; mixtral-8x7b's and DENSE_RUNS' q and v at prefill
+    and decode (``_k2_projections``); the training paths' forward shapes
+    (``_k2_train_rows``), with every K2 launch of the path's phase (None
+    before the serving runs; a training path's forward launches over its
+    timed steps)."""
     from repro_torch.configs import get_config
 
-    def count(tag, i):
-        return None if launches is None else launches[tag][i]
+    def count(tag, i, share=1):
+        return None if launches is None else int(launches[tag][i] * share)
 
     rows = {"prefill": (SERVE_BATCH * SERVE_PROMPT, 4096, 4096,
                         count("serve", 0)),
@@ -3601,53 +3862,70 @@ def _k2_shapes(launches=None):
         name = arch.split("-")[0]
         rows[f"{name}-prefill"] = (batch * prompt, d, di, count(tag, 0))
         rows[f"{name}-decode"] = (batch, d, di, count(tag, 1))
-    # mixtral-8x7b's q (N = h x hd = 4096) and v (N = kv x hd = 1024, GQA)
-    # projections: one launch each a layer a forward, half of each count
-    arch, batch, prompt, _, _ = MOE_RUN
-    cfg = get_config(arch)
-    for proj, n in (("q", cfg.num_heads * cfg.head_dim),
-                    ("v", cfg.num_kv_heads * cfg.head_dim)):
-        for phase, m, i in (("prefill", batch * prompt, 0),
-                            ("decode", batch, 1)):
-            c = count("serve-moe", i)
-            rows[f"mixtral-{proj}-{phase}"] = (
-                m, cfg.d_model, n, None if c is None else c // 2)
+    # mixtral-8x7b's and the last five archs' adapted projections: one
+    # launch each a layer a forward, the share of a phase's count
+    serving = {"mixtral": (MOE_RUN[0], "serve-moe")}
+    serving.update((name, (run[0], f"serve-{name}"))
+                   for name, run in DENSE_RUNS.items())
+    for name, (arch, tag) in serving.items():
+        for proj, (k, n, share) in _k2_projections(get_config(arch)).items():
+            for phase, m, i in (("prefill", SERVE_BATCH * SERVE_PROMPT, 0),
+                                ("decode", SERVE_BATCH, 1)):
+                rows[f"{name}{proj}-{phase}"] = (m, k, n,
+                                                 count(tag, i, share))
     # the training paths' forwards (and remat recomputes)
     for name, (m, k, n, tag, share) in _k2_train_rows().items():
-        c = count(tag, 0)
-        rows[f"{name}-train"] = (m, k, n,
-                                 None if c is None else int(c * share))
+        rows[f"{name}-train"] = (m, k, n, count(tag, 0, share))
     return rows
 
 
-def _k2_train_rows():
-    """K2's forward shapes on [train-vlm]'s, [train-audio]'s and
-    [train-moe]'s paths, one row per adapted projection width (q: heads x
-    head_dim, v: KV heads x head_dim; hubert-xlarge's are one width):
-    name -> (M, K = d, N, tag, share), ``share`` the fraction of the path's
-    K2 launches (forward and dx alike) at that shape. Fails if a shape is
-    not in K2_GRAD_SHAPES."""
+def _k2_projections(cfg):
+    """K2's adapted projections of an attention config, q (N = heads x
+    head_dim) and v (N = KV heads x head_dim): row suffix -> (K = d, N,
+    ``share``), the fraction of the config's K2 launches (forward and dx
+    alike) at that shape; one row, suffix "", where q and v have one
+    width."""
     from fractions import Fraction
 
+    width = {"q": cfg.num_heads * cfg.head_dim,
+             "v": cfg.num_kv_heads * cfg.head_dim}
+    targets = cfg.lora.targets
+    if set(targets) != set(width):
+        _fail(f"{cfg.name} adapts {targets}, not q and v")
+    out = {}
+    for proj in targets:
+        share = Fraction(list(width.values()).count(width[proj]),
+                         len(targets))
+        out["" if share == 1 else f"-{proj}"] = (cfg.d_model, width[proj],
+                                                 share)
+    return out
+
+
+def _train_paths():
+    """The training paths K2's and K3's backward rows are taken from,
+    beyond [train] and [train-ssm]: name -> (tag, arch, seq, batch)."""
+    paths = {arch.rsplit("-", 1)[0]: (tag, arch, seq, batch)
+             for tag, (arch, seq, batch, _) in TRAIN_FAM_RUNS.items()}
+    paths.update((name, (f"train-{name}", run[0]) + TRAIN_RUN[1:])
+                 for name, run in DENSE_RUNS.items())
+    return paths
+
+
+def _k2_train_rows():
+    """K2's forward shapes on [train-vlm]'s, [train-audio]'s, [train-moe]'s
+    and DENSE_RUNS' training paths, one row per adapted projection width
+    (``_k2_projections``): name -> (M, K = d, N, tag, share). Fails if a
+    shape is not in K2_GRAD_SHAPES."""
     from repro_torch.configs import get_config
 
     out = {}
-    for tag, (arch, seq, batch, _) in TRAIN_FAM_RUNS.items():
+    for name, (tag, arch, seq, batch) in _train_paths().items():
         cfg = get_config(arch)
-        width = {"q": cfg.num_heads * cfg.head_dim,
-                 "v": cfg.num_kv_heads * cfg.head_dim}
-        targets = cfg.lora.targets
-        if set(targets) != set(width):
-            _fail(f"{arch} adapts {targets}, not q and v")
-        name = arch.rsplit("-", 1)[0]
-        for proj in targets:
-            share = Fraction(list(width.values()).count(width[proj]),
-                             len(targets))
-            shape = (batch * seq, cfg.d_model, width[proj], cfg.lora.rank)
+        for proj, (k, n, share) in _k2_projections(cfg).items():
+            shape = (batch * seq, k, n, cfg.lora.rank)
             if shape not in K2_GRAD_SHAPES:
                 _fail(f"[{tag}] K2 runs at {shape}, not in K2_GRAD_SHAPES")
-            row = name if share == 1 else f"{name}-{proj}"
-            out[row] = shape[:3] + (tag, share)
+            out[name + proj] = shape[:3] + (tag, share)
     return out
 
 
@@ -3676,10 +3954,10 @@ def _before(name) -> str:
 GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -9)}
 
 
-def _grad_close(torch, what, got, want, dt) -> float:
+def _grad_close(torch, what, got, want, dt, scale=None) -> float:
     rtol, atol = GRAD_TOL[dt]
     return _close(torch, what, got, want, rtol,
-                  atol * float(want.float().abs().max()))
+                  atol * float(want.float().abs().max()), scale)
 
 
 def _phase_k2_grad(torch, gen, k2, lora_matmul_ref) -> tuple:
@@ -3752,18 +4030,17 @@ def _k3_grad_cases(torch, dev):
 
 def _k3_train_shapes():
     """K3's backward at each training path's shape and mask: [train]'s,
-    [train-ssm]'s hybrid and [train-vlm]'s, [train-audio]'s and
-    [train-moe]'s: name -> (BH, S, D, mask), the mask as
-    ``_k3_mask_kwargs`` takes it: causal, the config's window, and for
-    qwen2-vl the image span whose temporal stream is q_pos = k_pos."""
+    [train-ssm]'s hybrid and ``_train_paths``' ([train-vlm]'s,
+    [train-audio]'s, [train-moe]'s and DENSE_RUNS'): name -> (BH, S, D,
+    mask), the mask as ``_k3_mask_kwargs`` takes it: causal, the config's
+    window, and for qwen2-vl the image span whose temporal stream is q_pos
+    = k_pos."""
     from repro_torch.configs import get_config
 
-    runs = (("llama2", TRAIN_RUN),
+    runs = [("llama2", TRAIN_RUN),
             ("zamba2", next(r for r in TRAIN_SSM_RUNS
-                            if r[0] == "zamba2-2.7b")),
-            ("qwen2-vl", TRAIN_FAM_RUNS["train-vlm"][:3]),
-            ("hubert", TRAIN_FAM_RUNS["train-audio"][:3]),
-            ("mixtral", TRAIN_FAM_RUNS["train-moe"][:3]))
+                            if r[0] == "zamba2-2.7b"))]
+    runs += [(name, path[1:]) for name, path in _train_paths().items()]
     out = {}
     for name, (arch, seq, batch) in runs:
         cfg = get_config(arch)
@@ -3844,18 +4121,48 @@ def _phase_k3_grad(torch, gen, k3) -> tuple:
                       f"{plain.n} times; expected (1, 1) and 0")
             want_o, want = _attention_grads(torch, ops, ins, do, False,
                                             **mask)
+            # dk and dv sum each K / V head's gradient over the query heads
+            # that share it (the repeat's backward), each term rounded to
+            # the inputs' dtype on both routes: so a term may be one
+            # rounding apart, and a sum of terms that cancel is held to
+            # the terms' magnitudes (the plain route's per-head gradients)
+            # the terms themselves (K / V repeated first, so no sum): the
+            # Function's within GRAD_TOL of the plain route's
+            rep = ins[0].shape[2] // ins[1].shape[2]
+            split = [ins[0]] + [t.repeat_interleave(rep, dim=2)
+                                for t in ins[1:]]
+            _, heads = _attention_grads(torch, ops, split, do, False, **mask)
+            _, got_heads = _attention_grads(torch, ops, split, do, True,
+                                            **mask)
+            torch.cuda.synchronize()
+            (k3.flash_attention.launches,
+             k3.flash_attention_backward.launches) = before
+            head_errs = [_grad_close(torch, f"[k3-grad] d{n} a head {dt} "
+                                     f"{label}", g, w, dt)
+                         for n, g, w in zip("kv", got_heads[1:], heads[1:])]
+            terms = [None] + [g.float().abs().unflatten(2, (-1, rep)).sum(3)
+                              for g in heads[1:]]
+            rtol, atol = GRAD_TOL[dt]
+            past = sum(int(((g.float() - w.float()).abs() > rtol
+                            * w.float().abs() + atol
+                            * float(w.float().abs().max())).sum())
+                       for g, w in zip(got[1:], want[1:]))
             err = _close(torch, f"[k3-grad] o {dt} {label}", o, want_o,
                          *K3_TOL[dt])
             errs = [_grad_close(torch, f"[k3-grad] d{n} {dt} {label}", g, w,
-                                dt) for n, g, w in zip("qkv", got, want)]
+                                dt, scale)
+                    for n, g, w, scale in zip("qkv", got, want, terms)]
             max_err = max(max_err, err)
             print(f"[k3-grad] {dt} (B, S, H, KV, D) = (2, 200, 8, 2, 128) "
                   f"{label}: forward max |err| {err:.3e} (rtol/atol "
                   f"{K3_TOL[dt]}); dq, dk, dv "
                   f"{', '.join(f'{e:.3e}' for e in errs)} (rtol, atol x "
-                  f"max|want| {GRAD_TOL[dt]}) against autograd through the "
-                  "plain route; 1 forward + 1 backward launch, no plain "
-                  "attention")
+                  f"max|want| {GRAD_TOL[dt]}; dk, dv rtol x the {rep} "
+                  f"heads' summed magnitudes: {past} elements past rtol x "
+                  f"|want|; each head's dk, dv before the sum "
+                  f"{', '.join(f'{e:.3e}' for e in head_errs)}) against "
+                  "autograd through the plain route; 1 forward + 1 "
+                  "backward launch, no plain attention")
     bwd_errs = {}
     for name, (bh, s, d, mask) in _k3_train_shapes().items():
         kw = _k3_mask_kwargs(torch, mask, s, gen.device)
@@ -4107,6 +4414,37 @@ def _phase_train_ref(torch, dev, kernels, tag="train-ref",
               + (f" ({with_pos} K3 with positions)" if with_pos else ""))
 
 
+# ``_bits_digest``'s multipliers c_i = (i k + b) | 1, two sets (int64
+# arithmetic, which wraps mod 2^64)
+DIGEST_KEYS = ((-7046029254386353131, 7145368468934828057),
+               (2685821657736338717, 461845907))
+
+
+def _bits_digest(torch, xs, chunk: int = 1 << 25) -> list:
+    """Each tensor's bits folded on its device into two 64-bit sums: the
+    tensor read as words w_i of its element size, sum_i w_i c_i mod 2^64
+    for c_i = (i k + b) | 1 under each of DIGEST_KEYS. Every c_i is odd, so
+    invertible mod 2^64: a change to any one word moves both sums, and two
+    independent sets leave a change of several words unseen with a chance
+    near 2^-128. It replaces a host copy of the base weights, which moved
+    about 2 GB/s (mixtral-8x7b's 47 GB in 23.1 s beside an NVIDIA H100 80GB
+    HBM3, 700.00 W). Returns one (2,) int64 tensor a tensor, on its
+    device."""
+    words = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for x in xs:
+        w = x.detach().contiguous().reshape(-1).view(words[x.element_size()])
+        acc = torch.zeros(2, dtype=torch.int64, device=w.device)
+        for start in range(0, w.numel(), chunk):
+            part = w[start:start + chunk].long()
+            i = torch.arange(start, start + part.numel(), dtype=torch.int64,
+                             device=w.device)
+            for j, (k, b) in enumerate(DIGEST_KEYS):
+                acc[j] += (part * ((i * k + b) | 1)).sum()
+        out.append(acc)
+    return out
+
+
 def _grad_distance(torch, a, b) -> tuple:
     """(L2 norm of a - b over every leaf, max |a - b|)."""
     sq = sum(float((x.double() - y.double()).square().sum())
@@ -4171,26 +4509,28 @@ def _train_batches(torch, cfg, gen, dev, batch: int, seq: int, n: int):
              "positions": pos.to(dev)} for _ in range(n)]
 
 
-def _moe_grad_gate(torch, tag, cfg, grad, params, batch0) -> None:
-    """[train-moe]'s gate on step 0's LoRA gradients at MOE_F32_LAYERS
-    layers of full width (the deeper layers freed; f32 at 16 layers would
-    be 94 GB). A gradient sums over every token of the batch, and a routing
-    swap (a token's experts differ between two runs: ROUTE_SWAP_MARGIN's
-    ties) gives it another function, not a rounding of the same one; so
-    the three runs take one routing: the f32 plain run routes freely, and
-    the bf16 kernel and plain runs replay its experts call by call, their
-    router weights and aux loss from their own gates (``_Routes(replay=)``).
-    Every forward then agrees in all runs; the swaps each run's own router
-    would have made are counted and printed. The bf16 kernel run must lie
-    within twice the bf16 plain run's distance from the f32 plain run."""
+def _cut_grad_gate(torch, tag, cfg, grad, params, batch0, layers) -> None:
+    """Step 0's LoRA gradients held at ``layers`` layers of full width (the
+    deeper layers freed) where the f32 copy does not fit at the run's depth
+    (Mixtral-8x7B at 16 layers would be 94 GB in f32): the bf16 kernel run
+    must lie within twice the bf16 plain run's distance from the f32 plain
+    run. For MoE a gradient sums over every token of the batch, and a
+    routing swap (a token's experts differ between two runs:
+    ROUTE_SWAP_MARGIN's ties) gives it another function, not a rounding of
+    the same one; so the three runs take one routing: the f32 plain run
+    routes freely, and the bf16 kernel and plain runs replay its experts
+    call by call, their router weights and aux loss from their own gates
+    (``_Routes(replay=)``). Every forward then agrees in all runs; the swaps
+    each run's own router would have made are counted and printed."""
     import dataclasses
 
     from repro_torch.models import moe as moe_lib
 
-    del params["layers"][MOE_F32_LAYERS:]
+    moe = cfg.moe is not None
+    del params["layers"][layers:]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cut = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS)
+    cut = dataclasses.replace(cfg, num_layers=layers)
     p32 = _widen(params)
     with _Routes(torch, moe_lib) as r32:
         _, g_32 = grad(dataclasses.replace(cut, dtype="float32"), p32, False)
@@ -4200,34 +4540,37 @@ def _moe_grad_gate(torch, tag, cfg, grad, params, batch0) -> None:
     for name, use_cuda in (("bf16 kernel", True), ("bf16 plain", False)):
         with _Routes(torch, moe_lib, replay=r32.idx) as routes:
             runs[name] = (grad(cut, params, use_cuda)[1], routes)
-    seq = batch0["tokens"].shape[1]
-    n = MOE_F32_LAYERS
-    for what, a, b in (("bf16 kernel / f32 plain", runs["bf16 kernel"][1],
-                        r32),
-                       ("bf16 plain / f32 plain", runs["bf16 plain"][1], r32),
-                       ("bf16 kernel / bf16 plain", runs["bf16 kernel"][1],
-                        runs["bf16 plain"][1])):
-        sw = _route_swaps(torch, cut, a.calls[:n], b.calls[:n], seq)
-        _print_swaps(tag, f"{n} layers, free routing of the {what} runs "
-                     "(replayed: not taken)", sw)
+    if moe:
+        seq = batch0["tokens"].shape[1]
+        for what, a, b in (("bf16 kernel / f32 plain",
+                            runs["bf16 kernel"][1], r32),
+                           ("bf16 plain / f32 plain", runs["bf16 plain"][1],
+                            r32),
+                           ("bf16 kernel / bf16 plain",
+                            runs["bf16 kernel"][1], runs["bf16 plain"][1])):
+            sw = _route_swaps(torch, cut, a.calls[:layers],
+                              b.calls[:layers], seq)
+            _print_swaps(tag, f"{layers} layers, free routing of the "
+                         f"{what} runs (replayed: not taken)", sw)
     g_k, g_p = runs["bf16 kernel"][0], runs["bf16 plain"][0]
     d_kp, mx_kp = _grad_distance(torch, g_k, g_p)
     d_p32, mx_p32 = _grad_distance(torch, g_p, g_32)
     d_k32, _ = _grad_distance(torch, g_k, g_32)
-    print(f"[{tag}] {cfg.name} {n} layers, one routing (the f32 plain "
-          f"run's) in all three runs: |kernel - plain| {d_kp:.4e} (L2 over "
-          f"the {len(g_k)} LoRA leaves; max {mx_kp:.3e}) against twice the "
-          f"bf16 plain run's distance from the f32 plain run "
-          f"{2 * d_p32:.4e} (max {mx_p32:.3e}); the kernel run's own "
-          f"distance from f32 {d_k32:.4e}; peak memory "
+    routing = (", one routing (the f32 plain run's) in all three runs"
+               if moe else "")
+    print(f"[{tag}] {cfg.name} {layers} layers{routing}: |kernel - plain| "
+          f"{d_kp:.4e} (L2 over the {len(g_k)} LoRA leaves; max "
+          f"{mx_kp:.3e}) against twice the bf16 plain run's distance from "
+          f"the f32 plain run {2 * d_p32:.4e} (max {mx_p32:.3e}); the kernel "
+          f"run's own distance from f32 {d_k32:.4e}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not d_kp <= 2 * d_p32:
-        _fail(f"[{tag}] {cfg.name} {n} layers LoRA gradients: kernel run "
-              f"{d_kp} from the plain run, bound {2 * d_p32}")
+        _fail(f"[{tag}] {cfg.name} {layers} layers LoRA gradients: kernel "
+              f"run {d_kp} from the plain run, bound {2 * d_p32}")
 
 
 def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
-                 steps=TRAIN_STEPS, layers=None) -> dict:
+                 steps=TRAIN_STEPS, layers=None, f32_layers=None) -> dict:
     """[train] / [train-ssm] / [train-vlm] / [train-audio] / [train-moe]:
     ``run`` = (arch, seq, batch) at full width (and depth, unless
     ``layers`` cuts it), bf16, LoRA fine-tuning through make_train_step
@@ -4235,9 +4578,11 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     gradients: finite and non-zero (the detach the autograd Functions
     close), and within twice the bf16 plain run's distance from an f32
     plain run (``KernelConfig(False)``: the plain attention,
-    ``ssd_chunked``); for MoE at 16 layers the distance and the routing
-    swaps are printed, and the gate is ``_moe_grad_gate``'s, after the
-    timed steps, on step 0's LoRA leaves (kept aside) and batch. Then
+    ``ssd_chunked``); where the f32 copy does not fit (``f32_layers`` given;
+    MoE always) the distance (and the routing swaps) at the run's depth are
+    printed, and the gate is ``_cut_grad_gate``'s at ``f32_layers`` layers,
+    after the timed steps, on step 0's LoRA leaves (kept aside) and batch.
+    Then
     TRAIN_WARMUP + ``steps`` steps timed, launch counts
     (``_train_launches``; under M-RoPE every K3 launch with positions), no
     plain attention on the card's route (``flash_attention_ref`` counted
@@ -4264,6 +4609,9 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     moe = cfg.moe is not None
+    cut = f32_layers is not None
+    if moe and not cut:
+        _fail(f"[{tag}] an MoE run's gradients are held at f32_layers")
     params, gen, init_s = _draw_model(torch, tf, cfg, dev)
     tcfg = TrainConfig(seq_len=seq, global_batch=batch, remat="full")
     t0 = time.perf_counter()
@@ -4273,8 +4621,9 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     data_s = time.perf_counter() - t0
     base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
     t0 = time.perf_counter()
-    base_host = [x.cpu() for x in base]       # off the card's peak
-    copy_s = time.perf_counter() - t0
+    base_bits = _bits_digest(torch, base)
+    torch.cuda.synchronize()
+    digest_s = time.perf_counter() - t0
 
     def grad(c, p, use_cuda):
         return make_grad_step(c, tcfg, KernelConfig(use_cuda))(p, batches[0])
@@ -4307,8 +4656,15 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
               f"leaves; max {mx_kp:.3e}), {sum(sw['swaps'])} routing swaps "
               f"over {n} layers x {batch * seq} tokens (reported: the "
               f"random init amplifies a swap layer by layer; held at "
-              f"{MOE_F32_LAYERS} layers on step 0's leaves after the timed "
+              f"{f32_layers} layers on step 0's leaves after the timed "
               "steps)")
+    elif cut:
+        print(f"[{tag}] {arch} step 0, {cfg.num_layers} layers: loss "
+              f"{float(loss0):.4f}; all {len(g_k)} LoRA gradients finite "
+              f"and non-zero; |kernel - plain| {d_kp:.4e} (L2 over the "
+              f"leaves; max {mx_kp:.3e}) (reported: the f32 copy does not "
+              f"fit beside the bf16 weights; held at {f32_layers} layers "
+              "on step 0's leaves after the timed steps)")
     else:
         p32 = _widen(params)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -4330,9 +4686,9 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
         del g_32
     del g_k, g_p, r_k, r_p
     torch.cuda.empty_cache()
-    # Mixtral's gate runs after the timed steps, on step 0's LoRA leaves
+    # a cut gate runs after the timed steps, on step 0's LoRA leaves
     lora0 = ([x.clone() for x in partition_by_path(params, is_lora_path)[0]]
-             if moe else None)
+             if cut else None)
 
     opt = init_opt_state(params)
     step = make_train_step(cfg, tcfg, KernelConfig(True))
@@ -4428,19 +4784,22 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
               f"'{k3.BACKWARD}' over {per[5]} launches of K3's backward, "
               f"{shares['K3 backward']:.1f} ms (no plain attention ops)")
     base = partition_by_path(params, lambda p: not is_lora_path(p))[0]
-    if any(not torch.equal(x, h.to(dev)) or x.grad is not None
-           or x.requires_grad for x, h in zip(base, base_host)):
+    if any(not torch.equal(a, b) or x.grad is not None or x.requires_grad
+           for x, a, b in zip(base, base_bits, _bits_digest(torch, base))):
         _fail(f"[{tag}] {arch} a base weight changed, holds a .grad or "
               "requires grad")
-    print(f"[{tag}] {arch} the base weights are bit-unchanged (torch.equal "
-          f"against a host copy taken before step 0 in {copy_s:.1f} s) and "
+    print(f"[{tag}] {arch} the base weights are bit-unchanged (every "
+          f"tensor's bits digested on the card before step 0, in "
+          f"{digest_s:.2f} s, and after the steps: ``_bits_digest``) and "
           "hold no .grad")
-    del base, base_host, opt, step
-    if moe:
+    del base, base_bits, opt, step
+    if cut:
         params = partition_by_path(params, is_lora_path)[1](lora0)
-        _moe_grad_gate(torch, tag, cfg, grad, params, batches[0])
+        _cut_grad_gate(torch, tag, cfg, grad, params, batches[0],
+                       f32_layers)
     return {"launches": launches, "step_s": med, "shares": shares,
-            "peak": peak, "steps": steps, "cfg": cfg}
+            "peak": peak, "steps": steps, "cfg": cfg, "seq": seq,
+            "batch": batch}
 
 
 def _load_example(name):
@@ -4985,8 +5344,8 @@ def _phase_roofline(torch, card: str, train: dict, train_ssm: dict,
     not held. Then mamba2-370m's training step of [train-ssm] the same
     way (K2, K4 and K4's backward by their own traffic and operations),
     beside [train-ssm]'s median step, and the training steps of
-    [train-vlm], [train-audio] and [train-moe] (Mixtral at its MOE_LAYERS)
-    beside theirs. The count takes its batch as the dry run does, on meta
+    [train-vlm], [train-audio], [train-moe] (Mixtral at its MOE_LAYERS) and
+    DENSE_RUNS' [train-<name>] (at their depths) beside theirs. The count takes its batch as the dry run does, on meta
     tensors: Qwen2-VL's positions there count from 0, so K3's and its
     backward's pairs are the causal ones, and the image span's extra pairs
     (its patches see each other) are printed apart, not in the bound."""
@@ -5032,8 +5391,8 @@ def _phase_roofline(torch, card: str, train: dict, train_ssm: dict,
          ssm["step_s"], f"the median of [train-ssm]'s {ssm['steps']} timed "
          "steps", ssm["peak"], kernels(ssm_launches)),
     ) + tuple(
-        (r["cfg"], "train", ShapeConfig("train", TRAIN_FAM_RUNS[tag][1],
-                                        TRAIN_FAM_RUNS[tag][2], "train"),
+        (r["cfg"], "train", ShapeConfig("train", r["seq"], r["batch"],
+                                        "train"),
          r["step_s"], f"the median of [{tag}]'s {r['steps']} timed steps",
          r["peak"], kernels(tuple(x // r["steps"] for x in r["launches"])))
         for tag, r in train_fam.items())
@@ -5439,7 +5798,8 @@ def main() -> int:
                      tokens, length, MOE_REF_MAX_LEN)
     launches["serve-moe"] = _phase_serve(torch, np, dev, kernels,
                                          "serve-moe", *MOE_RUN,
-                                         layers=MOE_LAYERS)
+                                         layers=MOE_LAYERS,
+                                         f32_layers=MOE_F32_LAYERS)
     torch.cuda.empty_cache()
 
     # ---- phase 6c: VLM and audio (embeddings in; K3 with positions) ----
@@ -5451,6 +5811,20 @@ def main() -> int:
     _phase_audio_ref(torch, np, dev, kernels)
     launches["audio"] = _phase_audio(torch, np, dev, kernels)
     torch.cuda.empty_cache()
+
+    # ---- phase 6d: the last five architectures (MQA, q / k / v biases,
+    # LayerNorm, tied heads, Mixtral-8x22B's MoE layer) ----
+    for arch, (seed, length, max_len, tokens) in DENSE_REFS.items():
+        _phase_serve_ref(torch, np, dev, kernels, "serve-dense-ref", arch,
+                         seed, tokens, length, max_len)
+    for name, (arch, layers, f32_layers, peak_gb) in DENSE_RUNS.items():
+        tag, t0 = f"serve-{name}", time.perf_counter()
+        launches[tag] = _phase_serve(torch, np, dev, kernels, tag, arch,
+                                     layers=layers, f32_layers=f32_layers)
+        torch.cuda.empty_cache()
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s; peak memory "
+              f"of the engine's run {STEP_RUNS[tag]['peak'] / 1e9:.1f} GB "
+              f"(predicted {peak_gb[0]:.0f} GB)")
 
     # ---- phase 6d: LoRA fine-tuning (K2 forward and backward, K3 and its
     # backward; K1 in the elastic trainer's AHAP decisions) ----
@@ -5482,10 +5856,25 @@ def main() -> int:
                          TRAIN_FAM_REF[arch])
     train_fam = {}
     for tag, (arch, seq, batch, layers) in TRAIN_FAM_RUNS.items():
-        train_fam[tag] = _phase_train(torch, np, dev, kernels, tag,
-                                      (arch, seq, batch), TRAIN_FAM_STEPS,
-                                      layers)
+        train_fam[tag] = _phase_train(
+            torch, np, dev, kernels, tag, (arch, seq, batch),
+            TRAIN_FAM_STEPS, layers,
+            MOE_F32_LAYERS if tag == "train-moe" else None)
         torch.cuda.empty_cache()
+    # ---- the last five architectures ----
+    for arch in DENSE_REFS:
+        _phase_train_ref(torch, dev, kernels, "train-dense-ref", arch,
+                         TRAIN_DENSE_REF[arch])
+    train_dense = {}
+    for name, (arch, layers, f32_layers, peak_gb) in DENSE_RUNS.items():
+        tag, t0 = f"train-{name}", time.perf_counter()
+        train_dense[tag] = _phase_train(torch, np, dev, kernels, tag,
+                                        (arch,) + TRAIN_RUN[1:],
+                                        TRAIN_FAM_STEPS, layers, f32_layers)
+        torch.cuda.empty_cache()
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s; peak memory "
+              f"of the timed steps {train_dense[tag]['peak'] / 1e9:.1f} GB "
+              f"(predicted {peak_gb[1]:.0f} GB)")
     elastic_launches = _phase_elastic(torch, dev, kernels, k1)
     print(f"[launches] K1 table entry: elastic {elastic_launches[0]}; "
           f"[train] K2 {launches['train'][0]} forward + "
@@ -5499,11 +5888,12 @@ def main() -> int:
           + "".join(f"; [{tag}] K2 {r['launches'][0]} forward + "
                     f"{r['launches'][1]} backward, K3 {r['launches'][2]} + "
                     f"{r['launches'][5]} backward"
-                    for tag, r in train_fam.items())
+                    for tag, r in {**train_fam, **train_dense}.items())
           + f"; training phases {time.perf_counter() - t_train:.1f} s")
 
     # ---- phase 7: K2's, K3's and K4's time beside their bounds ----
-    launches.update((tag, r["launches"]) for tag, r in train_fam.items())
+    launches.update((tag, r["launches"])
+                    for tag, r in {**train_fam, **train_dense}.items())
     k2_shapes = _k2_shapes(launches)
     k2_rows = dict(zip(k2_shapes, _phase_time_k2(
         torch, gen, k2, lora_matmul_ref, k2_shapes.values())))
@@ -5559,6 +5949,17 @@ def main() -> int:
     k3_rows["flash_attention/mixtral"]["launches"] = launches["serve-moe"][2]
     k3_rows["flash_attention/zamba2"]["launches"] = \
         launches["serve-hybrid"][2]
+    # DENSE_RUNS' prefills, and their training forwards (and remat
+    # recomputes) at the same shapes
+    for name, run in DENSE_RUNS.items():
+        c = get_config(run[0])
+        row = _phase_time_k3(torch, gen, k3, flash_attention_ref,
+                             SERVE_BATCH, c.num_heads, SERVE_PROMPT,
+                             c.head_dim, window=c.sliding_window)
+        k3_rows[f"flash_attention/{name}"] = dict(
+            row, launches=launches[f"serve-{name}"][2])
+        k3_rows[f"flash_attention/{name}-train"] = dict(
+            row, launches=launches[f"train-{name}"][2])
     for name, row in k3_rows.items():
         mask = ("causal by an image span's positions" if row.get("positions")
                 else "causal" if row.get("causal", True) else "non-causal")
@@ -5566,7 +5967,8 @@ def main() -> int:
         print(f"[time] card {card}: K3 ({name}) at (BH, S, D) = "
               f"({row['BH']}, {row['S']}, {row['D']}) {mask} bf16: "
               f"{row['ms'] * 1e3:.1f} us/launch ({row['launches']} launches "
-              f"on its serving path); bound {row['bound_ms'] * 1e3:.1f} us by "
+              f"on its serving or train path); bound "
+              f"{row['bound_ms'] * 1e3:.1f} us by "
               f"{row['bound_by']} = {row['bound_ms'] / row['ms']:.1%} of "
               f"bound; before the redesign {_before(name)}; plain "
               f"{row['plain_ms'] * 1e3:.1f} us; "
@@ -5636,6 +6038,8 @@ def main() -> int:
                     "qwen2-vl": train_fam["train-vlm"]["launches"][5],
                     "hubert": train_fam["train-audio"]["launches"][5],
                     "mixtral": train_fam["train-moe"]["launches"][5]}
+    k3_back_runs.update((name, train_dense[f"train-{name}"]["launches"][5])
+                        for name in DENSE_RUNS)
     k3_shapes = _k3_train_shapes()
     for name, shape in k3_shapes.items():
         row = _phase_time_k3_backward(torch, gen, k3, *shape)
@@ -5686,10 +6090,13 @@ def main() -> int:
         torch, gen, k2, lora_matmul_ref,
         (batch * seq, cfg.num_heads * cfg.head_dim, cfg.d_model,
          cfg.lora.rank), launches["train"][1])}
+    timed = {}
     for name, (m, k, n, tag, share) in _k2_train_rows().items():
-        k2_back[f"backward/{name}"] = _phase_time_k2_backward(
-            torch, gen, k2, lora_matmul_ref, (m, n, k, 16),
-            int(launches[tag][1] * share))
+        if (m, k, n) not in timed:
+            timed[(m, k, n)] = _phase_time_k2_backward(
+                torch, gen, k2, lora_matmul_ref, (m, n, k, 16), None)
+        k2_back[f"backward/{name}"] = dict(
+            timed[(m, k, n)], launches=int(launches[tag][1] * share))
     for name, row in k2_back.items():
         print(f"[time] card {card}: K2 {name} dx at (M, K, N, r) = "
               f"({row['M']}, {row['K']}, {row['N']}, {row['r']}) bf16 (K2 on "
@@ -5705,7 +6112,8 @@ def main() -> int:
     # ---- phase 8: the dry run and the step roofline (CPU counts; after
     # every timing, so its processes share no time with a measurement) ----
     _phase_dryrun()
-    _phase_roofline(torch, card, train, train_ssm, train_fam)
+    _phase_roofline(torch, card, train, train_ssm,
+                    {**train_fam, **train_dense})
     print(json.dumps({"kernels": k1_entries + [
         # K2 runs at two shapes on each serving path, each with its own
         # entry: the prefill forward's launches and the 32 decode forwards'

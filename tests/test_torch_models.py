@@ -32,12 +32,14 @@ B, S = 2, 64
 # tests/test_models.py's prefill / decode parity tolerance
 ATOL, RTOL = 2e-4, 2e-3
 
-# four dense families (plain, non-parametric LN + tied, MQA, qkv_bias);
-# olmo-1b also with a sliding window
+# five dense families (plain, non-parametric LN + tied, MQA, qkv_bias,
+# parametric LN + tied with rope theta 7.5e7); olmo-1b also with a sliding
+# window
 CASES = [("llama2-7b", {}), ("olmo-1b", {}), ("granite-20b", {}),
-         ("qwen1.5-110b", {}), ("olmo-1b", {"sliding_window": 16})]
+         ("qwen1.5-110b", {}), ("olmo-1b", {"sliding_window": 16}),
+         ("command-r-plus-104b", {})]
 CASE_IDS = ["llama2-7b", "olmo-1b", "granite-20b", "qwen1.5-110b",
-            "olmo-1b-window16"]
+            "olmo-1b-window16", "command-r-plus-104b"]
 
 
 def _cfgs(arch, over):

@@ -1,8 +1,8 @@
 """The port's ServingEngine against the JAX package's on the CPU: greedy
 tokens equal exactly on the dense, SSM and hybrid smoke configs,
 temperature sampling is reproducible from its seed, and chip_smoke.py's
-recorded [serve-ref], [serve-ssm-ref] and [serve-hybrid-ref] tokens are what
-the JAX engine gives today."""
+recorded [serve-ref], [serve-ssm-ref], [serve-hybrid-ref] and
+[serve-dense-ref] tokens are what the JAX engine gives today."""
 import sys
 from pathlib import Path
 
@@ -37,7 +37,8 @@ def _prompts(vocab, n=3, s=12, seed=0):
                                        ("qwen1.5-110b", {}),
                                        ("tiny-100m", {"sliding_window": 8}),
                                        ("mamba2-370m", {}),
-                                       ("zamba2-2.7b", {})])
+                                       ("zamba2-2.7b", {}),
+                                       ("command-r-plus-104b", {})])
 def test_greedy_tokens_equal_reference(arch, over):
     cfg, jcfg = get_smoke_config(arch), jsmoke(arch)
     if over:
@@ -122,3 +123,25 @@ def test_chip_smoke_ssm_hybrid_ref_tokens_are_current(phase):
                          max_len=chip_smoke.SERVE_REF_MAX_LEN).generate_batch(
         [JRequest(p, chip_smoke.SERVE_REF_NEW) for p in prompts])
     assert tuple(tuple(int(t) for t in o) for o in out) == tokens
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-20b", "qwen1.5-110b",
+                                  "command-r-plus-104b", "mixtral-8x22b"])
+def test_chip_smoke_dense_ref_tokens_are_current(arch):
+    """The same for [serve-dense-ref]'s five smoke configs (DENSE_REFS:
+    each its seed, prompt length and max_len; Mixtral-8x22B's prompts past
+    its window), and the port's engine on the CPU gives them too."""
+    chip_smoke = _chip_smoke()
+    seed, length, max_len, tokens = chip_smoke.DENSE_REFS[arch]
+    cfg = get_smoke_config(arch)
+    vals = convert.random_model_params(cfg, seed)
+    prompts = chip_smoke.serve_ref_prompts(np, cfg.vocab_size, seed, length)
+    reqs = [JRequest(p, chip_smoke.SERVE_REF_NEW) for p in prompts]
+    out = JServingEngine(jsmoke(arch), jax.tree.map(jnp.asarray, vals),
+                         max_len=max_len).generate_batch(reqs)
+    assert tuple(tuple(int(t) for t in o) for o in out) == tokens
+    eng = ServingEngine(cfg, convert.model_params(vals, cfg, "cpu"),
+                        max_len=max_len, device="cpu")
+    got = eng.generate_batch([Request(p, chip_smoke.SERVE_REF_NEW)
+                              for p in prompts])
+    assert tuple(tuple(int(t) for t in o) for o in got) == tokens

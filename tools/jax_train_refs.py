@@ -18,6 +18,13 @@
   (the mixtral-8x7b, qwen2-vl-7b and hubert-xlarge smoke configs; the
   embedding families' batches with embeddings, targets, M-RoPE positions
   of an image span and a loss mask), held by ``[train-fam-ref]``.
+- ``TRAIN_DENSE_REF``: the same for each arch of ``chip_smoke.DENSE_REFS``
+  (the olmo-1b, granite-20b, qwen1.5-110b, command-r-plus-104b and
+  mixtral-8x22b smoke configs), held by ``[train-dense-ref]``.
+- ``DENSE_REFS``' tokens: the reference's ``ServingEngine`` on the same
+  smoke configs with ``random_model_params(cfg, seed)``, greedy on
+  ``chip_smoke.serve_ref_prompts(np, vocab, seed, prompt)`` for
+  ``chip_smoke.SERVE_REF_NEW`` tokens, held by ``[serve-dense-ref]``.
 - ``ELASTIC_REF``: the reference's ``ElasticTrainer`` on the full setting of
   examples/elastic_finetune.py (tiny-100m, AHAP(3, 1, 0.7), ARIMA on
   ``vast_like_trace(seed=4, days=2)``, the calibrated switching cost) with
@@ -48,6 +55,7 @@ from repro.core.policies import AHAP, AHAPParams  # noqa: E402
 from repro.core.predictor import ARIMAPredictor  # noqa: E402
 from repro.data import ShardedLMLoader  # noqa: E402
 from repro.models.frontends import make_mrope_positions  # noqa: E402
+from repro.serve import Request, ServingEngine  # noqa: E402
 from repro.train.elastic import ElasticTrainer  # noqa: E402
 from repro.train.step import (TrainMetrics, init_opt_state,  # noqa: E402
                               make_train_step)
@@ -98,6 +106,25 @@ def train_fam_ref():
     return {arch: train_ref(arch) for arch in chip_smoke.TRAIN_FAM_ARCHS}
 
 
+def train_dense_ref():
+    return {arch: train_ref(arch) for arch in chip_smoke.DENSE_REFS}
+
+
+def dense_serve_ref():
+    """arch -> DENSE_REFS' (seed, prompt, max_len, tokens)."""
+    out = {}
+    for arch, (seed, prompt, max_len, _) in chip_smoke.DENSE_REFS.items():
+        cfg = get_smoke_config(arch)
+        vals = jax.tree.map(jnp.asarray, random_model_params(cfg, seed))
+        prompts = chip_smoke.serve_ref_prompts(np, cfg.vocab_size, seed,
+                                               prompt)
+        got = ServingEngine(cfg, vals, max_len=max_len).generate_batch(
+            [Request(p, chip_smoke.SERVE_REF_NEW) for p in prompts])
+        out[arch] = (seed, prompt, max_len,
+                     tuple(tuple(int(t) for t in g) for g in got))
+    return out
+
+
 def _print_by_arch(name, refs):
     print(f"{name} = {{")
     for arch, runs in refs.items():
@@ -145,6 +172,12 @@ def main():
     print(f"train families: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     t0 = time.perf_counter()
+    dense = train_dense_ref()
+    print(f"train dense: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    dense_serve = dense_serve_ref()
+    print(f"serve dense: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
     el = elastic_ref()
     print(f"elastic: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print("TRAIN_REF = {")
@@ -156,6 +189,14 @@ def main():
     print("}")
     _print_by_arch("TRAIN_SSM_REF", ssm)
     _print_by_arch("TRAIN_FAM_REF", fam)
+    _print_by_arch("TRAIN_DENSE_REF", dense)
+    print("DENSE_REFS = {")
+    for arch, (seed, prompt, max_len, tokens) in dense_serve.items():
+        print(f"    {arch!r}: ({seed}, {prompt}, {max_len}, (")
+        for row in tokens:
+            print(f"        {row!r},")
+        print("    )),")
+    print("}")
     print("ELASTIC_REF = {")
     print('    "slots": (')
     for slot in el["slots"]:
