@@ -122,9 +122,13 @@ card:
   runs ``python -m repro_torch.launch.dryrun`` on olmo-1b train_4k at
   full size on (16, 16), over a fake process group of 256 (CPU counts on
   fake tensors, not a run; the smoke combinations are the CPU tests'),
-  and fails on a FAILED record; ``[roofline]`` counts llama2-7b's
-  prefill, decode step and training step, and the training steps of
-  mamba2-370m and of every other training run, on one device as the card
+  fails on a FAILED record, and holds the per-device dot FLOPs (2%, after
+  layer 0's reference-only backward products) and collective bytes (at
+  most 1.25x) to the JAX package's partitioned program, recorded in
+  ``JAX_DRYRUN`` by ``tools/jax_dryrun_refs.py``; ``[roofline]`` counts
+  llama2-7b's prefill, decode step and training step, and the training
+  steps of mamba2-370m and of every other training run, on one device as
+  the card
   runs them (K2, K3, K4 and the K3 and K4 backwards by their own traffic
   and operations) and sets each beside its H100 bound and its phase's
   measured time (failing when a
@@ -2520,6 +2524,40 @@ def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
 DRYRUN_ARGS = ["--arch", "olmo-1b", "--shape", "train_4k", "--mesh",
                "single"]
 DRYRUN_TIMEOUT = 300
+# the JAX package's per-device counts of that combination, its program as
+# XLA's SPMD partitioner lays it out (PYTHONPATH=src python
+# tools/jax_dryrun_refs.py); [dryrun] holds the port's record to them
+JAX_DRYRUN = {
+    'combination': ('olmo-1b', 'train_4k', '16x16'),
+    'flops_per_device': 35128537513984.0,
+    'collective_bytes': 79270641552.0,
+    'collective_bytes_bf16eq': 39639777224.0,
+    'bytes_per_device': 2156916776481.0,
+    'bytes_per_device_bf16eq': 1118116641583.0,
+}
+# dot FLOPs within this share of the reference's (after layer0_grads);
+# bf16-equivalent collective bytes at most this many times the reference's
+DRYRUN_FLOPS_REL = 0.02
+DRYRUN_COLLECTIVE_BOUND = 1.25
+
+
+def layer0_grads(cfg, seq: int, seqs: int, model: int) -> float:
+    """Per device, the products of an attention stack's layer 0 that only
+    the reference's training backward runs (it differentiates a scan whose
+    body is every layer's; layer 0's input, the frozen embedding, needs no
+    gradient): the input gradient through the q, k and v projections and
+    the adapters' A, and the gradient of K. On ``seqs`` sequences of
+    ``seq`` tokens and this rank's block of heads (``model`` ranks split
+    the heads where they divide them); the width stays whole."""
+    def split(n):
+        return n // model if n % model == 0 else n
+
+    t, d, r = seqs * seq, cfg.d_model, cfg.lora.rank
+    heads = split(cfg.num_heads)
+    outs = (heads + 2 * split(cfg.num_kv_heads)) * cfg.head_dim
+    adapted = sum(x in cfg.lora.targets for x in ("q", "k", "v"))
+    d_k = 2.0 * seqs * heads * seq * seq * cfg.head_dim
+    return 2.0 * t * d * outs + 2.0 * t * r * d * adapted + d_k
 
 # [serve]'s kernel-run timings and peak memory, by phase tag, for [roofline]
 STEP_RUNS = {}
@@ -5277,12 +5315,17 @@ def _entry(name, source, replaces, launches, err, row):
             "library_ms": row["library_ms"]}
 
 
-def _phase_dryrun() -> None:
+def _phase_dryrun(card: str) -> None:
     """[dryrun]: ``python -m repro_torch.launch.dryrun`` on olmo-1b x
     train_4k at full size on (16, 16), in a subprocess. The record's
     counts are printed; a FAILED record, a non-zero exit or a missing
-    count fails. CPU work on fake tensors: the counts of a step, not a
-    run."""
+    count fails. Then the record is held against the JAX package's,
+    ``JAX_DRYRUN``: dot FLOPs per device within ``DRYRUN_FLOPS_REL`` once
+    layer 0's backward products that only the reference runs are added
+    (:func:`layer0_grads`), bf16-equivalent collective bytes at most
+    ``DRYRUN_COLLECTIVE_BOUND`` times the reference's; traffic is printed
+    beside the reference's, not held. CPU work on fake tensors: the counts
+    of a step, not a run."""
     out = ROOT / "build" / "dryrun"
     if out.exists():
         shutil.rmtree(out)
@@ -5321,6 +5364,44 @@ def _phase_dryrun() -> None:
           f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, peak "
           f"{mem['peak_size_in_bytes'] / 2**30:.3f} GiB; counted in "
           f"{r['run_s']} s, {wall:.1f} s with the process")
+    ref = JAX_DRYRUN
+    if (r["arch"], r["shape"], r["mesh"]) != ref["combination"]:
+        _fail(f"[dryrun] JAX_DRYRUN holds {ref['combination']}, not "
+              f"{(r['arch'], r['shape'], r['mesh'])}")
+    from repro_torch.configs import INPUT_SHAPES, get_config
+
+    shape = INPUT_SHAPES[r["shape"]]
+    data = model = 16  # the (16, 16) production mesh; one sequence a
+    # microbatch on each data rank
+    extra = layer0_grads(get_config(r["arch"]), shape.seq_len,
+                         shape.global_batch // data, model)
+    flops = r["flops_per_device"] + extra
+    ratios = {
+        "flops": flops / ref["flops_per_device"],
+        "collectives": (r["collective_bytes_bf16eq"]
+                        / ref["collective_bytes_bf16eq"]),
+        "collectives_raw": r["collective_bytes"] / ref["collective_bytes"],
+        "traffic": (r["bytes_per_device_bf16eq"]
+                    / ref["bytes_per_device_bf16eq"]),
+    }
+    print(f"[dryrun] against the JAX package's partitioned program (CPU "
+          f"counts; card {card}): dot FLOPs {r['flops_per_device']:.5e} + "
+          f"layer 0's reference-only {extra:.4e} = {flops:.5e} against "
+          f"{ref['flops_per_device']:.5e} ({ratios['flops']:.4f}x); "
+          f"collectives bf16-eq. {r['collective_bytes_bf16eq']:.4e} against "
+          f"{ref['collective_bytes_bf16eq']:.4e} "
+          f"({ratios['collectives']:.3f}x; raw {r['collective_bytes']:.4e} "
+          f"against {ref['collective_bytes']:.4e}, "
+          f"{ratios['collectives_raw']:.3f}x, XLA's CPU HLO widens bf16); "
+          f"traffic bf16-eq. {r['bytes_per_device_bf16eq']:.4e} against "
+          f"{ref['bytes_per_device_bf16eq']:.4e} ({ratios['traffic']:.3f}x, "
+          f"not held: unfused ops against XLA's fusions)")
+    if abs(ratios["flops"] - 1) > DRYRUN_FLOPS_REL:
+        _fail(f"[dryrun] dot FLOPs {ratios['flops']:.4f}x the reference's, "
+              f"beyond {DRYRUN_FLOPS_REL:.0%}")
+    if ratios["collectives"] > DRYRUN_COLLECTIVE_BOUND:
+        _fail(f"[dryrun] collective bytes {ratios['collectives']:.3f}x the "
+              f"reference's, above {DRYRUN_COLLECTIVE_BOUND}")
 
 
 def _phase_roofline(torch, card: str, train: dict, train_ssm: dict,
@@ -6111,7 +6192,7 @@ def main() -> int:
               f"{row['copy_bound_ms'] * 1e3:.1f} us by bytes)")
     # ---- phase 8: the dry run and the step roofline (CPU counts; after
     # every timing, so its processes share no time with a measurement) ----
-    _phase_dryrun()
+    _phase_dryrun(card)
     _phase_roofline(torch, card, train, train_ssm,
                     {**train_fam, **train_dense})
     print(json.dumps({"kernels": k1_entries + [

@@ -11,8 +11,11 @@ out as DTensors on the production mesh over a ``fake`` process group of
 mode under ``launch.op_analysis.count_ops``: what rank 0 computes, moves
 and sends. The models' ``shard`` constraints redistribute activations as
 the reference's ``with_sharding_constraint`` does; the few model
-functions DTensor has no strategy for run block by block
-(``launch.stand_ins``, installed for the sharded step alone). Plain
+functions DTensor has no strategy for run block by block, and every
+product, forward and backward, is laid out as XLA's SPMD partitioner
+lays out the reference's (``launch.stand_ins``, installed for the
+sharded step alone), so the per-device counts are the reference's
+(``tests/test_torch_dryrun_sharded.py``). Plain
 tensors a step makes for itself (positions, masks, constants) are the
 same on every rank and join DTensor ops replicated
 (``implicit_replication``); an op with no DTensor sharding strategy fails
