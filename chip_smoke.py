@@ -121,11 +121,15 @@ card:
 - The dry run and the step roofline, after every timing: ``[dryrun]``
   runs ``python -m repro_torch.launch.dryrun`` on olmo-1b train_4k at
   full size on (16, 16), over a fake process group of 256 (CPU counts on
-  fake tensors, not a run; the smoke combinations are the CPU tests'),
-  fails on a FAILED record, and holds the per-device dot FLOPs (2%, after
-  layer 0's reference-only backward products) and collective bytes (at
-  most 1.25x) to the JAX package's partitioned program, recorded in
-  ``JAX_DRYRUN`` by ``tools/jax_dryrun_refs.py``; ``[roofline]`` counts
+  fake tensors, not a run), then the nine smoke combinations of
+  ``DRYRUN_SMOKE_FLOPS_REL`` (the CPU tests' SSM, hybrid, MoE, VLM, audio
+  and decode layouts, one process each, started together) on this
+  machine's PyTorch, fails on a FAILED record, and holds the per-device
+  dot FLOPs (after layer 0's reference-only backward products: 2% at full
+  size, each smoke combination's own tolerance) and collective bytes
+  (0.8x to 1.25x) to the JAX package's partitioned program, recorded in
+  ``JAX_DRYRUN`` and ``JAX_DRYRUN_SMOKE`` by ``tools/jax_dryrun_refs.py``;
+  ``[roofline]`` counts
   llama2-7b's prefill, decode step and training step, and the training
   steps of mamba2-370m and of every other training run, on one device as
   the card
@@ -2536,9 +2540,93 @@ JAX_DRYRUN = {
     'bytes_per_device_bf16eq': 1118116641583.0,
 }
 # dot FLOPs within this share of the reference's (after layer0_grads);
-# bf16-equivalent collective bytes at most this many times the reference's
+# bf16-equivalent collective bytes within these many times the reference's
 DRYRUN_FLOPS_REL = 0.02
-DRYRUN_COLLECTIVE_BOUND = 1.25
+DRYRUN_COLLECTIVE_FLOOR, DRYRUN_COLLECTIVE_BOUND = 0.8, 1.25
+# [dryrun]'s smoke combinations (smoke config, (2, 2) "single" or (2, 2, 2)
+# "multi" mesh), one subprocess each, started together after the full-size
+# one, and each one's dot FLOPs tolerance: exact for the attention stacks,
+# 2% for Mamba2, whose three-operand einsums the reference counts as dots
+# (tests/test_torch_dryrun_sharded.py's COMBOS)
+DRYRUN_SMOKE_FLOPS_REL = {
+    ("olmo-1b", "train_4k", "single"): 0.0,
+    ("olmo-1b", "train_4k", "multi"): 0.0,
+    ("zamba2-2.7b", "train_4k", "single"): 0.02,
+    ("mamba2-370m", "prefill_32k", "single"): 0.02,
+    ("qwen2-vl-7b", "train_4k", "single"): 0.0,
+    ("mixtral-8x7b", "train_4k", "single"): 0.0,
+    ("hubert-xlarge", "prefill_32k", "single"): 0.0,
+    ("llama2-7b", "decode_32k", "single"): 0.0,
+    ("zamba2-2.7b", "decode_32k", "single"): 0.02,
+}
+DRYRUN_SMOKE_TIMEOUT = 120
+# the JAX package's per-device counts of those combinations (PYTHONPATH=src
+# python tools/jax_dryrun_refs.py --smoke; 8 host devices)
+JAX_DRYRUN_SMOKE = {
+    ('olmo-1b', 'train_4k', 'single'): {
+        'flops_per_device': 2357198848.0,
+        'collective_bytes': 36984816.0,
+        'collective_bytes_bf16eq': 18500600.0,
+        'bytes_per_device': 398276929.0,
+        'bytes_per_device_bf16eq': 199196743.0,
+    },
+    ('olmo-1b', 'train_4k', 'multi'): {
+        'flops_per_device': 1178599424.0,
+        'collective_bytes': 22162432.0,
+        'collective_bytes_bf16eq': 11085312.0,
+        'bytes_per_device': 207393305.0,
+        'bytes_per_device_bf16eq': 103724267.0,
+    },
+    ('zamba2-2.7b', 'train_4k', 'single'): {
+        'flops_per_device': 3710648320.0,
+        'collective_bytes': 59488256.0,
+        'collective_bytes_bf16eq': 29750272.0,
+        'bytes_per_device': 843304174.0,
+        'bytes_per_device_bf16eq': 421709116.0,
+    },
+    ('mamba2-370m', 'prefill_32k', 'single'): {
+        'flops_per_device': 476971008.0,
+        'collective_bytes': 7845896.0,
+        'collective_bytes_bf16eq': 3923972.0,
+        'bytes_per_device': 124546481.0,
+        'bytes_per_device_bf16eq': 62279825.0,
+    },
+    ('qwen2-vl-7b', 'train_4k', 'single'): {
+        'flops_per_device': 2147483648.0,
+        'collective_bytes': 34334752.0,
+        'collective_bytes_bf16eq': 17177616.0,
+        'bytes_per_device': 341559105.0,
+        'bytes_per_device_bf16eq': 170864949.0,
+    },
+    ('mixtral-8x7b', 'train_4k', 'single'): {
+        'flops_per_device': 4097835008.0,
+        'collective_bytes': 101079056.0,
+        'collective_bytes_bf16eq': 50547720.0,
+        'bytes_per_device': 876893489.0,
+        'bytes_per_device_bf16eq': 459097469.0,
+    },
+    ('hubert-xlarge', 'prefill_32k', 'single'): {
+        'flops_per_device': 762314752.0,
+        'collective_bytes': 4550656.0,
+        'collective_bytes_bf16eq': 2275328.0,
+        'bytes_per_device': 83250460.0,
+        'bytes_per_device_bf16eq': 41625326.0,
+    },
+    ('llama2-7b', 'decode_32k', 'single'): {
+        'flops_per_device': 6946816.0,
+        'collective_bytes': 2974992.0,
+        'collective_bytes_bf16eq': 1487504.0,
+        'bytes_per_device': 34426802.0,
+        'bytes_per_device_bf16eq': 17213942.0,
+    },
+    ('zamba2-2.7b', 'decode_32k', 'single'): {
+        'flops_per_device': 10470400.0,
+        'collective_bytes': 3376544.0,
+        'collective_bytes_bf16eq': 1688280.0,
+        'bytes_per_device': 38619779.0,
+        'bytes_per_device_bf16eq': 19310553.0,
+    },
+}
 
 
 def layer0_grads(cfg, seq: int, seqs: int, model: int) -> float:
@@ -2558,6 +2646,22 @@ def layer0_grads(cfg, seq: int, seqs: int, model: int) -> float:
     adapted = sum(x in cfg.lora.targets for x in ("q", "k", "v"))
     d_k = 2.0 * seqs * heads * seq * seq * cfg.head_dim
     return 2.0 * t * d * outs + 2.0 * t * r * d * adapted + d_k
+
+
+def smoke_layer0_grads(arch: str, shape_name: str, mesh: str) -> float:
+    """:func:`layer0_grads` on a smoke combination of the sharded dry run
+    (``mesh`` "single": (2, 2), "multi": (2, 2, 2)): a training step of an
+    attention stack, on this rank's tokens (one sequence a microbatch on
+    each ("pod",) "data" rank) and block of heads; 0 otherwise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.dryrun import _SMOKE_SHAPES
+
+    cfg = get_smoke_config(arch)
+    _, seq, batch, mode = _SMOKE_SHAPES[shape_name]
+    if mode != "train" or cfg.arch_type not in ("dense", "moe", "vlm",
+                                                "audio"):
+        return 0.0
+    return layer0_grads(cfg, seq, batch // (4 if mesh == "multi" else 2), 2)
 
 # [serve]'s kernel-run timings and peak memory, by phase tag, for [roofline]
 STEP_RUNS = {}
@@ -5322,10 +5426,11 @@ def _phase_dryrun(card: str) -> None:
     count fails. Then the record is held against the JAX package's,
     ``JAX_DRYRUN``: dot FLOPs per device within ``DRYRUN_FLOPS_REL`` once
     layer 0's backward products that only the reference runs are added
-    (:func:`layer0_grads`), bf16-equivalent collective bytes at most
-    ``DRYRUN_COLLECTIVE_BOUND`` times the reference's; traffic is printed
-    beside the reference's, not held. CPU work on fake tensors: the counts
-    of a step, not a run."""
+    (:func:`layer0_grads`), bf16-equivalent collective bytes within
+    [``DRYRUN_COLLECTIVE_FLOOR``, ``DRYRUN_COLLECTIVE_BOUND``] times the
+    reference's; traffic is printed beside the reference's, not held. Then
+    the smoke combinations (:func:`_phase_dryrun_smoke`). CPU work on fake
+    tensors: the counts of a step, not a run."""
     out = ROOT / "build" / "dryrun"
     if out.exists():
         shutil.rmtree(out)
@@ -5399,9 +5504,87 @@ def _phase_dryrun(card: str) -> None:
     if abs(ratios["flops"] - 1) > DRYRUN_FLOPS_REL:
         _fail(f"[dryrun] dot FLOPs {ratios['flops']:.4f}x the reference's, "
               f"beyond {DRYRUN_FLOPS_REL:.0%}")
-    if ratios["collectives"] > DRYRUN_COLLECTIVE_BOUND:
+    if not (DRYRUN_COLLECTIVE_FLOOR <= ratios["collectives"]
+            <= DRYRUN_COLLECTIVE_BOUND):
         _fail(f"[dryrun] collective bytes {ratios['collectives']:.3f}x the "
-              f"reference's, above {DRYRUN_COLLECTIVE_BOUND}")
+              f"reference's, outside [{DRYRUN_COLLECTIVE_FLOOR}, "
+              f"{DRYRUN_COLLECTIVE_BOUND}]")
+    _phase_dryrun_smoke(card)
+
+
+def _phase_dryrun_smoke(card: str) -> None:
+    """[dryrun], the smoke combinations: ``python -m
+    repro_torch.launch.dryrun --smoke`` for each of
+    ``DRYRUN_SMOKE_FLOPS_REL`` (Mamba2, hybrid, MoE, VLM, audio, decode
+    layouts, the (2, 2) and (2, 2, 2) meshes), one subprocess each, all
+    started together, held against ``JAX_DRYRUN_SMOKE``: dot FLOPs within
+    the combination's tolerance once layer 0's reference-only backward
+    products are added, bf16-equivalent collective bytes within
+    [``DRYRUN_COLLECTIVE_FLOOR``, ``DRYRUN_COLLECTIVE_BOUND``] times the
+    reference's. A raise, a FAILED record, a non-zero exit or a ratio out
+    of bound fails. CPU counts on this machine's PyTorch, printed first."""
+    import torch
+
+    print(f"[dryrun] PyTorch {torch.__version__} (CUDA {torch.version.cuda})"
+          f": the sharded dry run of {len(DRYRUN_SMOKE_FLOPS_REL)} smoke "
+          "combinations, one process each")
+    root = ROOT / "build" / "dryrun_smoke"
+    if root.exists():
+        shutil.rmtree(root)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = {}
+    for combo in DRYRUN_SMOKE_FLOPS_REL:
+        arch, shape, mesh = combo
+        procs[combo] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke",
+             "--arch", arch, "--shape", shape, "--mesh", mesh, "--out",
+             str(root / "-".join(combo))], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    logs = {}
+    try:
+        for combo, proc in procs.items():
+            left = DRYRUN_SMOKE_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                logs[combo] = proc.communicate(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                _fail(f"[dryrun] {combo}: no end within "
+                      f"{DRYRUN_SMOKE_TIMEOUT} s")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    for combo, proc in procs.items():
+        name = " x ".join(combo)
+        if proc.returncode != 0:
+            _fail(f"[dryrun] {name}: exit {proc.returncode}\n"
+                  f"{logs[combo][0][-3000:]}\n{logs[combo][1][-3000:]}")
+        (f,) = (root / "-".join(combo)).glob("*.json")
+        r = json.loads(f.read_text())
+        if r["status"] != "ok":
+            _fail(f"[dryrun] {name}: {r['status']} "
+                  f"{r.get('error') or r.get('reason')}")
+        ref = JAX_DRYRUN_SMOKE[combo]
+        extra = smoke_layer0_grads(*combo)
+        flops = (r["flops_per_device"] + extra) / ref["flops_per_device"]
+        coll = r["collective_bytes_bf16eq"] / ref["collective_bytes_bf16eq"]
+        print(f"[dryrun] {name} on {r['mesh']} ({r['devices']} ranks, CPU "
+              f"counts; card {card}): dot FLOPs {flops:.5f}x the "
+              f"reference's (+ layer 0's {extra:.4e}), collectives bf16-eq. "
+              f"{r['collective_bytes_bf16eq']:.4e} against "
+              f"{ref['collective_bytes_bf16eq']:.4e} ({coll:.4f}x), "
+              f"counted in {r['run_s']} s")
+        tol = DRYRUN_SMOKE_FLOPS_REL[combo]
+        if abs(flops - 1) > tol + 1e-12:
+            _fail(f"[dryrun] {name}: dot FLOPs {flops:.5f}x the "
+                  f"reference's, beyond {tol:.0%}")
+        if not DRYRUN_COLLECTIVE_FLOOR <= coll <= DRYRUN_COLLECTIVE_BOUND:
+            _fail(f"[dryrun] {name}: collective bytes {coll:.4f}x the "
+                  f"reference's, outside [{DRYRUN_COLLECTIVE_FLOOR}, "
+                  f"{DRYRUN_COLLECTIVE_BOUND}]")
+    print(f"[dryrun] {len(procs)} smoke combinations counted and held in "
+          f"{wall:.1f} s")
 
 
 def _phase_roofline(torch, card: str, train: dict, train_ssm: dict,

@@ -141,7 +141,7 @@ def build_step(cfg, shape, mesh, microbatches=None, rules=None,
         from torch.distributed.tensor.experimental import implicit_replication
 
         with use_sharding(mesh, rules), implicit_replication(), \
-                stand_ins.installed():
+                stand_ins.installed(a[0]):
             return step(*a)
 
     return sharded, args, mb

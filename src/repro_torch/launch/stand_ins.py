@@ -11,8 +11,11 @@ is and on DTensors block by block:
     along the sequence (merging batch and heads would make strided
     shards); K and V are first repeated to every query head when their
     heads are not laid out as the queries' are;
-  * the Mamba2 SSD scan: each rank scans its own (batch rows, heads)
-    block;
+  * one-token decode against the ring cache: each rank scores its own
+    (batch rows, cache-slot block), the softmax's maximum and sum and the
+    weighted values reduced across the slot split;
+  * the Mamba2 SSD scan and its decode step: each rank scans its own
+    (batch rows, heads) block; the causal conv: its own batch rows;
   * MoE dispatch and combine, per batch row (a stable sort, a scatter and
     ``index_add_``);
   * the embedding: the tokens gathered where the table's width is split,
@@ -29,11 +32,18 @@ partial sums reduced at once; a mean or logsumexp over a split dimension
 is reduced across the split. DTensor's CPU fallback for a shard-to-shard
 move (an all-gather, as gloo has no all-to-all) is counted as the one
 all-to-all a card's mesh runs, and an op input's redistribution is
-reused by the next op that asks the same of the same tensor.
+reused by the next op that asks the same of the same tensor. A weight
+outside the layer stack is gathered once in a step's forward passes, as
+XLA hoists that gather out of the reference's loops (:class:`_Hoisted`).
+
+No op of a held step takes or gives a strided split, and none pads a
+split tensor: PyTorch 2.11, the card machine's, cannot propagate the
+first through a view and plans the second's move for a 1-D mesh.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import weakref
 from typing import Tuple
 
@@ -167,6 +177,82 @@ def _attend(orig):
     return attend
 
 
+def _all_reduce(t, op: str, mesh, dims):
+    """A local tensor reduced by ``op`` ("sum", "max") across each mesh
+    dimension in ``dims`` (one all-reduce each)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for m in dims:
+        t = funcol.all_reduce(t, op, (mesh, m))
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+def _decode_attend(orig):
+    def decode_attend(cfg, q1, cache_k, cache_v, index):
+        if not is_dtensor(cache_k):
+            return orig(cfg, q1, cache_k, cache_v, index)
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from repro_torch.kernels.ref import MASK_FILL
+        from repro_torch.models.attention import ring_positions
+
+        # XLA's partition of the cache's layout (the slots on "kv_seq"):
+        # each rank scores its own (batch rows, slot block) against every
+        # query head of its rows, the queries gathered where the cache
+        # splits its slots; the softmax's maximum and sum and the weighted
+        # values are reduced across the slot split. No op flattens a split
+        # dimension: the einsums run on this rank's blocks.
+        axes = ("batch", "kv_seq", "kv_heads", None)
+        cache_k, cache_v = (shard(t, *axes) for t in (cache_k, cache_v))
+        mesh, pl = cache_k.device_mesh, cache_k.placements
+        split = [m for m, p in enumerate(pl) if p.is_shard(1)]
+        q_pl = [Replicate() if p.is_shard(1) else p for p in pl]
+        q = q1.redistribute(mesh, q_pl).to_local()
+        k, v = cache_k.to_local(), cache_v.to_local()
+        lo, n = _block(cache_k, 1)
+        k_pos = ring_positions(cache_k.shape[1], index, k.device)[lo:lo + n]
+        b, _, h, hd = q.shape
+        kvh = k.shape[2]
+        qf = q.float().reshape(b, 1, kvh, h // kvh, hd) * (1.0 / math.sqrt(hd))
+        s = torch.einsum("bqkrh,bskh->bkrqs", qf, k.float())
+        ok = k_pos >= 0
+        if cfg.sliding_window is not None:
+            ok &= k_pos > index - 1 - cfg.sliding_window
+        s = s.masked_fill(~ok, MASK_FILL)
+        e = torch.exp(s - _all_reduce(s.amax(-1, keepdim=True), "max", mesh,
+                                      split))
+        wgt = e / _all_reduce(e.sum(-1, keepdim=True), "sum", mesh, split)
+        out = _all_reduce(torch.einsum("bkrqs,bskh->bqkrh", wgt, v.float()),
+                          "sum", mesh, split)
+        return DTensor.from_local(out.reshape(b, 1, h, hd).to(q1.dtype), mesh,
+                                  q_pl, run_check=False)
+
+    return decode_attend
+
+
+def _causal_conv(orig):
+    def causal_conv(xbc, w, b):
+        if not is_dtensor(xbc):
+            return orig(xbc, w, b)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        # depthwise along the sequence, which no rule splits: each rank
+        # convolves its own batch rows, every channel (the slices after it
+        # take the heads' block of x and B, C whole), with the same
+        # multiply-adds per element as the model's function
+        mesh = xbc.device_mesh
+        pl = [p if p.is_shard(0) else Replicate() for p in xbc.placements]
+        rep = [Replicate()] * mesh.ndim
+        y = orig(xbc.redistribute(mesh, pl).to_local(),
+                 w.redistribute(mesh, rep).to_local(),
+                 b.redistribute(mesh, rep).to_local())
+        return DTensor.from_local(y, mesh, pl, run_check=False)
+
+    return causal_conv
+
+
 def _dispatch(orig):
     def dispatch(cfg, x, idx, cap):
         if not is_dtensor(x):
@@ -220,6 +306,25 @@ def _ssd_chunked(orig):
                                    run_check=False))
 
     return ssd_chunked
+
+
+def _ssd_step(orig):
+    def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+        if not is_dtensor(state):
+            return orig(state, x_t, dt_t, A, B_t, C_t)
+        # one decode step, each rank on its own (batch rows, heads) block
+        # (merging the two, as the einsum over both would, makes a strided
+        # split); one group's B and C whole on every rank
+        heads = ("batch", "ssm_heads")
+        cut = [p.is_shard(1) for p in shard(state, *heads, None,
+                                            None).placements]
+        if B_t.shape[1] > 1 and any(cut):
+            return orig(state, x_t, dt_t, A, B_t, C_t)
+        return blockwise(orig, ((*heads, None, None), (*heads, None), heads,
+                                ("ssm_heads",), rows(B_t), rows(C_t)),
+                         state, x_t, dt_t, A, B_t, C_t)
+
+    return ssd_step
 
 
 def _embed_inputs(orig):
@@ -368,8 +473,7 @@ def _roles(x, w):
 
 
 def _dim(p):
-    """The tensor dimension a placement splits (a strided split too), or
-    None."""
+    """The tensor dimension a placement splits, or None."""
     return None if p.is_replicate() or p.is_partial() else p.dim
 
 
@@ -396,18 +500,15 @@ def _plan(x, w):
       * a batch dimension takes the split of the side that has one.
 
     A partial sum is reduced first. -> (x placements, w placements,
-    output placements), or None for a strided split (an einsum's merged
-    dimensions) of K or N, or of a batch dimension split two different
-    ways: DTensor's own strategy takes those."""
+    output placements). No operand has a strided split: the stand-ins run
+    every einsum that would merge split dimensions on local blocks
+    (``tests/test_torch_dryrun_sharded.py`` holds each held step to plain
+    placements)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     xr, wr = _roles(x, w)
     rx = ["R" if _dim(p) is None else xr[p.dim] for p in x.placements]
     rw = ["R" if _dim(p) is None else wr[p.dim] for p in w.placements]
-    if any(r == "k" and not p.is_shard() for r, p in zip(rx, x.placements)) \
-            or any(r in ("k", "n") and not p.is_shard()
-                   for r, p in zip(rw, w.placements)):
-        return None  # a strided split of K or N
     mesh = x.device_mesh
     free = [m for m in range(mesh.ndim) if rx[m] == rw[m] == "R"]
     w_local = w._local_tensor.numel()
@@ -436,8 +537,6 @@ def _plan(x, w):
         elif "batch" in (rx[m], rw[m]):
             b = pw if rx[m] == "R" else px
             if rw[m] not in ("R", "batch") or rw[m] == "batch" and b != pw:
-                if not (px.is_shard() and pw.is_shard()):
-                    return None
                 b = Shard(0)
             plans.append((b, b, b))
         elif rx[m] == "R" and rw[m] != "k":
@@ -459,10 +558,59 @@ def _dtensor(local, mesh, placements, shape, stride):
     return DTensor(local, spec, requires_grad=False)
 
 
-def _moved(t, placements):
+class _Hoisted:
+    """The gathers of a step's loop-invariant weights, each made once in
+    the step's forward passes and kept for them: every parameter outside
+    the layer stack (a hybrid's shared block, the output head). The
+    reference's program scans over layers and microbatches, and XLA
+    hoists the all-gather of a weight that no loop varies out of every
+    loop of the forward: once a step, whatever the microbatches and
+    super-blocks. Its backward gathers at each use (remat's barrier keeps
+    the recompute's and the gradient's products in the loop body), and so
+    does the port's: outside a forward pass nothing is kept."""
+
+    def __init__(self, params):
+        invariant = {k: v for k, v in (params or {}).items()
+                     if k != "layers"}
+        storages = [t._local_tensor.untyped_storage()
+                    for t in flatten(invariant)[0] if is_dtensor(t)]
+        self.storages = {id(st): st for st in storages}  # kept alive
+        self.kept = {}
+        self.forward = False
+
+    def forward_pass(self, orig):
+        """``orig`` (a step's forward, prefill or decode) run as a forward
+        pass."""
+        def forward_pass(*args, **kwargs):
+            outer, self.forward = self.forward, True
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.forward = outer
+
+        return forward_pass
+
+    def move(self, t, spec, make):
+        """``make()``, the local block of ``t`` laid out by ``spec``, kept
+        when ``t`` is a view of a loop-invariant weight in a forward
+        pass."""
+        local = t._local_tensor
+        st = id(local.untyped_storage())
+        if not self.forward or st not in self.storages:
+            return make()
+        key = (st, local.storage_offset(), tuple(local.shape),
+               local.stride(), local.dtype, local._version,
+               tuple(t.placements), tuple(spec.placements))
+        if key not in self.kept:
+            self.kept[key] = make()
+        return self.kept[key]
+
+
+def _moved(t, placements, hoisted=None):
     """The DTensor ``t`` laid out by ``placements`` below autograd: the
     collectives of DTensor's own redistribution, partial sums reduced by
-    all-reduce."""
+    all-reduce; a loop-invariant weight's once in a step's forward passes
+    when ``hoisted`` (:class:`_Hoisted`) is given."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._dtensor_spec import DTensorSpec
     from torch.distributed.tensor._redistribute import \
@@ -473,8 +621,11 @@ def _moved(t, placements):
         return t
     spec = DTensorSpec(t.device_mesh, placements,
                        tensor_meta=t._spec.tensor_meta)
-    return DTensor(redistribute_local_tensor(t._local_tensor, t._spec, spec),
-                   spec, requires_grad=False)
+    def make():
+        return redistribute_local_tensor(t._local_tensor, t._spec, spec)
+
+    local = make() if hoisted is None else hoisted.move(t, spec, make)
+    return DTensor(local, spec, requires_grad=False)
 
 
 def _reduced(t):
@@ -485,21 +636,19 @@ def _reduced(t):
                       for p in t.placements])
 
 
-def _product(func, x, w):
+def _product(func, x, w, hoisted=None):
     """``func(x, w)`` on this rank's blocks as :func:`_plan` lays them
-    out, as a DTensor whose partial sums are reduced; None where
-    :func:`_plan` leaves the product to DTensor."""
+    out, as a DTensor whose partial sums are reduced; the operands' moves
+    through ``hoisted`` (:func:`_moved`)."""
     from torch.distributed.tensor import Replicate
 
     mesh = (x if is_dtensor(x) else w).device_mesh
     x, w = [t if is_dtensor(t) else _dtensor(
         t, mesh, [Replicate()] * mesh.ndim, t.shape, t.stride())
         for t in (x, w)]
-    plan = _plan(x, w)
-    if plan is None:
-        return None
-    px, pw, pout = plan
-    y = func(_moved(x, px)._local_tensor, _moved(w, pw)._local_tensor)
+    px, pw, pout = _plan(x, w)
+    y = func(_moved(x, px, hoisted)._local_tensor,
+             _moved(w, pw, hoisted)._local_tensor)
     shape = x.shape[:-1] + w.shape[-1:]
     strides, n = [], 1
     for d in reversed(shape):
@@ -549,7 +698,12 @@ class _Layouts(TorchDispatchMode):
     through :func:`_logsumexp` or :func:`_mean`, and everything else as it
     is. It acts below autograd, so the products of the backward, and of
     the layers it recomputes, are laid out by the same rules as the
-    forward's."""
+    forward's. ``hoisted`` (:class:`_Hoisted`) keeps the loop-invariant
+    weights' gathers."""
+
+    def __init__(self, hoisted):
+        super().__init__()
+        self.hoisted = hoisted
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -572,19 +726,20 @@ class _Layouts(TorchDispatchMode):
                     # a 2-D weight broadcast over x's leading dimensions
                     # (``matmul`` of (B, 1, K) by (K, N)): one product
                     out = _product(aten.mm.default,
-                                   x.reshape(-1, x.shape[-1]), w[0])
+                                   x.reshape(-1, x.shape[-1]), w[0],
+                                   self.hoisted)
                     out = out.reshape(x.shape[:-1] + w.shape[-1:])
                 else:
-                    out = _product(func, x, w)
-            if out is not None:
-                return out
+                    out = _product(func, x, w, self.hoisted)
+            return out
         return func(*args, **kwargs)
 
 
 @contextlib.contextmanager
-def installed():
+def installed(params=None):
     """The stand-ins in place of the model's and DTensor's functions, and
-    :class:`_Layouts`; restored on exit."""
+    :class:`_Layouts`; restored on exit. ``params``, the step's parameter
+    tree, names the loop-invariant weights (:class:`_Hoisted`)."""
     from torch.distributed.tensor import _dispatch as dtensor_dispatch
     from torch.distributed.tensor import placement_types
 
@@ -592,21 +747,27 @@ def installed():
     from repro_torch.models import moe, ssm
     from repro_torch.models import transformer as tf
 
+    hoisted = _Hoisted(params)
     sites = ((attn, "attend", _attend), (attn, "write_prefill",
                                           _write_prefill),
              (attn, "write_decode", _write_decode),
+             (attn, "decode_attend", _decode_attend),
+             (ssm, "_causal_conv", _causal_conv),
              (moe, "_dispatch", _dispatch), (moe, "_combine", _combine),
-             (ssm, "ssd_chunked", _ssd_chunked),
+             (ssm, "ssd_chunked", _ssd_chunked), (ssm, "ssd_step", _ssd_step),
              (tf, "embed_inputs", _embed_inputs),
              (tf, "unembed", _unembed), (tf, "init_cache", _init_cache),
              (placement_types, "shard_dim_alltoall", _alltoall),
              (dtensor_dispatch, "redistribute_local_tensor", _reuse),
-             (tf, "_write_mamba", _write_mamba))
+             (tf, "_write_mamba", _write_mamba),
+             (tf, "forward", hoisted.forward_pass),
+             (tf, "prefill", hoisted.forward_pass),
+             (tf, "decode_step", hoisted.forward_pass))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for mod, name, make in sites:
         setattr(mod, name, make(getattr(mod, name)))
     try:
-        with _Layouts():
+        with _Layouts(hoisted):
             yield
     finally:
         for mod, name, fn in saved:
