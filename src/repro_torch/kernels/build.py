@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs import ranges
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -65,24 +67,26 @@ def build_all(sources) -> dict:
             todo[source] = out
     if not todo:
         return done
-    nvcc = _nvcc(", ".join(todo))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for source, out in todo.items():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[source] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for source, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed to build {CSRC / source}:\n{log}")
-            continue
-        os.replace(tmp, todo[source])
-        done[source] = (todo[source], log)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    with ranges.span(ranges.KERNELS_BUILD):
+        nvcc = _nvcc(", ".join(todo))
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for source, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            procs[source] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for source, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(
+                    f"nvcc failed to build {CSRC / source}:\n{log}")
+                continue
+            os.replace(tmp, todo[source])
+            done[source] = (todo[source], log)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     return done
 
 
@@ -99,16 +103,17 @@ def load(source: str, signatures: dict) -> ctypes.CDLL:
     source also exports ``<stem>_error_string(int) -> const char*``."""
     lib = _libs.get(source)
     if lib is None:
-        path, _ = build(source)
-        lib = ctypes.CDLL(str(path))
-        for name, (argtypes, restype) in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = restype
-        err = getattr(lib, f"{Path(source).stem}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[source] = lib
+        with ranges.span(ranges.KERNELS_LOAD):
+            path, _ = build(source)
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            err = getattr(lib, f"{Path(source).stem}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[source] = lib
     return lib
 
 

@@ -50,6 +50,7 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import (flash_attention_fwd_stats_ref,
                                      flash_attention_ref)
+from repro_torch.obs import ranges
 
 SOURCE = "flash_attention.cu"
 BACKWARD_SOURCE = "flash_attention_bwd.cu"
@@ -276,7 +277,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, m, l, q_pos, k_pos = ctx.saved_tensors
         causal, window = ctx.mask
         do = do.contiguous()
-        with torch.profiler.record_function(BACKWARD):
+        with ranges.span(BACKWARD):
             grads = flash_attention_backward(
                 q, k, v, m, l, do, causal=causal, window=window,
                 q_pos=q_pos, k_pos=k_pos, needs=ctx.needs_input_grad[:3])

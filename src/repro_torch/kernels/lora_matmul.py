@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import lora_matmul_ref
+from repro_torch.obs import ranges
 
 SOURCE = "lora_matmul.cu"
 W_TRANSPOSE = "K2 backward W transpose"
@@ -143,9 +144,9 @@ class LoRAMatmul(torch.autograd.Function):
         dy = dy.contiguous()
         dx = None
         if ctx.needs_input_grad[0]:
-            with torch.profiler.record_function(W_TRANSPOSE):
+            with ranges.span(W_TRANSPOSE):
                 wt = w.t().contiguous()
-            with torch.profiler.record_function(BACKWARD_DX):
+            with ranges.span(BACKWARD_DX):
                 dx = _run(dy, wt, b.t().contiguous(), a.t().contiguous(), s)
             lora_matmul.backward_launches += dy.device.type == "cuda"
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
@@ -156,7 +157,7 @@ class LoRAMatmul(torch.autograd.Function):
 def _rank_r_grads(ctx, x, a, b, dy, s):
     """(dA, dB): f32 products, each rounded once to its factor's dtype."""
     da = db = None
-    with torch.profiler.record_function(BACKWARD_RANK_R):
+    with ranges.span(BACKWARD_RANK_R):
         xf, dyf = x.float(), dy.float()
         if ctx.needs_input_grad[2]:
             da = (s * torch.matmul(xf.t(), torch.matmul(dyf, b.float().t()))

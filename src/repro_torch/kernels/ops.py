@@ -20,6 +20,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.lora_matmul import LoRAMatmul
 from repro_torch.kernels.ssd_scan import SSDScan
+from repro_torch.obs import ranges
 
 
 @dataclass(frozen=True)
@@ -37,6 +38,7 @@ _flash = FlashAttention.apply
 _ssd = SSDScan.apply
 
 
+@ranges.stage(ranges.LORA_MATMUL)
 def lora_matmul(x, w, a, b, scale: float,
                 kcfg: KernelConfig = DEFAULT) -> torch.Tensor:
     """y = x @ W + scale * (x@A)@B. x (..., K) is flattened to 2-D; W may be
@@ -53,6 +55,7 @@ def lora_matmul(x, w, a, b, scale: float,
     return y.reshape(*lead, *w.shape[1:])
 
 
+@ranges.stage(ranges.ATTENTION)
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_pos: Optional[torch.Tensor] = None,
               k_pos: Optional[torch.Tensor] = None,
@@ -65,7 +68,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     if rep > 1:
         # GQA: K and V copied to every query head before K3 (named, so that
         # a profiler trace shows the copies' device time)
-        with torch.profiler.record_function(KV_REPEAT):
+        with ranges.span(KV_REPEAT):
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
     sk = k.shape[1]
@@ -83,6 +86,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return o.reshape(b, h, sq, d).transpose(1, 2)
 
 
+@ranges.stage(ranges.SSD)
 def ssd(x, dt, A, B, C, *, kcfg: KernelConfig = DEFAULT):
     """Grouped-head SSD: x (B, S, H, P), dt (B, S, H) f32, A (H,) f32,
     B / C (B, S, G, N). Returns (y (B, S, H, P) contiguous in x's dtype,
@@ -96,7 +100,7 @@ def ssd(x, dt, A, B, C, *, kcfg: KernelConfig = DEFAULT):
     own and the plain version is step by step, so there is none here."""
     # named so that a profiler trace shows what preparation costs (dt and
     # A arrive in f32: no copy)
-    with torch.profiler.record_function(SSD_COPIES):
+    with ranges.span(SSD_COPIES):
         dt, A = dt.float(), A.float()
     if kcfg.use_cuda:
         return _ssd(x, dt, A, B, C)

@@ -55,6 +55,7 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import (SSD_CHUNK, ssd_scan_grouped_ref,
                                      ssd_scan_ref)
+from repro_torch.obs import ranges
 
 SOURCE = "ssd_scan.cu"
 BACKWARD_SOURCE = "ssd_scan_bwd.cu"
@@ -394,6 +395,6 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh):
-        with torch.profiler.record_function(BACKWARD):
+        with ranges.span(BACKWARD):
             return ssd_scan_grouped_backward(*ctx.saved_tensors, dy, dh,
                                              ctx.needs_input_grad)

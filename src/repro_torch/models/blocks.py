@@ -11,6 +11,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.obs import ranges
 from repro_torch.sharding import shard
 
 
@@ -45,6 +46,7 @@ def mask_positions(cfg, positions) -> torch.Tensor:
     return q_pos.to(torch.int32).contiguous()
 
 
+@ranges.stage(ranges.BLOCK)
 def transformer_block_full(cfg, p, h, positions, q_pos=None,
                            want_cache: bool = False,
                            kcfg: ops.KernelConfig = ops.DEFAULT):
@@ -92,6 +94,7 @@ def init_mamba_block(generator: torch.Generator, cfg, dtype) -> dict:
     }
 
 
+@ranges.stage(ranges.BLOCK)
 def mamba_block_full(cfg, p, h, return_cache: bool = False,
                      kcfg: ops.KernelConfig = ops.DEFAULT):
     """Full sequence. Returns h or, when ``return_cache``, (h, mamba cache)."""

@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs import ranges
 from repro_torch.sharding import Param
 
 
@@ -82,6 +83,7 @@ def init_norm(cfg, dtype, device) -> dict:
     raise ValueError(cfg.norm_type)
 
 
+@ranges.stage(ranges.NORM)
 def apply_norm(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm_type == "rmsnorm":
         return rmsnorm(x, params["scale"], cfg.norm_eps)

@@ -18,10 +18,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import act_fn, normal_param
+from repro_torch.obs import ranges
 from repro_torch.sharding import shard
 
-# named ranges around the layer's four stages, so that a profiler trace
-# shows the device time of each (a few us of host time a layer otherwise)
+# the layer's four stages, each a range in a profiler trace with its
+# backward half (``obs/ranges``)
 ROUTE, DISPATCH, EXPERTS, COMBINE = ("moe route", "moe dispatch",
                                      "moe experts", "moe combine")
 
@@ -134,21 +135,28 @@ def apply_moe(cfg, p, x):
     e = cfg.moe.num_experts
     cap = expert_capacity(cfg, s)
     act = act_fn(cfg.mlp_act)
-    rf = torch.profiler.record_function
-    with rf(ROUTE):
+    with ranges.span(ROUTE):
+        start = ranges.entry(x)
         idx, wts, aux = route(cfg, p["router"], x)
-    with rf(DISPATCH):
+        ranges.halve(ROUTE, start, wts, aux)
+    with ranges.span(DISPATCH):
+        start = ranges.entry(x)
         buf, info = _dispatch(cfg, x, idx, cap)               # (B, E, C, d)
         buf = shard(buf, "batch", "experts", None, "embed")
         xe = buf.transpose(0, 1).reshape(e, b * cap, d)
-    with rf(EXPERTS):
+        ranges.halve(DISPATCH, start, xe)
+    with ranges.span(EXPERTS):
+        start = ranges.entry(xe)
         h = act(torch.bmm(xe, p["w1"]))
         if cfg.mlp_act == "silu":
             h = h * torch.bmm(xe, p["w3"])
         h = shard(h, "experts", "batch", "tensor")
         out = torch.bmm(h, p["w2"]).reshape(e, b, cap, d).transpose(0, 1)
         out = shard(out, "batch", "experts", None, "embed")
-    with rf(COMBINE):
+        ranges.halve(EXPERTS, start, out)
+    with ranges.span(COMBINE):
+        start = ranges.entry(out, wts)
         y = _combine(cfg, out, info, wts, s).to(x.dtype)
         y = shard(y, "batch", "seq", "embed")
+        ranges.halve(COMBINE, start, y)
     return y, aux.mean()

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import ranges
+
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
@@ -23,6 +25,7 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+@ranges.stage(ranges.ROPE)
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x (B, S, n_heads, head_dim), positions (B, S) int."""
@@ -35,6 +38,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x.float(), cos, sin).to(x.dtype)
 
 
+@ranges.stage(ranges.ROPE)
 def apply_m_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                  sections) -> torch.Tensor:
     """x (B, S, n_heads, head_dim), positions (B, S, 3) int: the (t, h, w)

@@ -25,6 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import lora as lora_lib
 from repro_torch.models.common import (const_param, normal_param, ones_param,
                                       zeros_param)
+from repro_torch.obs import ranges
 from repro_torch.sharding import shard
 
 
@@ -189,6 +190,7 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
 # Full block
 # ---------------------------------------------------------------------------
 
+@ranges.stage(ranges.SSM_GATED_NORM)
 def _gated_norm(y, z, scale, eps):
     g = y.float() * F.silu(z.float())
     var = g.square().mean(dim=-1, keepdim=True)
@@ -208,6 +210,20 @@ def _project_inputs(cfg, p, x, kcfg: ops.KernelConfig = ops.DEFAULT):
     return z, xin, Braw, Craw, dt_raw
 
 
+@ranges.stage(ranges.SSM_CONV)
+def _conv(xin, Braw, Craw, w, b, di: int):
+    """The causal conv over x, B and C side by side, split again:
+    (its raw input, x (B,S,di), B, C (B,S,G,N))."""
+    bsz, S, G, N = Braw.shape
+    xbc_raw = torch.cat([xin, Braw.reshape(bsz, S, G * N),
+                         Craw.reshape(bsz, S, G * N)], dim=-1)
+    xbc = _causal_conv(xbc_raw, w, b)
+    return (xbc_raw, xbc[..., :di],
+            xbc[..., di:di + G * N].reshape(bsz, S, G, N),
+            xbc[..., di + G * N:].reshape(bsz, S, G, N))
+
+
+@ranges.stage(ranges.SSM_MIXER)
 def apply_mamba(cfg, p, x, return_cache: bool = False,
                 kcfg: ops.KernelConfig = ops.DEFAULT):
     """x:(B,S,d) -> (B,S,d). Forward / prefill path. With ``return_cache``
@@ -216,16 +232,12 @@ def apply_mamba(cfg, p, x, return_cache: bool = False,
     s = cfg.ssm
     d = cfg.d_model
     di = s.d_inner(d)
-    H, G, N, P = s.heads(d), s.n_groups, s.state_size, s.head_dim
+    H, P = s.heads(d), s.head_dim
     bsz, S, _ = x.shape
 
     z, xin, Braw, Craw, dt_raw = _project_inputs(cfg, p, x, kcfg)
-    xbc_raw = torch.cat([xin, Braw.reshape(bsz, S, G * N),
-                         Craw.reshape(bsz, S, G * N)], dim=-1)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :di].reshape(bsz, S, H, P)
-    B = xbc[..., di:di + G * N].reshape(bsz, S, G, N)
-    C = xbc[..., di + G * N:].reshape(bsz, S, G, N)
+    xbc_raw, xs, B, C = _conv(xin, Braw, Craw, p["conv_w"], p["conv_b"], di)
+    xs = xs.reshape(bsz, S, H, P)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 

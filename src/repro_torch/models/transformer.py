@@ -36,6 +36,7 @@ from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import apply_norm, init_norm, normal_param
 from repro_torch.models.rope import default_m_positions, default_positions
+from repro_torch.obs import ranges
 from repro_torch.sharding import Param, axes_to_str, shard, split_params
 from repro_torch.utils.tree import flatten, unflatten
 
@@ -122,11 +123,12 @@ def init_model(generator: torch.Generator, cfg):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg, params, batch) -> torch.Tensor:
-    if cfg.embed_inputs:
-        h = batch["embeds"].to(model_dtype(cfg))
-    else:
-        h = params["embed"][batch["tokens"]].to(model_dtype(cfg))
-    return shard(h, "batch", "seq", "embed")
+    with ranges.span(ranges.EMBED):
+        if cfg.embed_inputs:
+            h = batch["embeds"].to(model_dtype(cfg))
+        else:
+            h = params["embed"][batch["tokens"]].to(model_dtype(cfg))
+        return shard(h, "batch", "seq", "embed")
 
 
 def unembed(cfg, params, h) -> torch.Tensor:
@@ -207,8 +209,12 @@ def forward(cfg, params, batch, kcfg: ops.KernelConfig = ops.DEFAULT,
                 h = mblock(lp, h)
             h, a = sblock(params["shared"], h)
             aux = aux + a
-    h = apply_norm(cfg, params["final_norm"], h)
-    return unembed(cfg, params, h), aux
+    with ranges.span(ranges.HEAD):
+        start = ranges.entry(h)
+        h = apply_norm(cfg, params["final_norm"], h)
+        logits = unembed(cfg, params, h)
+        ranges.halve(ranges.HEAD, start, logits)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ import torch
 from repro_torch.core.job import exact_div
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tf
+from repro_torch.obs import ranges
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.sharding import shard
 from repro_torch.train.losses import task_loss
@@ -54,12 +55,17 @@ def _device(params) -> torch.device:
     return flatten(params)[0][0].device
 
 
+@ranges.stage(ranges.LOSS)
+def _loss(cfg, logits, batch, aux):
+    return task_loss(cfg, logits, batch) + aux
+
+
 def _value_and_grad(cfg, tcfg, kcfg, merge, lora0, batch):
     """(loss, grads over the LoRA leaves) of one (micro)batch."""
     leaves = [leaf.detach().requires_grad_(True) for leaf in lora0]
     logits, aux = tf.forward(cfg, merge(leaves), batch, kcfg=kcfg,
                              remat=tcfg.remat)
-    loss = task_loss(cfg, logits, batch) + aux
+    loss = _loss(cfg, logits, batch, aux)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
 
@@ -71,12 +77,13 @@ def _lr(tcfg, step):
 
 
 def _apply(tcfg, merge, lora0, opt_state, grads):
-    grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
-    lr = _lr(tcfg, opt_state.step)
-    with torch.no_grad():
-        new_lora, new_opt = adamw.update(
-            grads, opt_state, lora0, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
-            eps=tcfg.eps, weight_decay=tcfg.weight_decay)
+    with ranges.span(ranges.OPTIM):
+        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
+        lr = _lr(tcfg, opt_state.step)
+        with torch.no_grad():
+            new_lora, new_opt = adamw.update(
+                grads, opt_state, lora0, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+                eps=tcfg.eps, weight_decay=tcfg.weight_decay)
     return merge(new_lora), new_opt, gnorm, lr
 
 
@@ -87,6 +94,10 @@ def make_train_step(cfg, tcfg, kcfg: ops.KernelConfig = ops.DEFAULT):
     zeros, and divided by a (the reference's scan)."""
 
     def train_step(params, opt_state, batch):
+        with ranges.span(ranges.TRAIN_STEP):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         batch = batch_to(batch, _device(params))
         lora0, merge = partition_by_path(params, is_lora_path)
         a = tcfg.microbatches
