@@ -2498,6 +2498,7 @@ def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
     tokens on the same numpy weights (a smoke config, f32)."""
     from repro_torch import convert
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.causal_conv import causal_conv
     from repro_torch.serve import Request, ServingEngine
 
     k2, k3, k4 = kernels
@@ -2509,18 +2510,20 @@ def _phase_serve_ref(torch, np, dev, kernels, tag="serve-ref",
     _reset_counts(k2, k3, k4)
     out = eng.generate_batch([Request(p, SERVE_REF_NEW) for p in prompts])
     launches = (k2.lora_matmul.launches, k3.flash_attention.launches,
-                k4.ssd_scan.launches)
+                k4.ssd_scan.launches, causal_conv.launches)
     got = tuple(tuple(int(t) for t in o) for o in out)
     if got != tokens:
         _fail(f"[{tag}] tokens {got} != JAX {tokens}")
     per_fwd, n_k3, n_k4 = _launches_per_forward(cfg)
-    want = (per_fwd * (1 + SERVE_REF_NEW), n_k3, n_k4)
+    # the conv's kernel launches once a Mamba2 layer at prefill, as K4
+    want = (per_fwd * (1 + SERVE_REF_NEW), n_k3, n_k4, n_k4)
     if launches != want:
-        _fail(f"[{tag}] K2/K3/K4 launches {launches}, expected {want}")
+        _fail(f"[{tag}] K2/K3/K4/conv launches {launches}, expected {want}")
     print(f"[{tag}] {cfg.name}: {len(got)} requests of {prompt_len} tokens x "
           f"{SERVE_REF_NEW} greedy tokens equal the JAX ServingEngine's; K2 "
           f"launched "
-          f"{launches[0]} times, K3 {launches[1]}, K4 {launches[2]}")
+          f"{launches[0]} times, K3 {launches[1]}, K4 {launches[2]}, the "
+          f"conv {launches[3]}")
 
 
 # [dryrun]: one full-size combination on the production mesh, a subprocess
@@ -2718,6 +2721,7 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.causal_conv import causal_conv
     from repro_torch.kernels.ops import KernelConfig
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
@@ -2756,12 +2760,14 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
     finally:
         tf.decode_step = decode_step
     launches = (at_decode[0], k2.lora_matmul.launches - at_decode[0],
-                k3.flash_attention.launches, k4.ssd_scan.launches)
+                k3.flash_attention.launches, k4.ssd_scan.launches,
+                causal_conv.launches)
     peak = torch.cuda.max_memory_allocated()
     per_forward, n_k3, n_k4 = _launches_per_forward(cfg)
-    want = (per_forward, per_forward * new, n_k3, n_k4)
+    # the conv's kernel launches once a Mamba2 layer at prefill, as K4
+    want = (per_forward, per_forward * new, n_k3, n_k4, n_k4)
     if launches != want:
-        _fail(f"[{tag}] K2 prefill / K2 decode / K3 / K4 launches "
+        _fail(f"[{tag}] K2 prefill / K2 decode / K3 / K4 / conv launches "
               f"{launches}, expected {want}")
     tokens = np.stack(out)
     if tokens.shape != (batch, new) or not (
@@ -2777,7 +2783,8 @@ def _phase_serve(torch, np, dev, kernels, tag="serve", arch=SERVE_ARCH,
           f"{new} greedy tokens each: {wall:.3f} s, "
           f"{batch * new / wall:.1f} tokens/s; K2 launched "
           f"{launches[0] + launches[1]} times ({launches[0]} at prefill), "
-          f"K3 {launches[2]}, K4 {launches[3]}; peak memory "
+          f"K3 {launches[2]}, K4 {launches[3]}, the conv {launches[4]}; "
+          f"peak memory "
           f"{peak / 2**30:.2f} GiB")
 
     prompts_t = torch.from_numpy(prompts.astype(np.int64))
@@ -3052,15 +3059,21 @@ def _reset_counts(k2, k3, k4) -> None:
     k3.flash_attention_backward.launches = 0
     k4.ssd_scan.launches = 0
     k4.ssd_scan.backward_launches = 0
+    from repro_torch.kernels.causal_conv import causal_conv
+    causal_conv.launches = 0
+    causal_conv.backward_launches = 0
 
 
 def _train_counts(k2, k3, k4) -> tuple:
-    """(K2 forward, K2 backward, K3, K4, K4 backward, K3 backward) launches
-    since the last reset."""
+    """(K2 forward, K2 backward, K3, K4, K4 backward, K3 backward, the
+    Mamba-2 conv, its backward) launches since the last reset."""
+    from repro_torch.kernels.causal_conv import causal_conv
+
     return (k2.lora_matmul.launches, k2.lora_matmul.backward_launches,
             k3.flash_attention.launches, k4.ssd_scan.launches,
             k4.ssd_scan.backward_launches,
-            k3.flash_attention_backward.launches)
+            k3.flash_attention_backward.launches, causal_conv.launches,
+            causal_conv.backward_launches)
 
 
 def _counts(k2, k3) -> tuple:
@@ -3879,6 +3892,90 @@ def _phase_time_k4_backward(torch, gen, k4, bt, s, hh, p, g, n):
             "issued_ops": _k4_bwd_issued_ops(torch, k4, bt, s, hh, g, n)}
 
 
+# [time]'s Mamba-2 conv: the benchmark's mamba2-370m cell's training shape
+# (batch, S, d_inner, G N, conv width)
+CONV_TIME_SHAPE = (24, 2048, 2048, 128, 4)
+
+
+def _phase_time_causal_conv(torch, gen, kconv, bt, s, di, gn, wc):
+    """The Mamba-2 conv's kernels at a training shape (bf16 x (bt, s, di),
+    B and C (bt, s, gn) as the mixer's projections leave them, w and b
+    drawn non-zero), each timed by ``_graph_ms`` beside the plain chain
+    they replace: the cat and ``models/ssm._causal_conv`` forward, and
+    autograd's backward through the cat, the chain and the mixer's three
+    slices (by events; the forward's graph kept). The forward is held bit
+    for bit against that chain, the backward's dx / dB / dC (what training
+    asks for: w and b are frozen) within a bf16 rounding of
+    ``ref.causal_conv_bwd_ref`` on the card. Bounds by bytes: the forward
+    reads x, B and C and writes xbc (2 bytes an element each), the backward
+    reads them and the three cotangents and writes the three gradients.
+    Returns {"forward": row, "backward": row}, each without its launches
+    (the caller's, from a main-path run)."""
+    from repro_torch.kernels.ref import causal_conv_bwd_ref
+    from repro_torch.models import ssm
+
+    ch = di + 2 * gn
+    bf16 = torch.bfloat16
+    ins = (_randn(torch, gen, (bt, s, di), 1.0, bf16),
+           _randn(torch, gen, (bt, s, gn), 1.0, bf16),
+           _randn(torch, gen, (bt, s, gn), 1.0, bf16),
+           _randn(torch, gen, (ch, wc), 0.3, bf16),
+           _randn(torch, gen, (ch,), 0.1, bf16))
+    douts = tuple(_randn(torch, gen, t.shape, 1.0, bf16) for t in ins[:3])
+    needs = (True, True, True, False, False)
+
+    def plain():
+        return ssm._causal_conv(torch.cat(ins[:3], dim=-1), *ins[3:])
+
+    def kernel():
+        return kconv.causal_conv(*ins)
+
+    def backward():
+        return kconv.causal_conv_backward(*ins, *douts, needs=needs)
+
+    before = (kconv.causal_conv.launches,
+              kconv.causal_conv.backward_launches)
+    got, want = kernel(), plain()
+    if not torch.equal(got, want):
+        _fail(f"[time] causal_conv at {(bt, s, ch, wc)}: the forward is not "
+              f"bit-equal to the plain chain (max |d| "
+              f"{float((got.float() - want.float()).abs().max()):.3e})")
+    del got, want
+    grads = backward()[:3]
+    ref = causal_conv_bwd_ref(torch.cat(ins[:3], dim=-1), *ins[3:],
+                              torch.cat(douts, dim=-1))[0]
+    bwd_err = 0.0
+    for g, r in zip(grads, kconv.split(ref, di, gn)):
+        bwd_err = max(bwd_err, _close(torch, "causal_conv backward", g, r,
+                                      2.0 ** -7, 1e-6))
+    del grads, ref
+    fwd_ms = _graph_ms(torch, kernel)
+    plain_fwd_ms = _graph_ms(torch, plain, reps=5, rounds=3)
+    bwd_ms = _graph_ms(torch, backward, reps=5, rounds=3)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins[:3]]
+    xbc = ssm._causal_conv(torch.cat(leaves, dim=-1), *ins[3:])
+    outs = kconv.split(xbc, di, gn)
+    plain_bwd_ms = _event_ms(torch, lambda: torch.autograd.grad(
+        outs, leaves, douts, retain_graph=True), 5)
+    del xbc, outs, leaves
+    torch.cuda.empty_cache()
+    (kconv.causal_conv.launches,
+     kconv.causal_conv.backward_launches) = before
+    n = bt * s * ch
+    rows = {}
+    for name, ms, plain_ms, n_bytes, err in (
+            ("forward", fwd_ms, plain_fwd_ms, 2 * 2 * n + 2 * ch * (wc + 1),
+             0.0),
+            ("backward", bwd_ms, plain_bwd_ms,
+             2 * 3 * n + 2 * ch * (wc + 1), bwd_err)):
+        bound, b_ms, o_ms = _bound(n_bytes, 0, BF16_OPS_PER_S)
+        rows[name] = {"Bt": bt, "S": s, "C": ch, "wc": wc, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": bound, "bound_by": _bound_by(b_ms, o_ms),
+                      "bytes": n_bytes, "err": err}
+    return rows
+
+
 def _k4_bwd_issued_ops(torch, k4, bt, s, hh, g, n) -> int:
     """The operations K4's bf16 backward issues on the tensor cores (2 a
     multiply-add; P and N padded as its tiles pad them, to 64 and to 64 or
@@ -4516,13 +4613,14 @@ def _phase_train_ref(torch, dev, kernels, tag="train-ref",
     has_k3 = cfg.arch_type != "ssm"
     has_k4 = cfg.arch_type in ("ssm", "hybrid")
     names = ("K2 forward", "K2 backward", "K3", "K4", "K4 backward",
-             "K3 backward")
+             "K3 backward", "conv", "conv backward")
     for mb, want in (TRAIN_REF if refs is None else refs).items():
         _reset_counts(k2, k3, k4)
         got = train_ref_run(torch, dev, mb, arch)
         torch.cuda.synchronize()
         counts = _train_counts(k2, k3, k4)
-        needed = (True, True, has_k3, has_k4, has_k4, has_k3)
+        needed = (True, True, has_k3, has_k4, has_k4, has_k3, has_k4,
+                  has_k4)
         if any(bool(c) != need for c, need in zip(counts, needed)):
             _fail(f"[{tag}] {arch} microbatches {mb}: launches "
                   + ", ".join(f"{k} {c}" for k, c in zip(names, counts))
@@ -4596,16 +4694,17 @@ def _grad_distance(torch, a, b) -> tuple:
 
 
 def _train_launches(cfg) -> tuple:
-    """(K2 forward, K2 backward, K3, K4, K4 backward, K3 backward) launches
-    of one training step with remat full: each forward's K2, K3 and K4
-    launches twice (the recompute), K2's dx once for every adapted
-    projection but the first layer's (its input, the frozen embedding,
-    carries no gradient: q and v of a dense layer, wx of a Mamba2 one), K3's
-    backward once an attention layer (or shared-block application), K4's
-    backward once a Mamba2 layer."""
+    """(K2 forward, K2 backward, K3, K4, K4 backward, K3 backward, the
+    Mamba-2 conv, its backward) launches of one training step with remat
+    full: each forward's K2, K3, K4 and conv launches twice (the
+    recompute), K2's dx once for every adapted projection but the first
+    layer's (its input, the frozen embedding, carries no gradient: q and v
+    of a dense layer, wx of a Mamba2 one), K3's backward once an attention
+    layer (or shared-block application), K4's and the conv's backward once
+    a Mamba2 layer (the conv launches as often as K4)."""
     k2, k3, k4 = _launches_per_forward(cfg)
     first = 1 if cfg.arch_type in ("ssm", "hybrid") else len(cfg.lora.targets)
-    return 2 * k2, k2 - first, 2 * k3, 2 * k4, k4, k3
+    return 2 * k2, k2 - first, 2 * k3, 2 * k4, k4, k3, 2 * k4, k4
 
 
 def _count_plain_attention(k3):
@@ -4861,7 +4960,8 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
     per = _train_launches(cfg)
     if launches != tuple(steps * x for x in per):
         _fail(f"[{tag}] {arch} launches K2 forward / backward, K3, K4, K4 "
-              f"backward, K3 backward {launches}, expected "
+              f"backward, K3 backward, conv, conv backward {launches}, "
+              f"expected "
               f"{tuple(steps * x for x in per)}")
     if with_pos != (launches[2] if cfg.m_rope else 0):
         _fail(f"[{tag}] {arch}: {with_pos} of {launches[2]} K3 launches "
@@ -4891,7 +4991,9 @@ def _phase_train(torch, np, dev, kernels, tag="train", run=TRAIN_RUN,
           f"no gradient), K3 {launches[2] // steps}"
           + (f" (all with positions)" if with_pos else "")
           + f", K3 backward {launches[5] // steps}, K4 "
-          f"{launches[3] // steps}, K4 backward {launches[4] // steps}; no "
+          f"{launches[3] // steps}, K4 backward {launches[4] // steps}, "
+          f"conv {launches[6] // steps}, conv backward "
+          f"{launches[7] // steps}; no "
           f"plain attention; losses {', '.join(f'{x:.4f}' for x in losses)}")
     ranges = {k2.BACKWARD_DX: "K2 backward (dx)", k2.W_TRANSPOSE: "W^T copy",
               k2.BACKWARD_RANK_R: "dA / dB products",
@@ -5636,17 +5738,18 @@ def _phase_roofline(torch, card: str, train: dict, train_ssm: dict,
         return {"lora_matmul": counts[0] + counts[1],
                 "flash_attention": counts[2], "ssd_scan": counts[3],
                 "ssd_scan_backward": counts[4],
-                "flash_attention_backward": counts[5]}
+                "flash_attention_backward": counts[5],
+                "causal_conv": counts[6], "causal_conv_backward": counts[7]}
 
     steps = (
         (cfg, "prefill", ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH,
                                      "prefill"), serve["prefill_s"],
          "one timed prefill of [serve]'s teacher-forced kernel run",
-         serve["peak"], kernels((k2_fwd, 0, k3_fwd, 0, 0, 0))),
+         serve["peak"], kernels((k2_fwd, 0, k3_fwd, 0, 0, 0, 0, 0))),
         (cfg, "decode", ShapeConfig("decode", SERVE_MAX_LEN, SERVE_BATCH,
                                     "decode"), serve["decode_s"],
          f"the mean of [serve]'s {SERVE_NEW} teacher-forced decode steps",
-         serve["peak"], kernels((k2_fwd, 0, 0, 0, 0, 0))),
+         serve["peak"], kernels((k2_fwd, 0, 0, 0, 0, 0, 0, 0))),
         (cfg, "train", ShapeConfig("train", seq, batch, "train"),
          train["step_s"], f"the median of [train]'s {TRAIN_STEPS} timed "
          "steps", train["peak"], kernels(per_step)),
@@ -5732,6 +5835,7 @@ def main() -> int:
     from repro_torch.core import engine, fast_sim, window_opt
     from repro_torch.core.policy_pool import paper_pool, specs_to_arrays
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import causal_conv as kconv
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import lora_matmul as k2
     from repro_torch.kernels import ssd_scan as k4
@@ -5759,14 +5863,14 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kbuild.build_all([k1.SOURCE, k2.SOURCE, k3.SOURCE,
                               k3.BACKWARD_SOURCE, k4.SOURCE,
-                              k4.BACKWARD_SOURCE])
-    for mod in (k1, k2, k3, k4):
+                              k4.BACKWARD_SOURCE, kconv.SOURCE])
+    for mod in (k1, k2, k3, k4, kconv):
         mod.load_library()
     k3.load_backward_library()
     k4.load_backward_library()
     build_s = time.perf_counter() - t0
-    print(f"[id] K1, K2, K3, K3's backward, K4 and K4's backward built in "
-          f"parallel in {build_s:.2f} s")
+    print(f"[id] K1, K2, K3, K3's backward, K4, K4's backward and the "
+          f"Mamba-2 conv built in parallel in {build_s:.2f} s")
     for source, (lib_path, log) in built.items():
         print(f"[id] {source} -> {lib_path.relative_to(ROOT)}")
         for line in log.strip().splitlines():
@@ -6296,6 +6400,23 @@ def main() -> int:
               "library call (no PyTorch call computes the SSD scan's "
               "gradients)")
 
+    conv_rows = _phase_time_causal_conv(torch, gen, kconv, *CONV_TIME_SHAPE)
+    # each way's launches on [train-ssm]'s mamba2-370m timed steps
+    for way, i in (("forward", 6), ("backward", 7)):
+        conv_rows[way]["launches"] = train_ssm["mamba2-370m"]["launches"][i]
+    for way, row in conv_rows.items():
+        print(f"[time] card {card}: the Mamba-2 conv's {way} (no TPU kernel: "
+              f"plain XLA in the reference's models/ssm._causal_conv) at "
+              f"(Bt, S, C, wc) = ({row['Bt']}, {row['S']}, {row['C']}, "
+              f"{row['wc']}) bf16: {row['ms'] * 1e3:.1f} us/launch in a CUDA "
+              f"graph ({row['launches']} launches on [train-ssm]'s "
+              f"mamba2-370m {TRAIN_SSM_STEPS} timed steps); bound "
+              f"{row['bound_ms'] * 1e3:.1f} us by "
+              f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB) = "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound; the plain chain "
+              f"it replaces {row['plain_ms'] * 1e3:.1f} us (plain / kernel "
+              f"{row['plain_ms'] / row['ms']:.1f}x)")
+
     k3_back = {}
     k3_back_runs = {"llama2": launches["train"][5],
                     "zamba2": train_ssm["zamba2-2.7b"]["launches"][5],
@@ -6404,7 +6525,11 @@ def main() -> int:
         # backward of the function it computes)
         _entry("ssd_scan_backward/" + arch.split("-")[0], "ssd_scan_bwd.cu",
                "src/repro/kernels/ssd_scan.py:23", row["launches"],
-               k4_bwd_err, row) for arch, row in k4_back.items()]}))
+               k4_bwd_err, row) for arch, row in k4_back.items()] + [
+        # the Mamba-2 conv, each way (no TPU kernel: plain XLA there)
+        _entry(f"causal_conv/{way}/mamba2", "causal_conv.cu",
+               "src/repro/models/ssm.py:71", row["launches"], row["err"],
+               row) for way, row in conv_rows.items()]}))
     print(f"[id] chip_smoke.py: {time.perf_counter() - t_main:.1f} s from "
           "the build on")
     print(card)

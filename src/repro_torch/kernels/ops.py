@@ -3,11 +3,11 @@
 
 ``KernelConfig(use_cuda=True)`` routes each call to its kernel's
 ``torch.autograd.Function`` (K2 ``LoRAMatmul``, K3 ``FlashAttention``, K4
-``SSDScan``), whose forward launches the CUDA kernel on a CUDA tensor and
-runs the plain version on a CPU tensor, so a model trains through the
-kernels too. ``use_cuda=False`` runs the plain PyTorch version on any
-device: it exists so that one model can run both ways on the card for
-comparison, not as a fallback.
+``SSDScan``, the Mamba-2 mixer's conv ``CausalConv``), whose forward
+launches the CUDA kernel on a CUDA tensor and runs the plain version on a
+CPU tensor, so a model trains through the kernels too. ``use_cuda=False``
+runs the plain PyTorch version on any device: it exists so that one model
+can run both ways on the card for comparison, not as a fallback.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import causal_conv as kconv
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.lora_matmul import LoRAMatmul
@@ -36,6 +37,7 @@ KV_REPEAT = "ops.attention repeat kv"
 _lora = LoRAMatmul.apply
 _flash = FlashAttention.apply
 _ssd = SSDScan.apply
+_conv = kconv.CausalConv.apply
 
 
 @ranges.stage(ranges.LORA_MATMUL)
@@ -105,3 +107,19 @@ def ssd(x, dt, A, B, C, *, kcfg: KernelConfig = DEFAULT):
     if kcfg.use_cuda:
         return _ssd(x, dt, A, B, C)
     return ref.ssd_scan_grouped_ref(x, dt, A, B, C)
+
+
+def causal_conv(xin, B, C, w, b, *, kcfg: KernelConfig = DEFAULT):
+    """The Mamba-2 mixer's depthwise causal conv + silu over x (Bt, S, di),
+    B and C (Bt, S, G*N) side by side, w (di + 2 G N, wc), b (di + 2 G N,).
+    Returns the output's x, B and C parts, views of one (Bt, S, di + 2 G N)
+    buffer.
+
+    With ``kcfg.use_cuda`` the conv's kernel reads x, B and C where they lie
+    (no cat) and its backward writes their gradients apart. Otherwise the
+    plain version: the cat, then ``models/ssm._causal_conv``. No range of
+    its own: the kernels count under the caller's ``ssm conv``."""
+    if kcfg.use_cuda:
+        return _conv(xin, B, C, w, b)
+    return kconv.split(kconv.plain(xin, B, C, w, b), xin.shape[-1],
+                       B.shape[-1])

@@ -9,6 +9,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 BIG = 1.0e9
 MASK_FILL = -2.0e38     # f32-safe masked score, as the reference's kernels
@@ -293,3 +294,31 @@ def ssd_scan_grouped_bwd_ref(x, dt, A, B, C, dy, dh=None):
             ddt.permute(0, 2, 3, 1).reshape(bt, nc * chunk, hh)[:, :s],
             (dtf * dda).sum((0, 2, 3)), grouped(dBh).to(B.dtype),
             grouped(dCh).to(C.dtype))
+
+
+def causal_conv_bwd_ref(xbc, w, b, dy):
+    """The gradients (dxbc, dw, db) of ``models/ssm._causal_conv(xbc, w, b)``
+    at dy (B, S, C), by the backward kernel's formula
+    (``csrc/causal_conv.cu``): silu's input u recomputed with the forward's
+    roundings, g = dy s (1 + u (1 - s)) with s = sigmoid(u) in f32
+    (PyTorch's own ``silu_backward``, run on f32 operands),
+    dx[t] = sum_i g[t + wc - 1 - i] w[:, i] (i from wc - 1 down to 0, the
+    order in which autograd through the plain version adds the shifted
+    slices' gradients), dw[:, i] = sum g[t] xbc[t - (wc - 1) + i] and db =
+    sum g, all f32, each rounded once to its input's dtype."""
+    wc = w.shape[1]
+    s = xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, wc - 1, 0)).float()
+    wf = w.float()
+    y = pad[:, 0:s] * wf[:, 0]
+    for i in range(1, wc):
+        y = y + pad[:, i:i + s] * wf[:, i]
+    u = (y.to(xbc.dtype) + b).float()
+    g = torch.ops.aten.silu_backward(dy.float(), u)
+    gp = F.pad(g, (0, 0, 0, wc - 1))       # g at t .. t + wc - 1
+    dx = gp[:, 0:s] * wf[:, wc - 1]
+    for i in range(wc - 2, -1, -1):
+        dx = dx + gp[:, wc - 1 - i:wc - 1 - i + s] * wf[:, i]
+    dw = torch.stack([(g * pad[:, i:i + s]).sum((0, 1)) for i in range(wc)],
+                     dim=-1)
+    return dx.to(xbc.dtype), dw.to(w.dtype), g.sum((0, 1)).to(b.dtype)

@@ -296,10 +296,13 @@ def kernels_logged(counter: "OpCounter"):
     dx), K3's (``flash_attention.flash_attention``, with or without the
     row statistics), K3's backward's
     (``flash_attention.flash_attention_backward``), K4's
-    (``ssd_scan.ssd_scan_grouped``) and K4's backward's
-    (``ssd_scan.ssd_scan_grouped_backward``) make their outputs empty and
-    log one op each on ``counter``. Their plain bodies do not run: the
-    count is of the kernels' traffic and operations. Restored on exit."""
+    (``ssd_scan.ssd_scan_grouped``), K4's backward's
+    (``ssd_scan.ssd_scan_grouped_backward``) and the Mamba-2 conv's, each
+    way (``causal_conv.causal_conv``, ``causal_conv.causal_conv_backward``;
+    no products: no FLOPs) make their outputs empty and log one op each on
+    ``counter``. Their plain bodies do not run: the count is of the
+    kernels' traffic and operations. Restored on exit."""
+    from repro_torch.kernels import causal_conv as kconv
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import lora_matmul as k2
     from repro_torch.kernels import ssd_scan as k4
@@ -355,16 +358,33 @@ def kernels_logged(counter: "OpCounter"):
                        ssd_backward_flops(bt, h, g, s, p, n))
         return tuple(gr if need else None for gr, need in zip(grads, needs))
 
+    def conv(xin, B, C, w, b):
+        y = torch.empty((*xin.shape[:2], w.shape[0]), dtype=xin.dtype,
+                        device=xin.device)
+        counter.kernel("causal_conv", (xin, B, C, w, b), y, 0)
+        return y
+
+    def conv_backward(xin, B, C, w, b, dx=None, dB=None, dC=None,
+                      needs=(True,) * 5):
+        grads = tuple(torch.empty_like(t) if need else None
+                      for t, need in zip((xin, B, C, w, b), needs))
+        counter.kernel("causal_conv_backward", (xin, B, C, w, b, dx, dB, dC),
+                       grads, 0)
+        return grads
+
     saved = (k2._run, k3.flash_attention, k3.flash_attention_backward,
-             k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward)
+             k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward,
+             kconv.causal_conv, kconv.causal_conv_backward)
     (k2._run, k3.flash_attention, k3.flash_attention_backward,
-     k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward) = (
-        lora, flash, flash_backward, ssd, ssd_backward)
+     k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward, kconv.causal_conv,
+     kconv.causal_conv_backward) = (lora, flash, flash_backward, ssd,
+                                    ssd_backward, conv, conv_backward)
     try:
         yield
     finally:
         (k2._run, k3.flash_attention, k3.flash_attention_backward,
-         k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward) = saved
+         k4.ssd_scan_grouped, k4.ssd_scan_grouped_backward,
+         kconv.causal_conv, kconv.causal_conv_backward) = saved
 
 
 def analyze(log: List[dict], while_trips=(), top_k: int = 0) -> dict:

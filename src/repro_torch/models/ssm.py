@@ -5,14 +5,15 @@ Recurrence per head h (A scalar-per-head, state (P, N)):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t  (outer) x_t
     y_t = C_t . h_t + D * x_t
 
-Prefill's SSD goes through ``ops.ssd`` (K4 on the card) when
-``kcfg.use_cuda``; otherwise it runs :func:`ssd_chunked`, the reference
-model's own chunked computation. The ``wx`` and ``out_proj`` projections
-carry LoRA adapters and go through ``lora.proj`` (K2); ``wz``, ``wB``,
-``wC`` and ``wdt`` are plain products, as XLA computes them in the
-reference. Decode keeps O(1) state: the depthwise-conv tail (width-1 raw
-frames) and the (H, P, N) f32 SSD state. ``A_log``, ``D`` and ``dt_bias``
-stay f32 whatever the model dtype.
+Prefill's causal conv goes through ``ops.causal_conv`` (one kernel each
+way on the card) and its SSD through ``ops.ssd`` (K4 on the card) when
+``kcfg.use_cuda``; otherwise they run :func:`_causal_conv` and
+:func:`ssd_chunked`, the reference model's own computations. The ``wx``
+and ``out_proj`` projections carry LoRA adapters and go through
+``lora.proj`` (K2); ``wz``, ``wB``, ``wC`` and ``wdt`` are plain products,
+as XLA computes them in the reference. Decode keeps O(1) state: the
+depthwise-conv tail (width-1 raw frames) and the (H, P, N) f32 SSD state.
+``A_log``, ``D`` and ``dt_bias`` stay f32 whatever the model dtype.
 """
 from __future__ import annotations
 
@@ -211,16 +212,25 @@ def _project_inputs(cfg, p, x, kcfg: ops.KernelConfig = ops.DEFAULT):
 
 
 @ranges.stage(ranges.SSM_CONV)
-def _conv(xin, Braw, Craw, w, b, di: int):
-    """The causal conv over x, B and C side by side, split again:
-    (its raw input, x (B,S,di), B, C (B,S,G,N))."""
+def _conv(xin, Braw, Craw, w, b, kcfg: ops.KernelConfig = ops.DEFAULT):
+    """The causal conv over x, B and C side by side (``ops.causal_conv``),
+    split again: x (B,S,di), B, C (B,S,G,N), views of one buffer."""
     bsz, S, G, N = Braw.shape
-    xbc_raw = torch.cat([xin, Braw.reshape(bsz, S, G * N),
-                         Craw.reshape(bsz, S, G * N)], dim=-1)
-    xbc = _causal_conv(xbc_raw, w, b)
-    return (xbc_raw, xbc[..., :di],
-            xbc[..., di:di + G * N].reshape(bsz, S, G, N),
-            xbc[..., di + G * N:].reshape(bsz, S, G, N))
+    xs, B, C = ops.causal_conv(xin, Braw.reshape(bsz, S, G * N),
+                               Craw.reshape(bsz, S, G * N), w, b, kcfg=kcfg)
+    return xs, B.reshape(bsz, S, G, N), C.reshape(bsz, S, G, N)
+
+
+def _conv_tail(xin, Braw, Craw, wc: int):
+    """The decode step's conv state: the last wc-1 raw (pre-conv) frames of
+    x, B and C side by side (B, wc-1, C), zero in front when S < wc-1."""
+    bsz, S, G, N = Braw.shape
+    k = min(S, wc - 1)
+    tail = torch.cat([xin[:, S - k:], Braw[:, S - k:].reshape(bsz, k, G * N),
+                      Craw[:, S - k:].reshape(bsz, k, G * N)], dim=-1)
+    # no pad of a full tail: PyTorch 2.11's DTensor cannot pad a tensor
+    # split on a mesh of more than one dimension (the sharded dry run)
+    return tail if k == wc - 1 else F.pad(tail, (0, 0, wc - 1 - k, 0))
 
 
 @ranges.stage(ranges.SSM_MIXER)
@@ -236,7 +246,7 @@ def apply_mamba(cfg, p, x, return_cache: bool = False,
     bsz, S, _ = x.shape
 
     z, xin, Braw, Craw, dt_raw = _project_inputs(cfg, p, x, kcfg)
-    xbc_raw, xs, B, C = _conv(xin, Braw, Craw, p["conv_w"], p["conv_b"], di)
+    xs, B, C = _conv(xin, Braw, Craw, p["conv_w"], p["conv_b"], kcfg)
     xs = xs.reshape(bsz, S, H, P)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
@@ -256,9 +266,7 @@ def apply_mamba(cfg, p, x, return_cache: bool = False,
     res = lora_lib.proj(out, p["out_proj"], None, p["lora"]["out"], scale,
                         kcfg)
     if return_cache:
-        wc = s.conv_width
-        conv_tail = (xbc_raw[:, S - (wc - 1):] if S >= wc - 1
-                     else F.pad(xbc_raw, (0, 0, wc - 1 - S, 0)))
+        conv_tail = _conv_tail(xin, Braw, Craw, s.conv_width)
         return res, {"conv": conv_tail, "ssd": h_final}
     return res
 

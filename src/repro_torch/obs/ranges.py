@@ -42,7 +42,7 @@ BLOCK = "block"                 # a decoder layer; its residual adds
 NORM = "norm"
 ROPE = "rope"
 SSM_MIXER = "ssm mixer"
-SSM_CONV = "ssm conv"           # the causal conv with its cat and splits
+SSM_CONV = "ssm conv"           # the causal conv and its splits
 SSM_GATED_NORM = "ssm gated norm"
 LORA_MATMUL = "ops.lora_matmul"
 ATTENTION = "ops.attention"

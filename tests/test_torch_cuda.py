@@ -1186,6 +1186,207 @@ def test_k4_grouped_rejects_what_it_does_not_take(cuda):
         ssd_scan_grouped(x, dt.bfloat16(), a, b, c)
 
 
+# The Mamba-2 conv's kernels: (batch, S, d_inner, G N, wc). mamba2-370m's
+# training shape in the benchmark (24 x 2048, C = 2,304), zamba2-2.7b's
+# (C = 5,248), and the edges: S = 1, S = 2 < wc - 1, widths off a multiple
+# of 8, wc 1 to 3, more than one run of 32 tokens.
+CONV_BIG = [(24, 2048, 2048, 128, 4), (8, 4096, 5120, 64, 4)]
+CONV_EDGES = [(2, 1, 20, 6, 4), (1, 2, 12, 4, 4), (2, 9, 13, 3, 4),
+              (2, 33, 24, 8, 2), (3, 40, 32, 16, 4), (2, 50, 16, 8, 1),
+              (2, 50, 16, 8, 3), (2, 100, 64, 128, 4), (1, 70, 2048, 128, 4)]
+
+
+def _conv_inputs(dev, shape, dtype, seed):
+    """(x, B, C, w, b), then the cotangents of xbc's three parts."""
+    bt, s, di, gn, wc = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*dims, scale=1.0):
+        return (torch.randn(dims, generator=g, device=dev) * scale).to(dtype)
+
+    ch = di + 2 * gn
+    ins = (draw(bt, s, di), draw(bt, s, gn), draw(bt, s, gn),
+           draw(ch, wc, scale=0.3), draw(ch, scale=0.1))
+    return ins, (draw(bt, s, di), draw(bt, s, gn), draw(bt, s, gn))
+
+
+def _conv_ids(shape):
+    return "b{}s{}di{}gn{}wc{}".format(*shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CONV_BIG + CONV_EDGES, ids=_conv_ids)
+def test_causal_conv_bit_equal_to_plain(cuda, shape, dtype):
+    """The forward kernel against ``models/ssm._causal_conv`` of the cat on
+    the card: the same bits (the same IEEE roundings in the same order)."""
+    from repro_torch.kernels.causal_conv import causal_conv, plain
+
+    ins, _ = _conv_inputs(cuda, shape, dtype, 1)
+    got = causal_conv(*ins)
+    want = plain(*ins)
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+def _conv_oracle(x, B, C, w, b, douts):
+    """The gradients (dx, dB, dC, dw, db) in f64, at the pre-activation u
+    as the forward rounds it."""
+    wc, s = w.shape[1], x.shape[1]
+    pad = torch.nn.functional.pad(torch.cat([x, B, C], -1),
+                                  (0, 0, wc - 1, 0))
+    y = pad[:, 0:s].float() * w.float()[:, 0]
+    for i in range(1, wc):
+        y = y + pad[:, i:i + s].float() * w.float()[:, i]
+    u = (y.to(x.dtype) + b).double()
+    sig = torch.sigmoid(u)
+    g = torch.cat(douts, -1).double() * sig * (1 + u * (1 - sig))
+    del y, u, sig
+    pad, wd = pad.double(), w.double()
+    gp = torch.nn.functional.pad(g, (0, 0, 0, wc - 1))
+    dxbc = sum(gp[:, wc - 1 - i:wc - 1 - i + s] * wd[:, i]
+               for i in range(wc))
+    dw = torch.stack([(g * pad[:, i:i + s]).sum((0, 1)) for i in range(wc)],
+                     -1)
+    di, gn = x.shape[-1], B.shape[-1]
+    return (dxbc[..., :di], dxbc[..., di:di + gn], dxbc[..., di + gn:], dw,
+            g.sum((0, 1)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CONV_BIG + CONV_EDGES, ids=_conv_ids)
+def test_causal_conv_backward_against_f64(cuda, shape, dtype):
+    """dx, dB, dC, dw and db of the backward kernel against the f64
+    gradients: in bf16 no further (in norm) than autograd's through the
+    plain chain on the card, which rounds g, each shifted slice's gradient
+    and their sums to bf16, and elementwise within one bf16 rounding of
+    them (2^-7 |want| + 2^-7 max|want|: f32 sums, one rounding each); in
+    f32 within 1e-5 |want| + 1e-5 max|want| (f32 sums in another order),
+    as autograd's are."""
+    from repro_torch.kernels.causal_conv import (causal_conv_backward,
+                                                 plain, split)
+
+    ins, douts = _conv_inputs(cuda, shape, dtype, 2)
+    got = causal_conv_backward(*ins, *douts)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    xbc = plain(*leaves)
+    parts = split(xbc, shape[2], shape[3])
+    auto = torch.autograd.grad(parts, leaves, douts)
+    del xbc, parts, leaves
+    want = _conv_oracle(*ins, douts)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for name, k, a, o in zip(("dx", "dB", "dC", "dw", "db"), got, auto,
+                             want):
+        assert k.dtype == dtype and k.shape == o.shape, name
+        scale = float(o.abs().max())
+        torch.testing.assert_close(k.double(), o, rtol=tol, atol=tol * scale)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.double(), o, rtol=tol,
+                                       atol=tol * scale)
+    if dtype == torch.bfloat16:
+        # the input's gradient (x, B and C together), dw, db
+        for name, k, a, o in (("d(x, B, C)", torch.cat(got[:3], -1),
+                               torch.cat(auto[:3], -1), torch.cat(want[:3],
+                                                                  -1)),
+                              ("dw", got[3], auto[3], want[3]),
+                              ("db", got[4], auto[4], want[4])):
+            err_k = float((k.double() - o).norm())
+            err_a = float((a.double() - o).norm())
+            assert err_k <= err_a, (name, err_k, err_a)
+
+
+def test_causal_conv_backward_is_deterministic(cuda):
+    """dw and db from per-run partials summed in a fixed order, no atomics:
+    two launches give the same bits."""
+    from repro_torch.kernels.causal_conv import causal_conv_backward
+
+    ins, douts = _conv_inputs(cuda, (2, 700, 256, 64, 4), torch.bfloat16, 3)
+    g1 = causal_conv_backward(*ins, *douts)
+    g2 = causal_conv_backward(*ins, *douts)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_causal_conv_reads_strided_and_misaligned_rows(cuda, dtype):
+    """x, B and C as views of one wider buffer, at offsets off 16 bytes (the
+    element-by-element path) and with a padded row stride: the bits of the
+    same values contiguous, both ways; an absent cotangent is zero."""
+    from repro_torch.kernels.causal_conv import (causal_conv,
+                                                 causal_conv_backward)
+
+    shape = (2, 77, 64, 16, 4)
+    ins, douts = _conv_inputs(cuda, shape, dtype, 4)
+    x, B, C, w, b = ins
+    buf = torch.zeros((2, 77, 64 + 2 * 16 + 11), dtype=dtype, device=cuda)
+    views = (buf[..., 1:65], buf[..., 66:82], buf[..., 83:99])
+    for v, t in zip(views, (x, B, C)):
+        v.copy_(t)
+    assert views[0].data_ptr() % 16
+    assert torch.equal(causal_conv(*views, w, b), causal_conv(x, B, C, w, b))
+    want = causal_conv_backward(x, B, C, w, b, douts[0], None, douts[2])
+    got = causal_conv_backward(*views, w, b, douts[0], None, douts[2])
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    zero = causal_conv_backward(x, B, C, w, b, douts[0],
+                                torch.zeros_like(B), douts[2])
+    assert all(torch.equal(a, c) for a, c in zip(zero, want))
+
+
+def test_causal_conv_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.causal_conv import (causal_conv,
+                                                 causal_conv_backward)
+
+    (x, B, C, w, b), douts = _conv_inputs(cuda, (2, 16, 32, 8, 4),
+                                          torch.bfloat16, 5)
+    with pytest.raises(TypeError, match="one dtype"):
+        causal_conv(x.half(), B.half(), C.half(), w.half(), b.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        causal_conv(x, B, C, w.float(), b)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        causal_conv(x, B, C, w.cpu(), b)
+    with pytest.raises(ValueError, match=r"wc in \[1, 4\]"):
+        causal_conv(x, B, C, torch.zeros((48, 5), dtype=w.dtype,
+                                         device=cuda), b)
+    with pytest.raises(ValueError, match=r"wc in \[1, 4\]"):
+        causal_conv(x, B, C, w, b[:-1])
+    with pytest.raises(ValueError, match="w and b contiguous"):
+        causal_conv(x, B, C, w.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        causal_conv(x.transpose(1, 2).contiguous().transpose(1, 2), B, C, w,
+                    b)
+    with pytest.raises(ValueError, match="one \\(Bt, S\\)"):
+        causal_conv(x, B[:, :-1], C, w, b)
+    with pytest.raises(ValueError, match="shaped as"):
+        causal_conv_backward(x, B, C, w, b, douts[0][:, :-1], *douts[1:])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        causal_conv(x.clone().requires_grad_(True), B, C, w, b)
+
+
+def test_causal_conv_function_launches_the_kernels(cuda):
+    """``ops.causal_conv`` with ``use_cuda`` under autograd: one forward
+    launch, and its backward one launch of the backward kernel, whose
+    gradients are the raw entry's; the plain route launches nothing."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.causal_conv import (causal_conv,
+                                                 causal_conv_backward)
+
+    ins, douts = _conv_inputs(cuda, (2, 130, 64, 16, 4), torch.bfloat16, 6)
+    leaves = [t.clone().requires_grad_(need)
+              for t, need in zip(ins, (True, True, True, False, False))]
+    before = (causal_conv.launches, causal_conv.backward_launches)
+    outs = ops.causal_conv(*leaves, kcfg=ops.KernelConfig(use_cuda=True))
+    got = torch.autograd.grad(outs, leaves[:3], douts)
+    assert (causal_conv.launches - before[0],
+            causal_conv.backward_launches - before[1]) == (1, 1)
+    want = causal_conv_backward(*ins, *douts,
+                                needs=(True, True, True, False, False))
+    assert all(torch.equal(a, c) for a, c in zip(got, want[:3]))
+    assert want[3:] == (None, None)
+    before = (causal_conv.launches, causal_conv.backward_launches)
+    ops.causal_conv(*ins, kcfg=ops.KernelConfig(use_cuda=False))
+    assert (causal_conv.launches, causal_conv.backward_launches) == before
+
+
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
 def test_ssm_hybrid_serving_smoke_config_cuda_equals_cpu(cuda, arch):
     """The mamba2-370m and zamba2-2.7b smoke configs (f32) served greedily

@@ -271,8 +271,9 @@ def test_ssd_flops():
 def test_counted_kernel_path_of_an_ssm_train_step(arch, tmp_path):
     """``dryrun.count(kernels=True)`` of the SSM and hybrid smoke configs'
     training step (remat full) counts the card's path: K4 forward twice a
-    layer (the remat recompute), K4's backward once a layer, K2 on wx and
-    out_proj; no step-by-step plain route in the log."""
+    layer (the remat recompute), K4's backward once a layer, the conv's
+    kernel likewise (no cat in its place), K2 on wx and out_proj; no
+    step-by-step plain route in the log."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
@@ -286,6 +287,9 @@ def test_counted_kernel_path_of_an_ssm_train_step(arch, tmp_path):
     ks = acc["kernels"]
     assert (ks["ssd_scan"]["count"], ks["ssd_scan_backward"]["count"]) == \
         (2 * n, n)
+    assert (ks["causal_conv"]["count"],
+            ks["causal_conv_backward"]["count"]) == (2 * n, n)
+    assert ks["causal_conv"]["flops"] == 0
     sc = cfg.ssm
     heads = sc.heads(cfg.d_model)
     assert ks["ssd_scan_backward"]["flops"] == n * oa.ssd_backward_flops(

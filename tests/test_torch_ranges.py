@@ -55,7 +55,7 @@ COUNTS = {
 # a backward op of each stage (autograd's node name) and the half it lies
 # in; ops that the CPU's plain attention backward also runs are left out
 BACKWARD_OPS = {
-    "mamba2-370m": [("ConstantPadNdBackward0", B(ranges.SSM_CONV)),
+    "mamba2-370m": [("CausalConvBackward", B(ranges.SSM_CONV)),
                     ("SoftplusBackward0", B(ranges.SSM_MIXER)),
                     ("LoRAMatmulBackward", B(ranges.LORA_MATMUL)),
                     ("SSDScanBackward", B(ranges.SSD)),
